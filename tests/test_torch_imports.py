@@ -1,0 +1,155 @@
+"""The PyTorch port stands alone: it imports no JAX and nothing of the JAX
+package, and its entry points run on the card or raise — never a silent
+move to the CPU."""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(2)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = r"""
+import importlib, json, pkgutil, sys
+sys.modules["jax"] = None          # any `import jax` now raises
+import tsspark_tpu_torch
+names = sorted(m.name for m in pkgutil.walk_packages(
+    tsspark_tpu_torch.__path__, "tsspark_tpu_torch."))
+for n in names:
+    importlib.import_module(n)
+import chip_smoke  # noqa: F401
+loaded = [m for m, mod in sys.modules.items() if mod is not None]
+bad = [m for m in loaded
+       if m == "tsspark_tpu" or m.startswith("tsspark_tpu.")
+       or m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")]
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def _run(code, cwd=ROOT, env_extra=None):
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    env.update(env_extra or {})
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    proc = _run(_IMPORT_ALL)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["bad"] == []
+    # Every module of the slice was imported (the walk saw the package).
+    for mod in ("tsspark_tpu_torch.kernels.forward",
+                "tsspark_tpu_torch.kernels.bands",
+                "tsspark_tpu_torch.serve.engine",
+                "tsspark_tpu_torch.backends.cuda",
+                "tsspark_tpu_torch.carry"):
+        assert mod in out["modules"]
+
+
+def test_prefix_check_tells_the_two_packages_apart():
+    # tsspark_tpu_torch starts with "tsspark_tpu": the check above must not
+    # flag the port itself, and must flag the JAX package.
+    is_jax_pkg = lambda m: m == "tsspark_tpu" or m.startswith("tsspark_tpu.")  # noqa: E731
+    assert not is_jax_pkg("tsspark_tpu_torch")
+    assert not is_jax_pkg("tsspark_tpu_torch.serve")
+    assert is_jax_pkg("tsspark_tpu") and is_jax_pkg("tsspark_tpu.config")
+
+
+def test_chip_smoke_without_a_card_fails_and_prints_no_result():
+    proc = _run(
+        "import sys, runpy; sys.argv = ['chip_smoke.py']; "
+        "import torch; torch.cuda.is_available = lambda: False; "
+        "runpy.run_path('chip_smoke.py', run_name='__main__')"
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def _no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_default_device_entry_points_raise_without_a_card(monkeypatch,
+                                                          tmp_path):
+    from tsspark_tpu_torch.backends.registry import get_backend
+    from tsspark_tpu_torch.config import ProphetConfig
+    from tsspark_tpu_torch.models.prophet.model import ProphetModel
+    from tsspark_tpu_torch.serve import ParamRegistry, PredictionEngine
+
+    _no_card(monkeypatch)
+    cfg = ProphetConfig()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ProphetModel(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_backend("cuda", cfg)
+    reg = ParamRegistry(str(tmp_path / "reg"), cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PredictionEngine(reg)
+    # Asking for the CPU explicitly is the only way onto it.
+    assert ProphetModel(cfg, device="cpu").device.type == "cpu"
+    assert PredictionEngine(reg, device="cpu").backend.device.type == "cpu"
+
+
+def test_kernel_wrappers_refuse_other_devices():
+    from tsspark_tpu_torch.config import ProphetConfig
+    from tsspark_tpu_torch.kernels import forward as fk
+    from tsspark_tpu_torch.models.prophet.design import FitData
+
+    cfg = ProphetConfig(seasonalities=(), n_changepoints=0)
+    meta = lambda *s: torch.empty(s, device="meta")  # noqa: E731
+    data = FitData(t=meta(2, 3), y=meta(2, 3), mask=meta(2, 3),
+                   s=meta(2, 0), cap=meta(2, 3), X_season=meta(3, 0),
+                   X_reg=meta(2, 3, 0), prior_scales=meta(0),
+                   mult_mask=meta(0))
+    before = fk.launches
+    with pytest.raises(ValueError, match="unsupported device"):
+        fk.forward(meta(2, 3), data, cfg)
+    assert fk.launches == before
+
+
+def test_cpu_wrappers_count_no_launches():
+    from tsspark_tpu_torch.config import ProphetConfig
+    from tsspark_tpu_torch.kernels import bands as bk
+    from tsspark_tpu_torch.kernels import forward as fk
+    from tsspark_tpu_torch.models.prophet.model import ProphetModel
+    from tsspark_tpu_torch.carry import fitstate_from_numpy
+
+    cfg = ProphetConfig(n_changepoints=3)
+    b = 4
+    rng = np.random.default_rng(0)
+    state = fitstate_from_numpy({
+        "theta": rng.normal(0, 0.1, (b, cfg.num_params)),
+        "loss": np.zeros(b), "grad_norm": np.zeros(b),
+        "converged": np.ones(b, bool), "n_iters": np.zeros(b, np.int32),
+        "y_scale": np.ones(b), "floor": np.zeros(b),
+        "ds_start": np.full(b, 18000.0), "ds_span": np.full(b, 100.0),
+        "reg_mean": np.zeros((b, 0)), "reg_std": np.ones((b, 0)),
+        "changepoints": np.tile([0.2, 0.4, 0.6], (b, 1)),
+    })
+    f0, b0 = fk.launches, bk.launches
+    out = ProphetModel(cfg, device="cpu").predict(
+        state, 18100.0 + np.arange(5.0), num_samples=16)
+    assert out["yhat_lower"].shape == (b, 5)
+    assert (fk.launches, bk.launches) == (f0, b0)
+
+
+def test_chip_smoke_alone_in_a_directory_fails(tmp_path):
+    import shutil
+
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path)
+    proc = _run(
+        "import sys, runpy; sys.argv = ['chip_smoke.py']; "
+        "import torch; torch.cuda.is_available = lambda: True; "
+        "runpy.run_path('chip_smoke.py', run_name='__main__')",
+        cwd=str(tmp_path),
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout

@@ -1,0 +1,59 @@
+"""Carry fitted weights between the JAX package and the port.
+
+A fitted state crosses as plain numpy leaves: the JAX package's
+``FitState`` fields (``theta``, ``loss``, ``grad_norm``, ``converged``,
+``n_iters``, ``status``) and its ``ScalingMeta`` fields, in one flat
+mapping.  ``theta`` becomes a float32 tensor on the chosen device; the
+scaling metadata stays host float64 (``ds_start`` is absolute epoch days,
+which float32 would quantize to ~5 minutes).  The other way across is
+the parameter registry: the port opens an npz version the JAX package
+published (``serve.registry.ParamRegistry.open``).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from tsspark_tpu_torch.models.prophet.design import ScalingMeta
+from tsspark_tpu_torch.models.prophet.model import FitState
+
+STATE_FIELDS = ("theta", "loss", "grad_norm", "converged", "n_iters")
+
+
+def fitstate_from_numpy(arrays: Mapping[str, np.ndarray],
+                        device="cpu") -> FitState:
+    """The port's FitState from numpy leaves (see the module docstring).
+    ``status`` is optional."""
+    meta = ScalingMeta(**{
+        f: np.asarray(arrays[f], np.float64) for f in ScalingMeta._fields
+    })
+    status = arrays.get("status")
+    return FitState(
+        theta=torch.from_numpy(
+            np.array(arrays["theta"], np.float32)  # a writable copy
+        ).to(device),
+        meta=meta,
+        loss=np.asarray(arrays["loss"]),
+        grad_norm=np.asarray(arrays["grad_norm"]),
+        converged=np.asarray(arrays["converged"]),
+        n_iters=np.asarray(arrays["n_iters"]),
+        status=None if status is None else np.asarray(status),
+    )
+
+
+def fitstate_to_numpy(state: FitState) -> Dict[str, np.ndarray]:
+    """Inverse of :func:`fitstate_from_numpy`: one flat mapping of host
+    numpy leaves (``status`` only when present)."""
+    theta = state.theta
+    if isinstance(theta, torch.Tensor):
+        theta = theta.detach().cpu().numpy()
+    out = {"theta": np.asarray(theta)}
+    for f in STATE_FIELDS[1:]:
+        out[f] = np.asarray(getattr(state, f))
+    if state.status is not None:
+        out["status"] = np.asarray(state.status)
+    out.update({k: np.asarray(v) for k, v in state.meta._asdict().items()})
+    return out

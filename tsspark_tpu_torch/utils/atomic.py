@@ -1,0 +1,59 @@
+"""Atomic write-temp-then-rename for every durable artifact of the port.
+
+The full payload goes to a dot-prefixed, pid-suffixed temp file in the
+TARGET directory (same filesystem, so the rename is atomic) and is then
+``os.replace``-d into place: a reader sees the old file, the new file,
+or no file — never a torn one.  Same naming as the JAX package's helper,
+so either package's sweep reaps the other's orphans.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Callable
+
+#: A live writer keeps its temp's mtime moving; 10 minutes of silence
+#: means the writer is dead.
+STALE_TEMP_S = 600.0
+
+
+def _tmp_path(path: str) -> str:
+    d, base = os.path.split(os.path.abspath(path))
+    return os.path.join(d, f".{base}.tmp.{os.getpid()}")
+
+
+def atomic_write(path: str, write_fn: Callable, mode: str = "wb") -> None:
+    """Write ``path`` atomically: ``write_fn(fh)`` fills a temp file which
+    is closed and renamed into place."""
+    tmp = _tmp_path(path)
+    try:
+        with open(tmp, mode) as fh:
+            write_fn(fh)
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.remove(tmp)
+        except OSError:
+            pass
+        raise
+
+
+def sweep_stale_temps(root: str, max_age_s: float = STALE_TEMP_S) -> int:
+    """Remove dead writers' orphaned ``.*.tmp.<pid>`` files anywhere under
+    ``root`` (age-gated so a live writer's temp is never yanked).  Returns
+    the count removed."""
+    removed = 0
+    now = time.time()
+    for d, _sub, names in os.walk(root):
+        for name in names:
+            if not (name.startswith(".") and ".tmp." in name):
+                continue
+            p = os.path.join(d, name)
+            try:
+                if now - os.path.getmtime(p) > max_age_s:
+                    os.remove(p)
+                    removed += 1
+            except OSError:
+                continue  # already gone / racing writer won its rename
+    return removed
