@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA card and check it end to end.
 
-    python3 chip_smoke.py [--seed N] [--quick]
+    python3 chip_smoke.py [--seed N]
 
 Phases, one JSON line each; any failure raises and the script exits
 non-zero without printing the final line:
@@ -12,9 +12,11 @@ non-zero without printing the final line:
    (B=2048, T=1969, 25 changepoints, 26 Fourier columns; shared and
    per-series features, 3 regressors; linear, flat and logistic growth).
 3. bands   — kernel K2 against its plain version: first on given draws
-   (B=1024, T=32, S=256, equal to float32 tolerance), then on its own
-   Philox draws against the plain version's generator (a Monte-Carlo
-   bound), and lo <= hi everywhere.
+   (B=1024, T=32, S=256, and S up to 16,384 on a few rows; equal to
+   float32 tolerance), then on its own Philox draws against the plain
+   version's generator (Monte-Carlo bounds on the yhat bands, where the
+   normal draws dominate, and on the trend bands of a horizon where
+   simulated changepoints dominate), and lo <= hi everywhere.
 4. serve   — the port's main path at full width: ``m5_like(30490, 1941)``
    prepared under the default ``ProphetConfig`` (26 Fourier columns, 25
    changepoints, 256 samples), parameters drawn from ``--seed``,
@@ -23,12 +25,15 @@ non-zero without printing the final line:
    deterministic, 4,096 sampled, all sampled, a cached repeat) and one
    in-sample + 28-day ``backend.predict`` over the shared calendar.
    Kernel launch counts are set to 0 just before and read just after.
-5. kernels — each kernel's time at the main path's shapes against its
+   Then a profile of requests (a) and (c) on a cacheless engine: device
+   busy time from ``torch.profiler``, host time per stage from the
+   engine's and the backend's own stage clocks.
+5. kernels — each kernel at the main path's shapes, on the main path's
+   inputs, held against its plain version, and its time against its
    bound, its plain version and (where one exists) one PyTorch call.
 
 The last three lines: the kernels JSON object, ``nvidia-smi``'s
 ``name, power.limit`` line, and ``{"ok": true, "device": {...}}``.
-``--quick`` stops after phase 3 (a first build-and-check call).
 """
 
 from __future__ import annotations
@@ -151,19 +156,19 @@ def forward_bound_ms(b, t_len, config, per_series, rescale) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def bands_bound_ms(b, t_len, s, config) -> dict:
+def bands_bound_ms(b, t_len, s, config, given_draws=False) -> dict:
     """Least time for one bands launch: bytes of the (B, T) inputs and
-    outputs, against the float32 operations of the bitonic sort of both
-    columns at each cell (2 per compare-exchange) plus ~20 per sample
-    and step for the simulation (the variate generation not counted)."""
-    n = 32
-    while n < s:
-        n *= 2
-    lg = n.bit_length() - 1
-    cex = (n // 2) * lg * (lg + 1) // 2
+    outputs (and of the (S, B, T) draws when given), against the float32
+    operations the function needs at each cell: ~20 per sample for the
+    simulation (variate generation not counted) and a selection of the
+    two order statistics of each column, O(S) — counted as 2 per sample
+    per column.  The kernel's bitonic sort is its design's cost, not the
+    function's, and is not counted."""
     floats = 8 * b * t_len + b * config.num_params + 2 * b
+    if given_draws:
+        floats += 3 * s * b * t_len
     t_bytes = 4 * floats / PEAK_BYTES_PER_S * 1e3
-    t_ops = b * t_len * (2 * 2 * cex + 20 * s) / PEAK_F32_PER_S * 1e3
+    t_ops = b * t_len * s * (20 + 2 * 2) / PEAK_F32_PER_S * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -227,6 +232,36 @@ def phase_forward(rng, device) -> dict:
     return out
 
 
+def _band_err(got, want, scale) -> float:
+    """max over keys and cells of |k - p| / (y_scale + |p|)."""
+    return max(float(((got[k] - want[k]).abs()
+                      / (scale[:, None] + want[k].abs())).max())
+               for k in want)
+
+
+def _mc_compare(own, ref, lo_key, hi_key, unit) -> dict:
+    """Two Monte-Carlo estimates of the same (lo, hi) band, cell by cell,
+    in ``unit`` (the spread of what is sampled): the median signed and
+    absolute differences, and the median ratio of the band widths."""
+    out = {}
+    for k in (lo_key, hi_key):
+        d = (own[k] - ref[k]) / unit
+        out[k] = {"median": float(d.median()),
+                  "median_abs": float(d.abs().median())}
+    width = own[hi_key] - own[lo_key]
+    out["width_ratio_median"] = float(
+        (width / (ref[hi_key] - ref[lo_key])).median())
+    return out
+
+
+def _require_mc(mc, lo_key, hi_key, what) -> None:
+    for k in (lo_key, hi_key):
+        require(abs(mc[k]["median"]) <= 0.05, f"{what} MC bias {k}")
+        require(mc[k]["median_abs"] <= 0.3, f"{what} MC spread {k}")
+    require(abs(mc["width_ratio_median"] - 1.0) <= 0.03,
+            f"{what} MC band width ratio {mc['width_ratio_median']}")
+
+
 def phase_bands(rng, device) -> dict:
     import torch
 
@@ -235,72 +270,107 @@ def phase_bands(rng, device) -> dict:
     from tsspark_tpu_torch.kernels import forward as fk
 
     cfg = ProphetConfig()
-    b, t_len, s = 1024, 32, 256
-    data = synthetic_data(rng, cfg, b, t_len, True, device)
+    tol = 1e-5
+
+    def inputs(b, t_np):
+        t_len = t_np.shape[0]
+        data = synthetic_data(rng, cfg, b, t_len, True, device)
+        data = data._replace(t=torch.from_numpy(np.ascontiguousarray(
+            np.broadcast_to(t_np.astype(np.float32), (b, t_len)))).to(device))
+        theta = torch.from_numpy(random_theta(rng, b, cfg)).to(device)
+        scale = torch.from_numpy(
+            rng.uniform(1.0, 50.0, b).astype(np.float32)).to(device)
+        floor = torch.zeros(b, device=device)
+        _, det, add, mult = fk.forward(theta, data, cfg)
+        return theta, data, det, add, mult, scale, floor
+
+    def on_cpu(args):
+        theta, data, *rest = args
+        return (theta.cpu(), data._replace(
+            **{f: getattr(data, f).cpu() for f in data._fields}),
+            *(x.cpu() for x in rest))
+
     # Engine-like grid: the horizon steps just past the history.
-    t_np = 1.0 + np.arange(1, t_len + 1, dtype=np.float32) / 1940.0
-    data = data._replace(t=torch.from_numpy(
-        np.ascontiguousarray(np.broadcast_to(t_np, (b, t_len)))).to(device))
-    theta = torch.from_numpy(random_theta(rng, b, cfg)).to(device)
-    scale = torch.from_numpy(
-        rng.uniform(1.0, 50.0, b).astype(np.float32)).to(device)
-    floor = torch.zeros(b, device=device)
-    _, det, add, mult = fk.forward(theta, data, cfg)
+    b, t_len, s = 1024, 32, 256
+    eng_t = 1.0 + np.arange(1, t_len + 1) / 1940.0
+    args = inputs(b, eng_t)
+    theta, data, det, add, mult, scale, floor = args
     gen = torch.Generator(device=device).manual_seed(7)
     draws = bk.sample_draws((s, b, t_len), gen, device)
-    got = bk.bands(theta, data, det, add, mult, scale, floor, cfg, s,
-                   draws=draws)
-    want = bk.bands_plain(theta, data, det, add, mult, scale, floor, cfg,
-                          draws)
+    got = bk.bands(*args, cfg, s, draws=draws)
+    want = bk.bands_plain(*args, cfg, draws)
     torch.cuda.synchronize()
-    tol = 1e-5
-    given = {}
-    for k in want:
-        e = float(((got[k] - want[k]).abs()
-                   / (scale[:, None] + want[k].abs())).max())
-        given[k] = e
-        require(e <= tol, f"bands given-draws {k}: {e} > {tol}")
-    # Own Philox draws against the plain version's generator: the bands
-    # are two Monte-Carlo estimates of the same quantiles.  In units of
-    # sigma * y_scale the standard error of one 10% / 90% quantile
-    # estimate at S=256 is ~0.11, of their difference ~0.15: the median
-    # signed difference over cells must be near 0 and the median
-    # absolute difference near 0.1.
-    own = bk.bands(theta, data, det, add, mult, scale, floor, cfg, s,
-                   seed=11)
-    ref = bk.bands(theta.cpu(), data._replace(
-        **{f: getattr(data, f).cpu() for f in data._fields}),
-        det.cpu(), add.cpu(), mult.cpu(), scale.cpu(), floor.cpu(), cfg, s,
-        seed=11)
-    sigma = torch.exp(theta[:, 2]).cpu()[:, None] * scale.cpu()[:, None]
-    mc = {}
-    for k in ("yhat_lower", "yhat_upper"):
-        d = (own[k].cpu() - ref[k]) / sigma
-        mc[k] = {"median": float(d.median()),
-                 "median_abs": float(d.abs().median())}
-        require(abs(mc[k]["median"]) <= 0.05, f"bands MC bias {k}")
-        require(mc[k]["median_abs"] <= 0.3, f"bands MC spread {k}")
+    given = {k: float(((got[k] - want[k]).abs()
+                       / (scale[:, None] + want[k].abs())).max())
+             for k in want}
+    require(max(given.values()) <= tol, f"bands given-draws: {given}")
+    # Sample counts past one thread per sample (several per thread, and
+    # the largest the kernel takes), on a few rows.
+    wide = {}
+    for n_s in (1000, 3000, bk.MAX_SAMPLES):
+        wargs = inputs(16, eng_t[:8])
+        wdraws = bk.sample_draws((n_s, 16, 8), gen, device)
+        e = _band_err(bk.bands(*wargs, cfg, n_s, draws=wdraws),
+                      bk.bands_plain(*wargs, cfg, wdraws), wargs[5])
+        wide[n_s] = e
+        require(e <= tol, f"bands given-draws S={n_s}: {e} > {tol}")
+    # Own Philox draws against the plain version's generator: two
+    # Monte-Carlo estimates of the same quantiles.  In units of the
+    # spread of what is sampled, the standard error of one 10% / 90%
+    # quantile estimate at S=256 is ~0.11 and of a difference of two
+    # ~0.15; the median signed difference over cells must be near 0, the
+    # median absolute one near 0.1, and the median ratio of band widths
+    # near 1 (its standard error over 1,024 rows is ~0.004).
+    #   yhat bands on the engine grid: the normal draws dominate, unit
+    #   sigma * y_scale.
+    own = bk.bands(*args, cfg, s, seed=11)
+    ref = {k: v.to(device) for k, v in
+           bk.bands(*on_cpu(args), cfg, s, seed=11).items()}
+    sigma = torch.exp(theta[:, 2])[:, None] * scale[:, None]
+    mc_yhat = _mc_compare(own, ref, "yhat_lower", "yhat_upper", sigma)
+    _require_mc(mc_yhat, "yhat_lower", "yhat_upper", "bands yhat")
     for lo, hi in (("yhat_lower", "yhat_upper"),
                    ("trend_lower", "trend_upper")):
         require(bool((own[lo] <= own[hi]).all()), f"{lo} <= {hi}")
         require(bool(torch.isfinite(own[lo]).all()), f"{lo} finite")
-    ms = cuda_ms(lambda: bk.bands(theta, data, det, add, mult, scale,
-                                  floor, cfg, s, seed=3))
-    plain_ms = cuda_ms(lambda: bk.bands_plain(
-        theta, data, det, add, mult, scale, floor, cfg, draws),
-        iters=3, warmup=1)
-    sim = bk.bands_plain(theta, data, det, add, mult, scale, floor, cfg,
-                         draws, return_samples=True)["yhat_samples"]
+    #   trend bands on a horizon of 64 steps of 0.01 (cp_prob ~0.25):
+    #   only the Bernoulli and Laplace draws move them.  Unit: the sd of
+    #   the simulated trend, sqrt(2 p lam^2 sum_j (t - t_j)^2) * y_scale,
+    #   over the later 32 steps (8 or more changepoints expected).
+    cp_t = 1.0 + 0.01 * np.arange(1, 65)
+    cargs = inputs(b, cp_t)
+    own_c = bk.bands(*cargs, cfg, s, seed=12)
+    ref_c = {k: v.to(device) for k, v in
+             bk.bands(*on_cpu(cargs), cfg, s, seed=12).items()}
+    c_theta, c_scale = cargs[0], cargs[5]
+    lam = c_theta[:, 3:3 + cfg.n_changepoints].abs().mean(-1)
+    tt = torch.from_numpy(cp_t.astype(np.float32)).to(device)
+    dt = torch.diff(tt, prepend=tt[:1])
+    p_cp = min(max(cfg.n_changepoints * float(dt.mean()), 0.0), 1.0)
+    lag2 = torch.clamp(tt[:, None] - tt[None, :], min=0.0) ** 2
+    sd = torch.sqrt(2.0 * p_cp * lam[:, None] ** 2 * lag2.sum(-1)[None])
+    half = slice(32, None)
+    late = lambda d: {k: v[:, half] for k, v in d.items()}  # noqa: E731
+    mc_trend = _mc_compare(late(own_c), late(ref_c), "trend_lower",
+                           "trend_upper", (sd * c_scale[:, None])[:, half])
+    _require_mc(mc_trend, "trend_lower", "trend_upper", "bands trend")
+    require(bool((own_c["trend_lower"] <= own_c["trend_upper"]).all()),
+            "trend_lower <= trend_upper (changepoint horizon)")
+    ms = cuda_ms(lambda: bk.bands(*args, cfg, s, seed=3))
+    plain_ms = cuda_ms(lambda: bk.bands_plain(*args, cfg, draws),
+                       iters=3, warmup=1)
+    sim = bk.bands_plain(*args, cfg, draws,
+                         return_samples=True)["yhat_samples"]
     qs = torch.tensor([float(q) for q in bk.quantile_points(0.8)],
                       device=device)
     quantile_ms = cuda_ms(lambda: torch.quantile(sim, qs, dim=0))
     out = {"phase": "bands", "shape": [b, t_len, s],
-           "given_draws_err": given,
+           "given_draws_err": given, "given_draws_err_wide_S": wide,
            "tolerance": f"|k-p|/(y_scale+|p|) <= {tol}",
-           "monte_carlo": mc, "ms": ms, "plain_ms": plain_ms,
-           "torch_quantile_ms": quantile_ms,
-           "max_abs_err": max(float((got[k] - want[k]).abs().max())
-                              for k in want)}
+           "monte_carlo_yhat": mc_yhat,
+           "monte_carlo_trend": {"cp_prob": p_cp, **mc_trend},
+           "ms": ms, "plain_ms": plain_ms,
+           "torch_quantile_ms": quantile_ms}
     emit(out)
     return out
 
@@ -441,16 +511,14 @@ def _device_events(prof):
 
 
 def phase_profile(root: str, ids, device) -> dict:
-    """Where a full-width request's time goes: a fresh engine with no
-    cache (every request dispatches), each request under the torch
-    profiler for the device's busy time, and the host stages of the
-    dispatch timed apart: the engine's gather and scatter around
-    ``backend.predict``, and inside it the per-chunk host prep."""
+    """Where a full-width request's time goes, on a fresh engine with no
+    cache (every request dispatches): each request once under the torch
+    profiler for the device's busy time, and once without it for the
+    wall time and the host stages, read from the engine's and the
+    backend's own stage clocks."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from tsspark_tpu_torch.models.prophet.predict import prepare_predict_data
-    from tsspark_tpu_torch.parallel.sharding import compacted_width
     from tsspark_tpu_torch.serve import (
         ForecastCache,
         ParamRegistry,
@@ -469,52 +537,39 @@ def phase_profile(root: str, ids, device) -> dict:
             engine.forecast(ids, HORIZON, num_samples=n_s, seed=1,
                             timeout_s=600.0)
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+            traced_wall = time.perf_counter() - t0
         top = _device_events(prof)
         dev_ms = sum(ms for _, ms in top)
-        top = [(k[:60], ms) for k, ms in top[:5]]
-        out[name] = {"wall_s": wall, "device_busy_ms": dev_ms,
-                     "device_idle_share": 1.0 - dev_ms / 1e3 / wall,
-                     "top_device_ms": top}
-    # Host stages of request (a), timed apart.
-    snap = engine.refresh()
-    n = len(ids)
-    width = compacted_width(n, floor=engine.width_floor)
-    hb = 32
-    t0 = time.perf_counter()
-    idx, _ = snap.rows(ids)
-    idx = np.concatenate([idx, np.repeat(idx[:1], width - n)])
-    state, step = snap.take(idx)
-    last = state.meta.ds_start + state.meta.ds_span
-    grid = last[:, None] + step[:, None] * np.arange(1, hb + 1)
-    gather_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    res = engine.backend.predict(state, grid, num_samples=0)
-    torch.cuda.synchronize()
-    predict_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    prepare_predict_data(grid[:8192], type(state.meta)(
-        *(a[:8192] for a in state.meta)), engine.registry.config, device)
-    torch.cuda.synchronize()
-    prep_chunk_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    rows = {sid: {k: v[i] for k, v in res.items()}
-            for i, sid in enumerate(ids)}
-    stacked = {k: np.stack([rows[s][k] for s in ids])[:, :HORIZON]
-               for k in res}
-    scatter_s = time.perf_counter() - t0
-    require(all(v.shape == (n, HORIZON) for v in stacked.values()),
-            "profile scatter shapes")
-    out["host_stages_a_s"] = {
-        "rows+take+grid": gather_s, "backend.predict": predict_s,
-        "prepare_predict_data per 8192-row chunk": prep_chunk_s,
-        "per-series scatter + restack": scatter_s,
-    }
+        engine.stats.stages.reset()
+        engine.backend.stages.reset()
+        t0 = time.perf_counter()
+        engine.forecast(ids, HORIZON, num_samples=n_s, seed=1,
+                        timeout_s=600.0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out[name] = {
+            "wall_s": wall, "traced_wall_s": traced_wall,
+            "device_busy_ms": dev_ms,
+            "device_idle_share": 1.0 - dev_ms / 1e3 / traced_wall,
+            "top_device_ms": [(k[:60], ms) for k, ms in top[:5]],
+            "engine_stages_s": dict(engine.stats.stages.seconds),
+            "backend_stages_s": dict(engine.backend.stages.seconds),
+            "backend_stage_calls": dict(engine.backend.stages.calls),
+        }
     return out
 
 
+def _forward_err(got, want, scale) -> float:
+    """K1's rule on data-unit outputs: |k - p| / (y_scale + |p|) for
+    yhat, trend and additive, |k - p| / (1 + |p|) for multiplicative."""
+    units = (scale[:, None],) * 3 + (1.0,)
+    return max(float(((g - w).abs() / (u + w.abs())).max())
+               for g, w, u in zip(got, want, units))
+
+
 def phase_kernels(serve, fwd, bnd, device) -> dict:
-    """Each kernel at the main path's largest launch shape."""
+    """Each kernel at the main path's largest launch shapes, on the main
+    path's inputs: held against its plain version, then timed."""
     import torch
 
     from tsspark_tpu_torch.backends.cuda import _slice_repeat_pad, _slice_state
@@ -531,46 +586,68 @@ def phase_kernels(serve, fwd, bnd, device) -> dict:
                             device=device)
     floor = torch.as_tensor(sub.meta.floor, dtype=torch.float32,
                             device=device)
+    f_tol, b_tol = 2e-5, 1e-5
     # K1: the in-sample + 28-day chunk over the shared calendar.
     data = prepare_predict_data(inp["ds_full"], sub.meta, cfg, device)
     b, t_len = data.t.shape
+    got = fk.forward(theta, data, cfg, scale, floor)
+    want = fk.forward_plain(theta, data, cfg, scale, floor)
+    k1_err = _forward_err(got, want, scale)
+    k1_abs = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    require(k1_err <= f_tol, f"forward at {b}x{t_len}: {k1_err} > {f_tol}")
+    del got, want
     k1_ms = cuda_ms(lambda: fk.forward(theta, data, cfg, scale, floor))
     k1_plain = cuda_ms(lambda: fk.forward_plain(theta, data, cfg, scale,
                                                 floor), iters=3, warmup=1)
-    k1 = {"name": "forward", "route": "cuda",
-          "source": "tsspark_tpu_torch/csrc/forward.cu",
-          "replaces": "tsspark_tpu/models/prophet/design.py:377",
-          "launches": serve["out"]["launches"]["forward"],
-          "max_abs_err": fwd["max_abs_err_scaled"],
-          "ms": k1_ms, "plain_ms": k1_plain,
-          **forward_bound_ms(b, t_len, cfg, False, True),
-          "library_ms": None, "shape": [b, t_len, "shared X"]}
     # The engine's per-series chunk (horizon bucket 32).
     last = sub.meta.ds_start + sub.meta.ds_span
     step = _slice_repeat_pad(inp["step"], 0, c, c)
     grid = last[:, None] + step[:, None] * np.arange(1, 33)
     eng = prepare_predict_data(grid, sub.meta, cfg, device)
-    k1["per_series"] = {
-        "shape": list(eng.t.shape),
-        "ms": cuda_ms(lambda: fk.forward(theta, eng, cfg, scale, floor)),
-        **forward_bound_ms(c, 32, cfg, True, True),
-    }
-    # K2: the engine's sampled chunk, S=256.
+    got = fk.forward(theta, eng, cfg, scale, floor)
+    want = fk.forward_plain(theta, eng, cfg, scale, floor)
+    k1e_err = _forward_err(got, want, scale)
+    k1e_abs = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    require(k1e_err <= f_tol, f"forward at the engine chunk: {k1e_err}")
+    k1 = {"name": "forward", "route": "cuda",
+          "source": "tsspark_tpu_torch/csrc/forward.cu",
+          "replaces": "tsspark_tpu/models/prophet/design.py:377",
+          "launches": serve["out"]["launches"]["forward"],
+          "max_abs_err": max(k1_abs, k1e_abs),
+          "max_rel_err": max(k1_err, k1e_err),
+          "tolerance": f"|k-p|/(y_scale+|p|) <= {f_tol} (data units)",
+          "ms": k1_ms, "plain_ms": k1_plain,
+          **forward_bound_ms(b, t_len, cfg, False, True),
+          "library_ms": None, "shape": [b, t_len, "shared X"],
+          "per_series": {
+              "shape": list(eng.t.shape),
+              "ms": cuda_ms(lambda: fk.forward(theta, eng, cfg, scale,
+                                               floor)),
+              **forward_bound_ms(c, 32, cfg, True, True)},
+          "at_2048": {"max_abs_err_scaled": fwd["max_abs_err_scaled"]}}
+    # K2: the engine's sampled chunk, S=256, on the engine chunk's own
+    # forward outputs, with given draws so both versions see one set.
     _, det, add, mult = fk.forward(theta, eng, cfg)
     s = 256
-    k2_ms = cuda_ms(lambda: bk.bands(theta, eng, det, add, mult, scale,
-                                     floor, cfg, s, seed=1))
     gen = torch.Generator(device=device).manual_seed(5)
     draws = bk.sample_draws((s, c, 32), gen, device)
-    k2_plain = cuda_ms(lambda: bk.bands_plain(theta, eng, det, add, mult,
-                                              scale, floor, cfg, draws),
+    kargs = (theta, eng, det, add, mult, scale, floor, cfg)
+    got = bk.bands(*kargs, s, draws=draws)
+    want = bk.bands_plain(*kargs, draws)
+    k2_err = _band_err(got, want, scale)
+    k2_abs = max(float((got[k] - want[k]).abs().max()) for k in want)
+    require(k2_err <= b_tol, f"bands at {c}x32x{s}: {k2_err} > {b_tol}")
+    del got, want
+    k2_ms = cuda_ms(lambda: bk.bands(*kargs, s, seed=1))
+    k2_plain = cuda_ms(lambda: bk.bands_plain(*kargs, draws),
                        iters=3, warmup=1)
     del draws
     k2 = {"name": "bands", "route": "cuda",
           "source": "tsspark_tpu_torch/csrc/bands.cu",
           "replaces": "tsspark_tpu/models/prophet/predict.py:273",
           "launches": serve["out"]["launches"]["bands"],
-          "max_abs_err": bnd["max_abs_err"],
+          "max_abs_err": k2_abs, "max_rel_err": k2_err,
+          "tolerance": f"|k-p|/(y_scale+|p|) <= {b_tol} (given draws)",
           "ms": k2_ms, "plain_ms": k2_plain,
           **bands_bound_ms(c, 32, s, cfg),
           # torch.quantile refuses inputs above 2**24 elements; the main
@@ -587,7 +664,6 @@ def phase_kernels(serve, fwd, bnd, device) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--quick", action="store_true")
     args = ap.parse_args(argv)
 
     import torch
@@ -611,9 +687,8 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(args.seed)
     fwd = phase_forward(rng, device)
     bnd = phase_bands(rng, device)
-    if not args.quick:
-        serve = phase_serve(args, device)
-        emit(phase_kernels(serve, fwd, bnd, device))
+    serve = phase_serve(args, device)
+    emit(phase_kernels(serve, fwd, bnd, device))
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

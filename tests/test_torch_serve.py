@@ -31,8 +31,10 @@ from tsspark_tpu_torch.serve import (
     PredictionEngine,
     RegistryError,
     RequestShed,
+    SamplesUnsupported,
     UnknownSeries,
 )
+from tsspark_tpu_torch.kernels.bands import MAX_SAMPLES
 from tsspark_tpu_torch.utils import checkpoint as tckpt
 
 torch.set_num_threads(2)
@@ -340,3 +342,32 @@ def test_registry_open_without_a_manifest(tmp_path):
     with pytest.raises(RegistryError) as e:
         reg.rollback()
     assert e.value.reason == "no-rollback-target"
+
+
+@pytest.mark.parametrize("num_samples", [-1, MAX_SAMPLES + 1])
+def test_requests_outside_the_band_kernel_are_refused_when_made(
+        num_samples):
+    with pytest.raises(SamplesUnsupported) as e:
+        ForecastRequest.make(["s0"], 7, num_samples=num_samples)
+    assert e.value.to_dict()["reason"] == "samples-unsupported"
+    assert isinstance(e.value, ValueError)
+    assert ForecastRequest.make(["s0"], 7, num_samples=MAX_SAMPLES) \
+        .num_samples == MAX_SAMPLES
+
+
+def test_engine_and_backend_stage_clocks(tmp_path, jax_fitted):
+    """Each dispatch times its own host stages; the backend's stages sit
+    inside the engine's "predict" span, and a cache hit dispatches
+    nothing."""
+    reg = _port_registry(tmp_path, jax_fitted)
+    eng = PredictionEngine(reg, device="cpu", cache=ForecastCache(64))
+    eng.forecast(IDS, 10, num_samples=8, seed=1)
+    eng.forecast(IDS, 10, num_samples=8, seed=1)
+    stages, inner = eng.stats.stages, eng.backend.stages
+    assert stages.calls == {"gather": 1, "predict": 1, "scatter": 1,
+                            "assemble": 2}
+    assert inner.calls == {"prep": 1, "forecast": 1, "to_host": 1}
+    assert all(v >= 0.0 for v in stages.seconds.values())
+    assert stages.seconds["predict"] >= sum(inner.seconds.values())
+    stages.reset()
+    assert stages.seconds == {} and stages.calls == {}

@@ -6,6 +6,9 @@ in fixed-size chunks (the last padded by repeating a real row, whose
 outputs are discarded), each chunk seeded with its own
 ``SeedSequence((seed, chunk))`` draw.  Results come back as host numpy
 arrays.  ``fit`` waits for the MAP-fit slice of the port.
+
+``stages`` is the model's stage clock plus "to_host": the wait for the
+device and the copy of each chunk's outputs back to the host.
 """
 
 from __future__ import annotations
@@ -53,10 +56,6 @@ def _slice_state(state: FitState, lo: int, hi: int, c: int) -> FitState:
     )
 
 
-def _host(out: Dict[str, torch.Tensor], n: int) -> Dict[str, np.ndarray]:
-    return {k: v[:n].cpu().numpy() for k, v in out.items()}
-
-
 @register_backend
 class CudaBackend(ForecastBackend):
     name = "cuda"
@@ -76,9 +75,15 @@ class CudaBackend(ForecastBackend):
         self._model = ProphetModel(self.config, self.solver_config,
                                    device=device)
         self.device = self._model.device
+        self.stages = self._model.stages
 
     def fit(self, *args, **kwargs):
         raise NotImplementedError("MAP fit: next port slice")
+
+    def _host(self, out: Dict[str, torch.Tensor],
+              n: int) -> Dict[str, np.ndarray]:
+        with self.stages.span("to_host"):
+            return {k: v[:n].cpu().numpy() for k, v in out.items()}
 
     def _chunk(self, b: int, per_series: int, least: int) -> int:
         # Round DOWN to a power of two: rounding up would let the chunk
@@ -112,7 +117,7 @@ class CudaBackend(ForecastBackend):
                     k: sl(v) for k, v in conditions.items()
                 },
             )
-            outs.append(_host(out, hi - lo))
+            outs.append(self._host(out, hi - lo))
         return {
             k: np.concatenate([o[k] for o in outs], axis=0)
             for k in outs[0]
@@ -132,7 +137,7 @@ class CudaBackend(ForecastBackend):
                 state, ds, cap=cap, regressors=regressors, seed=seed,
                 num_samples=num_samples, conditions=conditions,
             )
-            return _host(out, b)
+            return self._host(out, b)
 
         def call(ci, sub, ds_c, **kw):
             # Independent, well-mixed draws per chunk: integer seed
@@ -156,7 +161,7 @@ class CudaBackend(ForecastBackend):
                 state, ds, cap=cap, regressors=regressors,
                 conditions=conditions,
             )
-            return _host(out, b)
+            return self._host(out, b)
 
         def call(ci, sub, ds_c, **kw):
             return self._model.components(sub, ds_c, **kw)

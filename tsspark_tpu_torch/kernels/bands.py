@@ -29,9 +29,10 @@ from tsspark_tpu_torch.kernels.forward import GROWTH_CODES, _require
 #: Kernel launches since the count was last set to 0.
 launches = 0
 
-#: One block holds every sample of a row: S is padded to a power of two
-#: of at most this many threads.
-MAX_SAMPLES = 1024
+#: One block holds every sample of a row, in shared memory: S is padded
+#: to a power of two of at most this many (``kMaxSamples`` in bands.cu).
+#: The engine refuses sampled requests above it on every device.
+MAX_SAMPLES = 16384
 
 Draws = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 

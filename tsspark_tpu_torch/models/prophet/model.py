@@ -16,6 +16,7 @@ from tsspark_tpu_torch.config import ProphetConfig, SolverConfig
 from tsspark_tpu_torch.device import resolve_device
 from tsspark_tpu_torch.models.prophet import predict as predict_mod
 from tsspark_tpu_torch.models.prophet.design import ScalingMeta
+from tsspark_tpu_torch.utils.spans import StageClock
 
 
 class FitState(NamedTuple):
@@ -49,6 +50,10 @@ class ProphetModel:
         self.config = config
         self.solver_config = solver_config
         self.device = resolve_device(device)
+        # Host seconds of "prep" (time map, features, copies to the
+        # device) and "forecast" (the model's launches; on the card they
+        # return before the kernels finish).
+        self.stages = StageClock()
 
     def fit(self, *args, **kwargs) -> FitState:
         raise NotImplementedError("MAP fit: next port slice")
@@ -68,14 +73,17 @@ class ProphetModel:
         return_samples: bool = False,
     ) -> Dict[str, torch.Tensor]:
         """Forecast on an arbitrary time grid (in-sample and/or future)."""
-        data = predict_mod.prepare_predict_data(
-            ds, state.meta, self.config, self.device, cap=cap,
-            regressors=regressors, conditions=conditions,
-        )
-        return predict_mod.forecast(
-            self._theta(state), data, state.meta, self.config, seed=seed,
-            num_samples=num_samples, return_samples=return_samples,
-        )
+        with self.stages.span("prep"):
+            data = predict_mod.prepare_predict_data(
+                ds, state.meta, self.config, self.device, cap=cap,
+                regressors=regressors, conditions=conditions,
+            )
+            theta = self._theta(state)
+        with self.stages.span("forecast"):
+            return predict_mod.forecast(
+                theta, data, state.meta, self.config, seed=seed,
+                num_samples=num_samples, return_samples=return_samples,
+            )
 
     def components(self, state: FitState, ds, cap=None, regressors=None,
                    conditions=None) -> Dict[str, torch.Tensor]:

@@ -20,6 +20,7 @@ from tsspark_tpu_torch.serve.engine import (
     PendingForecast,
     PredictionEngine,
     RequestShed,
+    SamplesUnsupported,
     ServeError,
     UnknownSeries,
 )
@@ -32,6 +33,7 @@ from tsspark_tpu_torch.serve.registry import (
 __all__ = [
     "EngineOverloaded", "EngineStats", "ForecastCache", "ForecastRequest",
     "ForecastResult", "ParamRegistry", "PendingForecast",
-    "PredictionEngine", "RegistryError", "RequestShed", "ServeError",
+    "PredictionEngine", "RegistryError", "RequestShed",
+    "SamplesUnsupported", "ServeError",
     "Snapshot", "UnknownSeries",
 ]

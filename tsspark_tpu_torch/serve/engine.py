@@ -17,7 +17,13 @@ width and row order of whichever miss-set batch first computed them;
 repeated identical requests return the same cached values.
 
 Deadline-expired requests are SHED with a structured error before the
-batch dispatches.
+batch dispatches.  A request for more interval samples than the band
+kernel holds (``kernels.bands.MAX_SAMPLES``) is refused when it is made.
+
+``EngineStats.stages`` times the host stages of each dispatch: "gather"
+(snapshot rows, padding, parameter take, future grid), "predict" (the
+``backend.predict`` call, arrays back on the host), "scatter" (per-series
+rows for the cache) and "assemble" (each request's arrays).
 """
 
 from __future__ import annotations
@@ -34,9 +40,11 @@ import numpy as np
 
 from tsspark_tpu_torch.backends.registry import ForecastBackend, get_backend
 from tsspark_tpu_torch.config import SolverConfig
+from tsspark_tpu_torch.kernels.bands import MAX_SAMPLES
 from tsspark_tpu_torch.parallel.sharding import compacted_width, next_pow2
 from tsspark_tpu_torch.serve.cache import ForecastCache
 from tsspark_tpu_torch.serve.registry import ParamRegistry, Snapshot
+from tsspark_tpu_torch.utils.spans import StageClock
 
 
 # ---------------------------------------------------------------------------
@@ -62,6 +70,8 @@ class ForecastRequest:
             raise ValueError(f"horizon must be >= 1, got {horizon}")
         if not series_ids:
             raise ValueError("series_ids must be non-empty")
+        if not 0 <= int(num_samples) <= MAX_SAMPLES:
+            raise SamplesUnsupported(int(num_samples))
         return cls(
             series_ids=tuple(str(s) for s in series_ids),
             horizon=int(horizon),
@@ -121,6 +131,19 @@ class EngineOverloaded(ServeError):
     """The bounded request queue is full (admission control)."""
 
     reason = "overloaded"
+
+
+class SamplesUnsupported(ServeError, ValueError):
+    """The request asks for a sample count outside [0, MAX_SAMPLES]: the
+    band kernel keeps one row's samples in one block of the card."""
+
+    reason = "samples-unsupported"
+
+    def __init__(self, num_samples: int):
+        self.num_samples = num_samples
+        super().__init__(
+            f"num_samples must be in [0, {MAX_SAMPLES}], got {num_samples}"
+        )
 
 
 class PendingForecast:
@@ -188,6 +211,8 @@ class EngineStats:
             maxlen=_OCCUPANCY_WINDOW
         )
     )
+    # Host seconds per dispatch stage, summed (see the module docstring).
+    stages: StageClock = dataclasses.field(default_factory=StageClock)
 
     def snapshot(self) -> Dict:
         lat = np.asarray(self.latencies_s, np.float64)
@@ -420,15 +445,20 @@ class PredictionEngine:
             for sid, row in fresh.items():
                 rows[sid] = row
                 self.cache.put((version, sid, hb, num_samples, seed), row)
+        with self.stats.stages.span("assemble"):
+            results = []
+            for pend in live:
+                req = pend.request
+                sids = req.series_ids
+                values = {
+                    k: np.stack([rows[s][k] for s in sids])[:, :req.horizon]
+                    for k in rows[sids[0]] if k != "ds"
+                }
+                ds = np.stack([rows[s]["ds"] for s in sids])[:, :req.horizon]
+                results.append((pend, values, ds))
         done_s = time.monotonic()
-        for pend in live:
-            req = pend.request
-            sids = req.series_ids
-            values = {
-                k: np.stack([rows[s][k] for s in sids])[:, :req.horizon]
-                for k in rows[sids[0]] if k != "ds"
-            }
-            ds = np.stack([rows[s]["ds"] for s in sids])[:, :req.horizon]
+        for pend, values, ds in results:
+            sids = pend.request.series_ids
             pend._complete(ForecastResult(
                 series_ids=sids,
                 ds=ds,
@@ -445,27 +475,31 @@ class PredictionEngine:
                   num_samples: int, seed: int,
                   n_requests: int) -> Dict[str, Dict]:
         """One padded ``backend.predict`` over the missing series."""
-        idx, _ = snap.rows(sids)
-        n = len(sids)
-        width = compacted_width(n, floor=self.width_floor)
-        if width > n:
-            idx = np.concatenate([idx, np.repeat(idx[:1], width - n)])
-        state, step = snap.take(idx)
-        # Each series continues its own calendar at its recorded
-        # cadence: one float64 broadcast, no history scans.
-        last = np.asarray(state.meta.ds_start + state.meta.ds_span,
-                          np.float64)
-        grid = last[:, None] + step[:, None] * np.arange(1, hb + 1)
-        out = self.backend.predict(
-            state, grid, num_samples=num_samples, seed=seed
-        )
+        stages = self.stats.stages
+        with stages.span("gather"):
+            idx, _ = snap.rows(sids)
+            n = len(sids)
+            width = compacted_width(n, floor=self.width_floor)
+            if width > n:
+                idx = np.concatenate([idx, np.repeat(idx[:1], width - n)])
+            state, step = snap.take(idx)
+            # Each series continues its own calendar at its recorded
+            # cadence: one float64 broadcast, no history scans.
+            last = np.asarray(state.meta.ds_start + state.meta.ds_span,
+                              np.float64)
+            grid = last[:, None] + step[:, None] * np.arange(1, hb + 1)
+        with stages.span("predict"):
+            out = self.backend.predict(
+                state, grid, num_samples=num_samples, seed=seed
+            )
         self.stats.dispatches += 1
         self.stats.occupancy.append((n, width, n_requests))
-        result: Dict[str, Dict] = {}
-        for i, sid in enumerate(sids):
-            row = {k: v[i] for k, v in out.items()}
-            row["ds"] = grid[i]
-            result[sid] = row
+        with stages.span("scatter"):
+            result: Dict[str, Dict] = {}
+            for i, sid in enumerate(sids):
+                row = {k: v[i] for k, v in out.items()}
+                row["ds"] = grid[i]
+                result[sid] = row
         return result
 
     # -- background worker -----------------------------------------------------
