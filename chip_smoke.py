@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA card and check it end to end.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--phases LIST]
 
 Phases, one JSON line each; any failure raises and the script exits
 non-zero without printing the final line:
 
 1. device  — card name, ``nvidia-smi`` name and power limit, kernel
-   build time (both CUDA sources built from ``tsspark_tpu_torch/csrc``).
+   build time (every CUDA source built from ``tsspark_tpu_torch/csrc``).
 2. forward — kernel K1 against its plain PyTorch version on the card
    (B=2048, T=1969, 25 changepoints, 26 Fourier columns; shared and
    per-series features, 3 regressors; linear, flat and logistic growth).
@@ -17,7 +17,14 @@ non-zero without printing the final line:
    version's generator (Monte-Carlo bounds on the yhat bands, where the
    normal draws dominate, and on the trend bands of a horizon where
    simulated changepoints dominate), and lo <= hi everywhere.
-4. serve   — the port's main path at full width: ``m5_like(30490, 1941)``
+4. loss    — kernel K3 against its plain version (B=1024, T=1746, config
+   3's widths): value and gradient modes, linear and flat growth,
+   additive and multiplicative features, shared and per-series seasonal
+   matrices, with and without regressors, a stack of trial points; and
+   logistic growth refused on the card.
+5. fan     — kernel K4 against its plain version on the same cases
+   (linear growth, a 20-rung ladder).
+6. serve   — the serving path at full width: ``m5_like(30490, 1941)``
    prepared under the default ``ProphetConfig`` (26 Fourier columns, 25
    changepoints, 256 samples), parameters drawn from ``--seed``,
    published into a parameter registry and served by a
@@ -28,12 +35,26 @@ non-zero without printing the final line:
    Then a profile of requests (a) and (c) on a cacheless engine: device
    busy time from ``torch.profiler``, host time per stage from the
    engine's and the backend's own stage clocks.
-5. kernels — each kernel at the main path's shapes, on the main path's
-   inputs, held against its plain version, and its time against its
-   bound, its plain version and (where one exists) one PyTorch call.
+7. fit     — the fit path at full width: eval config 3
+   (``eval/configs.py``: ``m5_like(30490, 1941)`` with its holiday,
+   price and promo regressors, yearly order 8 + weekly order 3, 25
+   changepoints, ``SolverConfig(max_iters=120)``) fitted on the first
+   1,746 days of every series through ``CudaBackend.fit`` on the card,
+   then forecast over all 1,941 days through K1 and scored (sMAPE on
+   train and holdout).  Launch counts set to 0 just before, read just
+   after.  Stage split, iterations, status counts, host time per solver
+   iteration, peak memory, and the device-idle share of one chunk's solve
+   under ``torch.profiler``.  Then parity on a 128-series subset: sMAPE
+   against the port's scipy oracle (``backends/cpu.py``), and the loss
+   against the port's own plain fit on the CPU (mean and per series).
+8. kernels — each kernel at its main path's shapes, on the main path's
+   inputs (K3 and K4 at 8192x1746 on config 3's first chunk), held
+   against its plain version, and its time against its bound, its plain
+   version and (where one exists) one PyTorch call.
 
-The last three lines: the kernels JSON object, ``nvidia-smi``'s
-``name, power.limit`` line, and ``{"ok": true, "device": {...}}``.
+The last lines: the run's wall time, the kernels JSON object,
+``nvidia-smi``'s ``name, power.limit`` line, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -171,6 +192,119 @@ def bands_bound_ms(b, t_len, s, config, given_draws=False) -> dict:
     t_ops = b * t_len * s * (20 + 2 * 2) / PEAK_F32_PER_S * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def loss_bound_ms(n_rows, b, t_len, config, grad) -> dict:
+    """Least time for one K3 launch: t, y, mask and the regressor columns
+    of every cell, the shared seasonal matrix, changepoints and
+    parameters read once, f (and g) written once; against the float32
+    operations of the loss (trend, features, residual, sums) and, in
+    gradient mode, of the 2 + n_cp + F gradient sums."""
+    ncp, fs, r = (config.n_changepoints, config.num_seasonal_features,
+                  config.num_regressors)
+    f, p = fs + r, config.num_params
+    floats = (3 + r) * b * t_len + t_len * fs + b * ncp + 2 * f \
+        + n_rows * p + n_rows * (1 + (p if grad else 0))
+    ops_cell = (2 + 3 * ncp) + 4 * f + 3 + 4
+    if grad:
+        ops_cell += 5 + 3 + 3 * ncp + 5 * f
+    t_bytes = 4 * floats / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_rows * t_len * ops_cell / PEAK_F32_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def fan_bound_ms(b, t_len, k_steps, config) -> dict:
+    """Least time for one K4 launch: the row data as K3 reads it, theta,
+    the direction and the (K, B) ladder read once, (K, B) written once;
+    against the float32 operations of two forward passes and the six
+    sums per cell, and O(n_cp) per rung."""
+    ncp, fs, r = (config.n_changepoints, config.num_seasonal_features,
+                  config.num_regressors)
+    f, p = fs + r, config.num_params
+    floats = (3 + r) * b * t_len + t_len * fs + b * ncp + 2 * f \
+        + 2 * b * p + 2 * k_steps * b
+    ops_cell = 2 * (2 + 3 * ncp) + 2 * 4 * f + 26
+    ops = b * t_len * ops_cell + k_steps * b * (30 + 4 * ncp)
+    t_bytes = 4 * floats / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _xmax(data):
+    """(B, T) largest |feature| of each cell (shared or per-series)."""
+    import torch
+
+    xs = data.X_season.abs()
+    xs = xs.amax(-1) if xs.shape[-1] else xs.new_zeros(xs.shape[:-1])
+    xs = xs if xs.ndim == 2 else xs[None].expand(data.t.shape)
+    if data.X_reg.shape[-1]:
+        xs = torch.maximum(xs, data.X_reg.abs().amax(-1))
+    return xs
+
+
+def loss_scales(theta, data, config):
+    """Per row, the sums of |terms| that K3's sums add: (f scale, g scale).
+    A float32 sum of T terms in any order is within T * eps of its
+    |terms| sum, so T * eps * scale bounds a kernel-vs-plain gap."""
+    from tsspark_tpu_torch.kernels import forward as fk
+
+    yhat, g, _, mult = fk.forward_plain(theta, data, config)
+    sigma = 1e-5 + (theta[:, 2]).exp()
+    r = (data.y - yhat) * data.mask
+    ssr = (r * r).sum(-1) / (sigma * sigma)
+    w = (r * data.mask).abs() / (sigma * sigma)[:, None]
+    n_log = (data.mask.sum(-1) * sigma.log()).abs()
+    f_scale = 1.0 + 0.5 * ssr + n_log
+    g_scale = 1.0 + ssr + n_log \
+        + (w * (1.0 + mult.abs()) * (1.0 + data.t.abs())).sum(-1) \
+        + (w * (1.0 + g.abs()) * _xmax(data)).sum(-1)
+    return f_scale, g_scale
+
+
+def fan_scale(theta, direction, ladder, data, config):
+    """(K, B) sums of |terms| of the fan's expanded loss at each rung (see
+    ``loss_scales``)."""
+    from tsspark_tpu_torch.models.prophet.design import (
+        seasonal_split,
+        trend_fn,
+    )
+    from tsspark_tpu_torch.models.prophet.params import unpack
+
+    g0 = trend_fn(unpack(theta, config), data, config)
+    gd = trend_fn(unpack(direction, config), data, config)
+    a0, m0 = seasonal_split(theta, data, config)
+    ad, md = seasonal_split(direction, data, config)
+    c0 = g0 * (1.0 + m0) + a0
+    c1 = (gd * (1.0 + m0) + g0 * md + ad) * data.mask
+    c2 = gd * md * data.mask
+    r0 = (data.y - c0) * data.mask
+    s = ladder.abs()
+    sums = [x.sum(-1)[None] for x in (r0 * r0, (r0 * c1).abs(),
+                                       (r0 * c2).abs(), c1 * c1,
+                                       (c1 * c2).abs(), c2 * c2)]
+    poly = sums[0] + 2 * s * sums[1] + s * s * (sums[3] + 2 * sums[2]) \
+        + 2 * s ** 3 * sums[4] + s ** 4 * sums[5]
+    sigma = 1e-5 + (theta[:, 2][None] + ladder * direction[:, 2][None]).exp()
+    n_log = (data.mask.sum(-1)[None] * sigma.log()).abs()
+    return 1.0 + 0.5 * poly / (sigma * sigma) + n_log
+
+
+# K3 and K4 against their plain versions: T * eps * sum|terms| is the
+# worst-case float32 error of a T-term sum taken in another order; the two
+# stay within 0.2% of it on the card (PERF.md), so 5% leaves margin and
+# still catches one wrong cell of a row.
+GAP_TOL = 0.05
+GAP_RULE = f"|k-p| <= {GAP_TOL} * T*eps*sum|terms| per row"
+
+
+def _gap(got, want, scale, t_len) -> float:
+    """max |k - p| / (T * eps * scale): 1 is the float32 worst case."""
+    eps = float(np.finfo(np.float32).eps)
+    if got.ndim > scale.ndim:
+        scale = scale[..., None]
+    return float(((got - want).abs() / (t_len * eps * scale)).max())
 
 
 def rel_err(a, b) -> float:
@@ -375,6 +509,145 @@ def phase_bands(rng, device) -> dict:
     return out
 
 
+def synthetic_fit_data(rng, config, b, t_len, per_series, device):
+    """A fit-shaped FitData: ``synthetic_data``'s grid and features, y
+    from the model at random parameters plus noise, and an onset mask
+    (leading unobserved days, as in M5) with scattered gaps."""
+    import torch
+
+    from tsspark_tpu_torch.kernels import forward as fk
+
+    data = synthetic_data(rng, config, b, t_len, per_series, device)
+    truth = torch.from_numpy(random_theta(rng, b, config)).to(device)
+    yhat, *_ = fk.forward_plain(truth, data, config)
+    onset = rng.integers(0, t_len // 3, b)
+    mask = (np.arange(t_len)[None, :] >= onset[:, None]) \
+        & (rng.uniform(size=(b, t_len)) > 0.02)
+    mask_t = torch.from_numpy(mask.astype(np.float32)).to(device)
+    noise = torch.from_numpy(
+        rng.normal(0.0, 0.05, (b, t_len)).astype(np.float32)).to(device)
+    return data._replace(y=((yhat + noise) * mask_t).contiguous(),
+                         mask=mask_t)
+
+
+def _model_cases(growths):
+    import dataclasses
+
+    from tsspark_tpu_torch.config import ProphetConfig
+    from tsspark_tpu_torch.eval.configs import CONFIG3
+
+    mult = dataclasses.replace(
+        CONFIG3, seasonalities=tuple(
+            dataclasses.replace(sz, mode="multiplicative")
+            for sz in CONFIG3.seasonalities),
+        regressors=tuple(dataclasses.replace(rc, mode="multiplicative")
+                         if rc.name == "price" else rc
+                         for rc in CONFIG3.regressors))
+    out = []
+    for growth in growths:
+        out += [
+            (f"{growth}/additive/shared", dataclasses.replace(
+                CONFIG3, growth=growth), False),
+            (f"{growth}/multiplicative/shared", dataclasses.replace(
+                mult, growth=growth), False),
+            (f"{growth}/additive/per-series", dataclasses.replace(
+                CONFIG3, growth=growth), True),
+            (f"{growth}/no-regressors", dataclasses.replace(
+                ProphetConfig(), growth=growth), False),
+        ]
+    return out
+
+
+def phase_loss(rng, device) -> dict:
+    """K3 against its plain version on synthetic fit data."""
+    import dataclasses
+
+    import torch
+
+    from tsspark_tpu_torch.eval.configs import CONFIG3
+    from tsspark_tpu_torch.kernels import loss as lk
+
+    b, t_len = 1024, 1746
+    results = []
+    for name, cfg, per_series in _model_cases(("linear", "flat")):
+        data = synthetic_fit_data(rng, cfg, b, t_len, per_series, device)
+        theta = torch.from_numpy(random_theta(rng, b, cfg)).to(device)
+        f_scale, g_scale = loss_scales(theta, data, cfg)
+        f_k, g_k = lk.loss(theta, data, cfg)
+        f_p, g_p = lk.loss_plain(theta, data, cfg)
+        v_k, _ = lk.loss(theta, data, cfg, grad=False)
+        # A stack of 3 trial points on the same data rows.
+        stack = torch.cat([theta, theta * 1.01, theta * 0.99]).contiguous()
+        s_k, _ = lk.loss(stack, data, cfg, grad=False)
+        s_p, _ = lk.loss_plain(stack, data, cfg, grad=False)
+        torch.cuda.synchronize()
+        gaps = {
+            "f": _gap(f_k, f_p, f_scale, t_len),
+            "g": _gap(g_k, g_p, g_scale, t_len),
+            "value_mode": _gap(v_k, f_p, f_scale, t_len),
+            "stack": _gap(s_k, s_p, f_scale.repeat(3), t_len),
+        }
+        require(bool(torch.isfinite(f_k).all() & torch.isfinite(g_k).all()),
+                f"loss {name} finite")
+        require(torch.equal(v_k, f_k), f"loss {name}: value mode == f")
+        require(max(gaps.values()) <= GAP_TOL, f"loss {name}: {gaps}")
+        results.append({"case": name, "gap": gaps,
+                        "max_abs_err_f": float((f_k - f_p).abs().max()),
+                        "max_abs_err_g": float((g_k - g_p).abs().max())})
+    logistic = dataclasses.replace(CONFIG3, growth="logistic")
+    l_data = synthetic_fit_data(rng, logistic, 8, 64, False, device)
+    l_theta = torch.from_numpy(random_theta(rng, 8, logistic)).to(device)
+    try:
+        lk.loss(l_theta, l_data, logistic)
+        refused = False
+    except NotImplementedError:
+        refused = True
+    require(refused or device.type != "cuda",
+            "logistic loss on the card raises NotImplementedError")
+    out = {"phase": "loss", "shape": [b, t_len],
+           "tolerance": GAP_RULE,
+           "cases": results, "logistic_refused": refused}
+    emit(out)
+    return out
+
+
+def _ladder(b, device, k_steps=20):
+    import torch
+
+    return (0.5 ** torch.arange(k_steps, dtype=torch.float32,
+                                device=device))[:, None].expand(
+        k_steps, b).contiguous()
+
+
+def phase_fan(rng, device) -> dict:
+    """K4 against its plain version on synthetic fit data."""
+    import torch
+
+    from tsspark_tpu_torch.kernels import fan as fan_k
+
+    b, t_len = 1024, 1746
+    results = []
+    for name, cfg, per_series in _model_cases(("linear",)):
+        data = synthetic_fit_data(rng, cfg, b, t_len, per_series, device)
+        theta = torch.from_numpy(random_theta(rng, b, cfg)).to(device)
+        d = torch.from_numpy(rng.normal(0.0, 0.02, theta.shape).astype(
+            np.float32)).to(device)
+        ladder = _ladder(b, device)
+        got = fan_k.fan(theta, d, ladder, data, cfg)
+        want = fan_k.fan_plain(theta, d, ladder, data, cfg)
+        torch.cuda.synchronize()
+        gap = _gap(got, want, fan_scale(theta, d, ladder, data, cfg), t_len)
+        require(bool(torch.isfinite(got).all()), f"fan {name} finite")
+        require(gap <= GAP_TOL, f"fan {name}: gap {gap}")
+        results.append({"case": name, "gap": gap,
+                        "max_abs_err": float((got - want).abs().max())})
+    out = {"phase": "fan", "shape": [20, b, t_len],
+           "tolerance": GAP_RULE.replace("row", "rung"),
+           "cases": results}
+    emit(out)
+    return out
+
+
 def phase_serve(args, device) -> dict:
     import torch
 
@@ -498,6 +771,187 @@ def phase_serve(args, device) -> dict:
     return {"out": out, "inputs": kernel_inputs}
 
 
+FIT_SUBSET = 128
+
+
+def phase_fit(device) -> dict:
+    """Eval config 3 fitted at full width through ``CudaBackend.fit``,
+    scored, profiled, and held against the scipy oracle and the plain CPU
+    fit on a subset."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tsspark_tpu_torch.backends.registry import get_backend
+    from tsspark_tpu_torch.data.datasets import m5_like
+    from tsspark_tpu_torch.eval import configs
+    from tsspark_tpu_torch.kernels import fan as fan_k
+    from tsspark_tpu_torch.kernels import forward as fk
+    from tsspark_tpu_torch.kernels import loss as lk
+    from tsspark_tpu_torch.models.prophet import design
+    from tsspark_tpu_torch.models.prophet.init import (
+        curvature_diag,
+        initial_theta,
+    )
+    from tsspark_tpu_torch.models.prophet.model import (
+        KEEP_BEST_MARGIN,
+        _objective,
+    )
+    from tsspark_tpu_torch.ops import lbfgs
+
+    cfg, solver = configs.CONFIG3, configs.SOLVER3
+    t0 = time.perf_counter()
+    batch = m5_like(FULL_SERIES, FULL_DAYS, seed=2)
+    gen_s = time.perf_counter() - t0
+    split = configs.split_point(FULL_DAYS)
+    ds_fit = batch.ds[:split]
+    y_fit = np.nan_to_num(batch.y[:, :split])
+    m_fit = batch.mask[:, :split]
+    r_fit = batch.regressors[:, :split]
+    bk = get_backend("cuda", cfg, solver, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lbfgs.timing.reset()
+    # The main path: counts to 0 just before, read just after.
+    lk.launches = fan_k.launches = fk.launches = 0
+    t0 = time.perf_counter()
+    state = bk.fit(ds_fit, y_fit, mask=m_fit, regressors=r_fit)
+    fit_s = time.perf_counter() - t0
+    stages = dict(bk.stages.seconds)
+    bk.stages.reset()
+    t0 = time.perf_counter()
+    fc = bk.predict(state, batch.ds, regressors=batch.regressors,
+                    num_samples=0)
+    predict_s = time.perf_counter() - t0
+    launches = {"loss": lk.launches, "fan": fan_k.launches,
+                "forward": fk.launches}
+    peak = torch.cuda.max_memory_allocated()
+    iters, body_s = lbfgs.timing.iters, lbfgs.timing.body_s
+
+    require(launches["loss"] > 0 and launches["fan"] > 0
+            and launches["forward"] > 0,
+            f"kernels launched on the fit path: {launches}")
+    require(tuple(state.theta.shape) == (FULL_SERIES, cfg.num_params),
+            "fitted theta shape")
+    require(bool(torch.isfinite(state.theta).all()), "theta finite")
+    require(bool(np.isfinite(state.loss).all()), "loss finite")
+    require(fc["yhat"].shape == (FULL_SERIES, FULL_DAYS), "forecast shape")
+    require(bool(np.isfinite(fc["yhat"]).all()), "forecast finite")
+    sc = configs.score(batch, fc)
+
+    # One chunk's solve under the profiler: the first 8,192 series,
+    # packed and unpacked as the fit does, init outside the window.
+    c = bk.chunk_size
+    u8 = design._indicator_reg_cols(r_fit)
+    data_np, meta = design.prepare_fit_data(
+        ds_fit, y_fit[:c], cfg, mask=m_fit[:c], regressors=r_fit[:c])
+    packed, _ = design.pack_fit_data(data_np, meta, ds_fit, reg_u8_cols=u8,
+                                     collapse_cap=True)
+    data = design.unpack_fit_data(design.packed_to_device(packed, device),
+                                  u8)
+    theta0 = initial_theta(data, cfg, solver)
+    precond = curvature_diag(data, cfg, theta0)
+    fun, fval, fan = _objective(data, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        res = lbfgs.minimize(fun, theta0, solver, fun_value=fval,
+                             precond=precond, fan_value=fan)
+        torch.cuda.synchronize()
+        traced = time.perf_counter() - t1
+    top = _device_events(prof)
+    busy_ms = sum(ms for _, ms in top)
+    chunk_iters = int(res.n_iters.max())
+
+    # Parity on a subset spread over the batch.
+    idx = np.linspace(0, FULL_SERIES - 1, FIT_SUBSET).astype(np.int64)
+    sub = dict(mask=m_fit[idx], regressors=r_fit[idx])
+    t1 = time.perf_counter()
+    oracle = get_backend("cpu", cfg, solver)
+    o_state = oracle.fit(ds_fit, y_fit[idx], **sub)
+    oracle_s = time.perf_counter() - t1
+    o_fc = oracle.predict(o_state, batch.ds,
+                          regressors=batch.regressors[idx], num_samples=0)
+    sub_batch = batch._replace(y=batch.y[idx], mask=batch.mask[idx],
+                               regressors=batch.regressors[idx],
+                               series_ids=batch.series_ids[idx])
+    o_sc = configs.score(sub_batch, o_fc)
+    t1 = time.perf_counter()
+    plain = get_backend("cuda", cfg, solver, device="cpu").fit(
+        ds_fit, y_fit[idx], **sub)
+    plain_s = time.perf_counter() - t1
+    d_train = sc["smape_train"][idx] - o_sc["smape_train"]
+    d_hold = sc["smape_holdout"][idx] - o_sc["smape_holdout"]
+    loss_gap = state.loss[idx] - plain.loss
+    worst = np.argsort(-loss_gap)[:5]
+    parity = {
+        "subset": FIT_SUBSET,
+        "oracle_s": oracle_s, "plain_cpu_fit_s": plain_s,
+        "smape_train_max_abs_delta": float(np.abs(d_train).max()),
+        "smape_train_mean_delta": float(d_train.mean()),
+        "smape_holdout_max_abs_delta": float(np.abs(d_hold).max()),
+        "smape_holdout_mean_delta": float(d_hold.mean()),
+        "loss_minus_oracle_max": float(
+            (state.loss[idx] - o_state.loss).max()),
+        "loss_minus_plain_cpu_max": float(loss_gap.max()),
+        "loss_minus_plain_cpu_mean": float(loss_gap.mean()),
+        "loss_minus_plain_cpu_over_margin": int(
+            (loss_gap > KEEP_BEST_MARGIN).sum()),
+        "plain_cpu_minus_loss_over_margin": int(
+            (-loss_gap > KEEP_BEST_MARGIN).sum()),
+        "worst_rows": [
+            {"series": int(idx[w]), "gap": float(loss_gap[w]),
+             "status": [int(state.status[idx[w]]), int(plain.status[w])],
+             "n_iters": [int(state.n_iters[idx[w]]), int(plain.n_iters[w])]}
+            for w in worst],
+    }
+    status = np.bincount(np.asarray(state.status), minlength=5)
+    out = {
+        "phase": "fit", "series": FULL_SERIES, "days_fit": split,
+        "days_forecast": FULL_DAYS, "params": cfg.num_params,
+        "m5_like_s": gen_s, "fit_s": fit_s, "predict_s": predict_s,
+        "stages_s": stages,
+        "launches": launches,
+        "iterations": {"mean": float(np.mean(state.n_iters)),
+                       "max": int(np.max(state.n_iters)),
+                       "solver_bodies": iters},
+        "host_ms_per_iteration": 1e3 * body_s / max(iters, 1),
+        "status_counts": {"running": int(status[0]), "gtol": int(status[1]),
+                          "ftol": int(status[2]), "floor": int(status[3]),
+                          "stalled": int(status[4])},
+        "converged_frac": float(np.mean(state.converged)),
+        "smape_train": float(sc["smape_train"].mean()),
+        "smape_holdout": float(sc["smape_holdout"].mean()),
+        "peak_device_bytes": peak,
+        "chunk_solve_profile": {
+            "rows": c, "iterations": chunk_iters, "traced_wall_s": traced,
+            "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / 1e3 / traced,
+            "top_device_ms": [(k[:60], ms) for k, ms in top[:6]],
+        },
+        "parity": parity,
+    }
+    emit(out)
+    require(parity["smape_train_max_abs_delta"] <= 0.1,
+            f"per-series train sMAPE vs the scipy oracle: {parity}")
+    require(abs(parity["smape_train_mean_delta"]) <= 0.05,
+            f"mean train sMAPE vs the scipy oracle: {parity}")
+    # Two float32 lockstep solvers on the same rows part after a few
+    # iterations and stop at the noise floor at different points: at
+    # 1,746 days the JAX package and the port's plain fit, both on the
+    # CPU, differ by up to 0.57 nats per series on 128 config-3 series,
+    # in both directions.  The card is held to no worse on average than
+    # the plain fit (by the keep-best margin) and to that spread per series.
+    require(parity["loss_minus_plain_cpu_mean"] <= KEEP_BEST_MARGIN,
+            f"mean card loss vs the plain CPU fit: {parity}")
+    require(parity["loss_minus_plain_cpu_max"] <= 1.0,
+            f"per-series card loss vs the plain CPU fit: {parity}")
+    d = -precond * fun(theta0)[1]
+    return {"out": out, "inputs": {
+        "data": data, "theta0": theta0, "direction": d.contiguous(),
+        "theta_fit": state.theta[:c].to(device).contiguous(), "cfg": cfg}}
+
+
 def _device_events(prof):
     """(name, device ms) of the events that ran ON the card — kernels and
     copies — in a profile, longest first.  Host ops carry their children's
@@ -567,7 +1021,7 @@ def _forward_err(got, want, scale) -> float:
                for g, w, u in zip(got, want, units))
 
 
-def phase_kernels(serve, fwd, bnd, device) -> dict:
+def phase_kernels(serve, fwd, bnd, fit, device) -> dict:
     """Each kernel at the main path's largest launch shapes, on the main
     path's inputs: held against its plain version, then timed."""
     import torch
@@ -656,15 +1110,95 @@ def phase_kernels(serve, fwd, bnd, device) -> dict:
           "shape": [c, 32, s],
           "at_1024": {"ms": bnd["ms"],
                       "torch_quantile_ms": bnd["torch_quantile_ms"]}}
-    for k in (k1, k2):
+    if fit is not None:
+        k1["launches_fit"] = fit["out"]["launches"]["forward"]
+        kernels = [k1, k2] + fit_kernels(fit, device)
+    else:
+        kernels = [k1, k2]
+    for k in kernels:
         k["max_err"] = k["max_abs_err"]
-    return {"kernels": [k1, k2]}
+    return {"kernels": kernels}
+
+
+def fit_kernels(fit, device) -> list:
+    """K3 (both modes) and K4 at the fit path's shapes, on config 3's first
+    chunk: at the ridge init (the solve's first calls) and at the fitted
+    parameters; K4 on the first direction of the solve."""
+    from tsspark_tpu_torch.kernels import fan as fan_k
+    from tsspark_tpu_torch.kernels import loss as lk
+
+    inp = fit["inputs"]
+    data, cfg = inp["data"], inp["cfg"]
+    b, t_len = data.t.shape
+    tol = GAP_RULE
+    gaps, abs_f, abs_g = {}, 0.0, 0.0
+    for where in ("theta0", "theta_fit"):
+        theta = inp[where]
+        f_scale, g_scale = loss_scales(theta, data, cfg)
+        f_k, g_k = lk.loss(theta, data, cfg)
+        v_k, _ = lk.loss(theta, data, cfg, grad=False)
+        f_p, g_p = lk.loss_plain(theta, data, cfg)
+        gaps[where] = {"f": _gap(f_k, f_p, f_scale, t_len),
+                       "g": _gap(g_k, g_p, g_scale, t_len),
+                       "value_mode": _gap(v_k, f_p, f_scale, t_len)}
+        abs_f = max(abs_f, float((f_k - f_p).abs().max()),
+                    float((v_k - f_p).abs().max()))
+        abs_g = max(abs_g, float((g_k - g_p).abs().max()))
+        require(max(gaps[where].values()) <= GAP_TOL,
+                f"loss at {b}x{t_len} ({where}): {gaps[where]}")
+    theta = inp["theta0"]
+    launches = fit["out"]["launches"]
+    k3 = {"name": "loss", "route": "cuda",
+          "source": "tsspark_tpu_torch/csrc/loss.cu",
+          "replaces": "tsspark_tpu/models/prophet/loss.py:196",
+          "launches": launches["loss"],
+          "max_abs_err": max(abs_f, abs_g), "max_abs_err_f": abs_f,
+          "gap": gaps, "tolerance": tol,
+          "ms": cuda_ms(lambda: lk.loss(theta, data, cfg)),
+          "plain_ms": cuda_ms(lambda: lk.loss_plain(theta, data, cfg),
+                              iters=3, warmup=1),
+          **loss_bound_ms(b, b, t_len, cfg, True),
+          "library_ms": None, "shape": [b, t_len, cfg.num_params],
+          "value_mode": {
+              "ms": cuda_ms(lambda: lk.loss(theta, data, cfg, grad=False)),
+              "plain_ms": cuda_ms(lambda: lk.loss_plain(theta, data, cfg,
+                                                        grad=False),
+                                  iters=3, warmup=1),
+              **loss_bound_ms(b, b, t_len, cfg, False)}}
+    d = inp["direction"]
+    ladder = _ladder(b, device)
+    got = fan_k.fan(theta, d, ladder, data, cfg)
+    want = fan_k.fan_plain(theta, d, ladder, data, cfg)
+    gap = _gap(got, want, fan_scale(theta, d, ladder, data, cfg), t_len)
+    require(gap <= GAP_TOL, f"fan at 20x{b}x{t_len}: gap {gap}")
+    k4 = {"name": "fan", "route": "cuda",
+          "source": "tsspark_tpu_torch/csrc/fan.cu",
+          "replaces": "tsspark_tpu/models/prophet/loss.py:106",
+          "launches": launches["fan"],
+          "max_abs_err": float((got - want).abs().max()), "gap": gap,
+          "tolerance": tol.replace("row", "rung"),
+          "ms": cuda_ms(lambda: fan_k.fan(theta, d, ladder, data, cfg)),
+          "plain_ms": cuda_ms(lambda: fan_k.fan_plain(theta, d, ladder,
+                                                      data, cfg),
+                              iters=3, warmup=1),
+          **fan_bound_ms(b, t_len, 20, cfg),
+          "library_ms": None, "shape": [20, b, t_len]}
+    return [k3, k4]
+
+
+PHASES = ("forward", "bands", "loss", "fan", "serve", "fit", "kernels")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES)
+                    + " (kernels needs serve; the default runs all)")
     args = ap.parse_args(argv)
+    phases = set(args.phases.split(","))
+    if not phases <= set(PHASES):
+        ap.error(f"unknown phases {sorted(phases - set(PHASES))}")
 
     import torch
 
@@ -674,6 +1208,7 @@ def main(argv=None) -> int:
     from tsspark_tpu_torch.device import resolve_device
     from tsspark_tpu_torch.kernels import build
 
+    t_start = time.perf_counter()
     device = resolve_device(None)
     smi = smi_line()
     build.library()
@@ -685,10 +1220,22 @@ def main(argv=None) -> int:
                         if "registers" in ln or "spill" in ln]
                     for k, v in build.ptxas_log.items()}})
     rng = np.random.default_rng(args.seed)
-    fwd = phase_forward(rng, device)
-    bnd = phase_bands(rng, device)
-    serve = phase_serve(args, device)
-    emit(phase_kernels(serve, fwd, bnd, device))
+    fwd = phase_forward(rng, device) if "forward" in phases else None
+    bnd = phase_bands(rng, device) if "bands" in phases else None
+    if "loss" in phases:
+        phase_loss(rng, device)
+    if "fan" in phases:
+        phase_fan(rng, device)
+    serve = phase_serve(args, device) if "serve" in phases else None
+    fit = phase_fit(device) if "fit" in phases else None
+    kernels = None
+    if "kernels" in phases:
+        require(None not in (fwd, bnd, serve),
+                "the kernels phase needs forward, bands and serve")
+        kernels = phase_kernels(serve, fwd, bnd, fit, device)
+    emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
+    if kernels is not None:
+        emit(kernels)
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -166,8 +166,10 @@ def test_model_predict_and_components_on_cpu():
     _assert_close(out, want, meta, want)
     comps = model.components(_state(meta, theta), ds)
     assert torch.equal(comps["trend"], out["trend"])
-    with pytest.raises(NotImplementedError, match="next port slice"):
-        model.fit(ds, np.zeros((2, ds.size)))
+    # The fit is ported too: a flat batch fits to finite parameters.
+    fitted = model.fit(ds, np.zeros((2, ds.size)))
+    assert np.isfinite(fitted.loss).all()
+    assert fitted.theta.shape == (2, tc.num_params)
 
 
 def test_sampled_forecast_is_seeded():
@@ -183,7 +185,7 @@ def test_sampled_forecast_is_seeded():
 
 def test_backend_chunking_is_invisible_on_the_deterministic_path():
     _, tc, meta, theta, _, _ = _setup("linear", b=20)
-    assert list_backends() == ["cuda"]
+    assert list_backends() == ["cpu", "cuda"]
     whole = get_backend("cuda", tc, device="cpu")
     chunked = get_backend("cuda", tc, device="cpu", chunk_size=8)
     state = _state(meta, theta)
@@ -200,8 +202,9 @@ def test_backend_chunking_is_invisible_on_the_deterministic_path():
     sampled = chunked.predict(state, grid, num_samples=16, seed=5)
     assert sampled["yhat_lower"].shape == (20, 10)
     assert (sampled["yhat_lower"] <= sampled["yhat_upper"]).all()
-    with pytest.raises(NotImplementedError, match="next port slice"):
-        whole.fit(grid, np.zeros(grid.shape))
+    fitted = whole.fit(grid, np.zeros(grid.shape))
+    assert np.isfinite(fitted.loss).all()
+    assert fitted.theta.shape == (20, tc.num_params)
 
 
 # -- the CUDA kernels against their plain versions (card only) ---------------

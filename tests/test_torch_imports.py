@@ -48,8 +48,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     # Every module of the slice was imported (the walk saw the package).
     for mod in ("tsspark_tpu_torch.kernels.forward",
                 "tsspark_tpu_torch.kernels.bands",
+                "tsspark_tpu_torch.kernels.loss",
+                "tsspark_tpu_torch.kernels.fan",
+                "tsspark_tpu_torch.models.prophet.loss",
+                "tsspark_tpu_torch.models.prophet.init",
+                "tsspark_tpu_torch.ops.lbfgs",
                 "tsspark_tpu_torch.serve.engine",
                 "tsspark_tpu_torch.backends.cuda",
+                "tsspark_tpu_torch.backends.cpu",
+                "tsspark_tpu_torch.eval.metrics",
+                "tsspark_tpu_torch.eval.configs",
                 "tsspark_tpu_torch.carry"):
         assert mod in out["modules"]
 

@@ -1,0 +1,257 @@
+"""The port's MAP objective against the JAX package: ``neg_log_posterior``,
+``value_batch``, ``value_and_grad_batch`` (the K3 kernel's plain version,
+gradient written out by hand) and ``fan_value_closed_form`` (K4's plain
+version), on the same inputs made from numpy seeds.
+
+Tolerances, with their reasons:
+  * loss: rtol 2e-5 — float32 sums over T of another order (the JAX
+    package adds features as einsums, the port in feature order);
+  * gradient against jax.vjp: |g_port - g_jax| <= 2e-4 * (1 + |g|_max of
+    the row) — each entry is a sum over T of ~1e2-magnitude terms in
+    float32, taken in another order;
+  * hand-written gradient against torch.autograd in float64: rtol 1e-9
+    (same arithmetic, exact up to float64 rounding);
+  * fan against JAX and against a direct evaluation of each rung: rtol
+    1e-4 on the loss — the closed form expands the sum of squares, which
+    cancels in float32.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import numpy.testing as npt
+import pytest
+import torch
+
+from tsspark_tpu import config as jcfg
+from tsspark_tpu.models.prophet import design as jdesign
+from tsspark_tpu.models.prophet import loss as jloss
+from tsspark_tpu_torch import config as tcfg
+from tsspark_tpu_torch.kernels import fan as fan_kernel
+from tsspark_tpu_torch.kernels import loss as loss_kernel
+from tsspark_tpu_torch.models.prophet import design as tdesign
+from tsspark_tpu_torch.models.prophet import loss as tloss
+
+torch.set_num_threads(2)
+
+T = torch.from_numpy
+J = jnp.asarray
+
+
+def _case(growth, mode, per_series, regs, seed=0, b=6, t_len=80):
+    """The same config, FitData and theta in both packages."""
+    kw = dict(growth=growth, n_changepoints=5, seasonality_mode=mode)
+    cfgs = []
+    for mod in (jcfg, tcfg):
+        seas = (dataclasses.replace(mod.YEARLY, fourier_order=3, mode=mode),
+                dataclasses.replace(mod.WEEKLY, mode="additive"))
+        regs_c = tuple(mod.RegressorConfig(f"r{i}",
+                                           mode="multiplicative" if i else
+                                           "additive", prior_scale=2.0)
+                       for i in range(regs))
+        cfgs.append(mod.ProphetConfig(seasonalities=seas, regressors=regs_c,
+                                      **kw))
+    jc, tc = cfgs
+    rng = np.random.default_rng(seed)
+    ds = 18000.0 + np.arange(t_len, dtype=np.float64)
+    if per_series:
+        ds = ds[None, :] + rng.integers(0, 200, (b, 1))
+    y = (10 + 0.05 * np.arange(t_len) + np.sin(np.asarray(ds) / 7.0)
+         + rng.normal(0, 0.3, (b, t_len)))
+    y = np.broadcast_to(y, (b, t_len)).copy()
+    y[rng.uniform(size=y.shape) < 0.1] = np.nan
+    kwargs = {}
+    if regs:
+        kwargs["regressors"] = rng.normal(0, 1, (b, t_len, regs))
+    if growth == "logistic":
+        kwargs["cap"] = np.full((b, t_len), 20.0)
+    data_t, _ = tdesign.prepare_fit_data(ds, y, tc, **kwargs)
+    data_j, _ = jdesign.prepare_fit_data(ds, y, jc, as_numpy=True, **kwargs)
+    theta = rng.normal(0, 0.1, (b, tc.num_params)).astype(np.float32)
+    theta[:, 0] = rng.normal(0.5, 0.3, b)
+    theta[:, 1] = rng.uniform(0.2, 0.6, b)
+    theta[:, 2] = np.log(rng.uniform(0.03, 0.3, b))
+    data_t = tdesign.FitData(*(T(np.ascontiguousarray(a)) for a in data_t))
+    data_j = jdesign.FitData(*(J(a) for a in data_j))
+    return jc, tc, data_j, data_t, theta
+
+
+CASES = [
+    (g, mode, per_series, regs)
+    for g in ("linear", "flat", "logistic")
+    for mode in ("additive", "multiplicative")
+    for per_series in (False, True)
+    for regs in (0, 3)
+]
+
+
+def _grad_close(got, want):
+    scale = 1.0 + np.abs(want).max(axis=-1, keepdims=True)
+    assert np.all(np.abs(got - want) <= 2e-4 * scale), \
+        np.max(np.abs(got - want) / scale)
+
+
+@pytest.mark.parametrize("growth,mode,per_series,regs", CASES)
+def test_value_and_grad_match_jax(growth, mode, per_series, regs):
+    jc, tc, data_j, data_t, theta = _case(growth, mode, per_series, regs)
+    f_t, g_t = tloss.value_and_grad_batch(T(theta), data_t, tc)
+    f_j, g_j = jloss.value_and_grad_batch(J(theta), data_j, jc)
+    npt.assert_allclose(f_t.numpy(), np.asarray(f_j), rtol=2e-5)
+    _grad_close(g_t.numpy(), np.asarray(g_j))
+    npt.assert_allclose(tloss.value_batch(T(theta), data_t, tc).numpy(),
+                        np.asarray(jloss.value_batch(J(theta), data_j, jc)),
+                        rtol=2e-5)
+    npt.assert_allclose(
+        tloss.neg_log_posterior(T(theta), data_t, tc).numpy(),
+        np.asarray(jloss.neg_log_posterior(J(theta), data_j, jc)),
+        rtol=2e-5)
+
+
+@pytest.mark.parametrize("growth,mode,per_series,regs", CASES)
+def test_hand_gradient_matches_autograd(growth, mode, per_series, regs):
+    _, tc, _, data_t, theta = _case(growth, mode, per_series, regs, seed=1)
+    data64 = tdesign.FitData(*(a.double() for a in data_t))
+    th = T(theta).double().requires_grad_(True)
+    f = tloss.neg_log_posterior(th, data64, tc)
+    (g_auto,) = torch.autograd.grad(f.sum(), th)
+    f_hand, g_hand = loss_kernel.loss_plain(th.detach(), data64, tc)
+    npt.assert_allclose(f_hand.numpy(), f.detach().numpy(), rtol=1e-12)
+    npt.assert_allclose(g_hand.numpy(), g_auto.numpy(), rtol=1e-9,
+                        atol=1e-9)
+
+
+def test_stacked_trials_reuse_the_data_rows():
+    """(N, B, P) trial stacks score row i on data row i % B: the same
+    values as N separate calls."""
+    _, tc, _, data_t, theta = _case("flat", "additive", False, 3)
+    rng = np.random.default_rng(3)
+    stack = T(theta[None] + rng.normal(0, 0.05, (4,) + theta.shape)
+              .astype(np.float32))
+    got = tloss.value_batch(stack, data_t, tc)
+    assert got.shape == (4, theta.shape[0])
+    for n in range(4):
+        assert torch.equal(got[n], tloss.value_batch(stack[n], data_t, tc))
+    with pytest.raises(ValueError, match="parameter rows"):
+        loss_kernel.loss_plain(stack.reshape(-1, tc.num_params)[:-1],
+                               data_t, tc)
+
+
+def _ladder(b, k=20, seed=0):
+    rng = np.random.default_rng(seed)
+    step0 = rng.uniform(0.1, 1.0, b).astype(np.float32)
+    return (step0[None, :] * 0.5 ** np.arange(k, dtype=np.float32)[:, None])
+
+
+@pytest.mark.parametrize("mode,per_series,regs", [
+    ("additive", False, 3), ("multiplicative", False, 3),
+    ("additive", True, 0), ("multiplicative", True, 3),
+])
+def test_fan_matches_jax_and_direct_rungs(mode, per_series, regs):
+    jc, tc, data_j, data_t, theta = _case("linear", mode, per_series, regs,
+                                          seed=4)
+    rng = np.random.default_rng(5)
+    d = rng.normal(0, 0.05, theta.shape).astype(np.float32)
+    ladder = _ladder(theta.shape[0])
+    got = tloss.fan_value_closed_form(T(theta), T(d), T(ladder), data_t, tc)
+    want = jloss.fan_value_closed_form(J(theta), J(d), J(ladder), data_j, jc)
+    npt.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4)
+    direct = tloss.value_batch(
+        T(theta[None] + ladder[:, :, None] * d[None]), data_t, tc)
+    npt.assert_allclose(got.numpy(), direct.numpy(), rtol=1e-4)
+
+
+def test_fan_clamps_a_cancelled_sum_of_squares():
+    """Where a step zeroes the residual, the expanded sum of squares
+    cancels in float32 and can go negative; the fan clamps it at 0 (no
+    falsely low loss), as the JAX package does, and keeps NaN."""
+    jc, tc, data_j, data_t, theta = _case("linear", "additive", False, 0,
+                                          seed=6, b=32)
+    rng = np.random.default_rng(7)
+    target = theta + rng.normal(0, 0.2, theta.shape).astype(np.float32)
+    yhat, _ = tdesign.model_yhat(T(target), data_t, tc)
+    exact = data_t._replace(y=yhat * data_t.mask)
+    exact_j = data_j._replace(y=J(exact.y.numpy()))
+    d = target - theta
+    ladder = np.ones((1, theta.shape[0]), np.float32)
+    # The unclamped polynomial at s = 1, as the fan expands it.
+    from tsspark_tpu_torch.models.prophet.params import unpack
+
+    p0, pd = unpack(T(theta), tc), unpack(T(d), tc)
+    c0 = tdesign.trend_fn(p0, exact, tc) + tdesign.seasonal_split(
+        T(theta), exact, tc)[0]
+    c1 = tdesign.trend_fn(pd, exact, tc) + tdesign.seasonal_split(
+        T(d), exact, tc)[0]
+    r0 = (exact.y - c0) * exact.mask
+    c1m = c1 * exact.mask
+    poly = ((r0 * r0).sum(-1) - 2.0 * (r0 * c1m).sum(-1)
+            + (c1m * c1m).sum(-1))
+    assert bool((poly < 0).any()), "no row reached the clamp"
+    got = tloss.fan_value_closed_form(T(theta), T(d), T(ladder), exact, tc)
+    want = jloss.fan_value_closed_form(J(theta), J(d), J(ladder), exact_j,
+                                       jc)
+    npt.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
+    # With ssr = 0 the loss is its sigma and prior terms alone.
+    sigma = loss_kernel.SIGMA_FLOOR + torch.exp(T(target)[:, 2])
+    floor_f = (exact.mask.sum(-1) * torch.log(sigma))
+    assert bool((got[0] >= floor_f - 1e-3 * floor_f.abs()).all())
+    d_nan = d.copy()
+    d_nan[0, 0] = np.nan
+    bad = tloss.fan_value_closed_form(T(theta), T(d_nan), T(ladder), exact,
+                                      tc)
+    assert bool(torch.isnan(bad[0, 0])) and bool(torch.isfinite(bad[0, 1:])
+                                                 .all())
+
+
+def test_fan_needs_linear_growth_on_the_card_and_wrappers_refuse_others():
+    _, tc, _, data_t, theta = _case("linear", "additive", False, 0)
+    meta = lambda a: a.to("meta")  # noqa: E731
+    before = (loss_kernel.launches, fan_kernel.launches)
+    with pytest.raises(ValueError, match="unsupported device"):
+        loss_kernel.loss(meta(T(theta)), data_t, tc)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fan_kernel.fan(meta(T(theta)), meta(T(theta)),
+                       meta(T(_ladder(theta.shape[0]))), data_t, tc)
+    assert (loss_kernel.launches, fan_kernel.launches) == before
+    assert tloss.has_closed_form_fan(tc)
+    assert not tloss.has_closed_form_fan(
+        dataclasses.replace(tc, growth="flat"))
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("growth,mode,per_series,regs",
+                         [c for c in CASES if c[0] != "logistic"])
+def test_loss_and_fan_kernels_match_their_plain_versions(card, growth, mode,
+                                                         per_series, regs):
+    _, tc, _, data_t, theta = _case(growth, mode, per_series, regs)
+    on = tdesign.FitData(*(a.to(card) for a in data_t))
+    f_k, g_k = loss_kernel.loss(T(theta).to(card), on, tc)
+    f_p, g_p = loss_kernel.loss_plain(T(theta), data_t, tc)
+    npt.assert_allclose(f_k.cpu().numpy(), f_p.numpy(), rtol=2e-5)
+    _grad_close(g_k.cpu().numpy(), g_p.numpy())
+    if growth == "linear":
+        d = np.random.default_rng(2).normal(0, 0.05, theta.shape).astype(
+            np.float32)
+        lad = _ladder(theta.shape[0])
+        got = fan_kernel.fan(T(theta).to(card), T(d).to(card),
+                             T(lad).to(card), on, tc)
+        want = fan_kernel.fan_plain(T(theta), T(d), T(lad), data_t, tc)
+        npt.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4)
+
+
+def test_logistic_loss_on_the_card_raises(card):
+    _, tc, _, data_t, theta = _case("logistic", "additive", False, 0)
+    on = tdesign.FitData(*(a.to(card) for a in data_t))
+    with pytest.raises(NotImplementedError, match="logistic"):
+        loss_kernel.loss(T(theta).to(card), on, tc)
+
+
+def test_jax_reference_is_on_the_cpu():
+    assert jax.devices()[0].platform == "cpu"

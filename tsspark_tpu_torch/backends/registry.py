@@ -4,9 +4,11 @@ Backends are classes implementing fit/predict over padded array batches;
 selection is by name with optional keyword overrides.
 
 Built-ins:
-  * "cuda" — the batched PyTorch path; its forward and interval passes
-    are hand-written CUDA kernels (``device="cpu"`` runs their plain
-    PyTorch versions instead).
+  * "cuda" — the batched PyTorch path; its forward, interval, loss and
+    line-search passes are hand-written CUDA kernels (``device="cpu"``
+    runs their plain PyTorch versions instead).
+  * "cpu" — per-series scipy L-BFGS-B on the plain loss: the parity
+    oracle of the batched fit.
 """
 
 from __future__ import annotations
@@ -86,4 +88,4 @@ def list_backends():
 
 def _ensure_builtins():
     # Imported lazily to avoid a circular import at package-import time.
-    from tsspark_tpu_torch.backends import cuda  # noqa: F401
+    from tsspark_tpu_torch.backends import cpu, cuda  # noqa: F401

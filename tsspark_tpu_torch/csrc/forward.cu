@@ -33,16 +33,11 @@
 
 #include <cuda_runtime.h>
 
+#include "prophet_model.cuh"
+
 namespace {
 
-constexpr int kLinear = 0;
-constexpr int kLogistic = 1;
-
-__device__ __forceinline__ float safe_div(float a, float b) {
-  const float eps = 1e-10f;
-  if (fabsf(b) < eps) b = b < 0.0f ? -eps : eps;
-  return a / b;
-}
+using namespace tsspark;
 
 __global__ void forward_kernel(
     const float* __restrict__ theta,    // (B, P)
@@ -72,32 +67,12 @@ __global__ void forward_kernel(
     sh_s[j] = s[b * ncp + j];
     sh_delta[j] = th[3 + j];
   }
-  for (int f = threadIdx.x; f < F; f += blockDim.x) {
-    const float beta = th[3 + ncp + f];
-    const float m = mm[f];
-    sh_ba[f] = beta * (1.0f - m);
-    sh_bm[f] = beta * m;
-  }
+  split_coefs(th + 3 + ncp, mm, sh_ba, sh_bm, F);
   __syncthreads();
   const float k = th[0];
   const float m = th[1];
-  if (growth == kLogistic && threadIdx.x == 0) {
-    // gamma_j = (s_j - m - sum_{l<j} gamma_l) * (1 - k_{j-1} / k_j)
-    // k_j = k + (delta_0 + ... + delta_j), summed in changepoint order
-    // exactly as the plain version sums it: the recursion is
-    // ill-conditioned where k_j nears 0.
-    float gamma_sum = 0.0f, csum = 0.0f;
-    float k_prev = k;
-    for (int j = 0; j < ncp; ++j) {
-      csum = csum + sh_delta[j];
-      const float k_next = k + csum;
-      const float g = (sh_s[j] - m - gamma_sum) *
-                      (1.0f - safe_div(k_prev, k_next));
-      sh_gamma[j] = g;
-      gamma_sum = gamma_sum + g;
-      k_prev = k_next;
-    }
-  }
+  if (growth == kLogistic && threadIdx.x == 0)
+    logistic_gamma(k, m, sh_s, sh_delta, sh_gamma, ncp);
   __syncthreads();
 
   const int tt = blockIdx.y * blockDim.x + threadIdx.x;
@@ -107,39 +82,16 @@ __global__ void forward_kernel(
 
   float g;
   if (growth == kLinear) {
-    g = k * tv + m;
-    for (int j = 0; j < ncp; ++j)
-      g = g + sh_delta[j] * fmaxf(tv - sh_s[j], 0.0f);
+    g = linear_trend(tv, k, m, sh_s, sh_delta, ncp);
   } else if (growth == kLogistic) {
-    float rate = 0.0f, off = 0.0f;
-    for (int j = 0; j < ncp; ++j) {
-      if (tv >= sh_s[j]) {
-        rate = rate + sh_delta[j];
-        off = off + sh_gamma[j];
-      }
-    }
-    const float x = (k + rate) * (tv - (m + off));
-    g = cap[cell] * (1.0f / (1.0f + expf(-x)));
+    g = logistic_trend(tv, cap[cell], k, m, sh_s, sh_delta, sh_gamma, ncp);
   } else {
     g = m;
   }
 
-  float add_s = 0.0f, mult_s = 0.0f;
-  const float* xrow = xs + b * xs_bstride + (long long)tt * Fs;
-  for (int f = 0; f < Fs; ++f) {
-    const float x = xrow[f];
-    add_s = add_s + sh_ba[f] * x;
-    mult_s = mult_s + sh_bm[f] * x;
-  }
-  float add_r = 0.0f, mult_r = 0.0f;
-  const float* rrow = xr + cell * R;
-  for (int r = 0; r < R; ++r) {
-    const float x = rrow[r];
-    add_r = add_r + sh_ba[Fs + r] * x;
-    mult_r = mult_r + sh_bm[Fs + r] * x;
-  }
-  const float add = add_s + add_r;
-  const float mult = mult_s + mult_r;
+  float add, mult;
+  feature_totals(xs + b * xs_bstride + (long long)tt * Fs, Fs, xr + cell * R,
+                 R, sh_ba, sh_bm, &add, &mult);
   const float y = g * (1.0f + mult) + add;
   if (y_scale != nullptr) {
     const float sc = y_scale[b];

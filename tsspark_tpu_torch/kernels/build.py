@@ -5,8 +5,9 @@ Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` (one
 shared library with a plain C interface, loaded with ``ctypes``.  The
 build runs at first use, from the sources in the package, into
 ``tsspark_tpu_torch/_build/`` under a file lock; the library's name
-carries a hash of the sources and flags, so an edited source rebuilds
-and an unchanged one loads what is there.  A failed build raises with
+carries a hash of the sources, the headers they share (``csrc/*.cuh``)
+and the flags, so an edited source or header rebuilds and an unchanged
+tree loads what is there.  A failed build raises with
 ``nvcc``'s stderr.  Nothing here runs at import time: the CPU tests
 import every module on a machine without ``nvcc``.
 """
@@ -51,6 +52,20 @@ SIGNATURES = {
         _i, _i, _i, _i, _i, _i, _i,                # B T P ncp Fs R growth
         _c,                                        # stream
     ],
+    "tsspark_loss": [
+        _c, _c, _c, _c, _c, _c, _ll, _c, _c, _c,  # theta t y mask s xs xs_bstride xr ps mm
+        _c, _c,                                    # f_out, g_out (or null)
+        _i, _i, _i, _i, _i, _i, _i, _i,            # N B T P ncp Fs R growth
+        _f, _f, _f, _f,                            # k m sigma cp prior scales
+        _c,                                        # stream
+    ],
+    "tsspark_fan": [
+        _c, _c, _c, _c, _c, _c, _c, _c, _ll, _c, _c, _c,  # theta dir ladder t y mask s xs bstride xr ps mm
+        _c,                                        # out (K, B)
+        _i, _i, _i, _i, _i, _i, _i,                # B T P ncp Fs R K
+        _f, _f, _f, _f,                            # k m sigma cp prior scales
+        _c,                                        # stream
+    ],
     "tsspark_bands": [
         _c, _c, _c, _c, _c, _c, _c,                # t det add mult theta scale floor
         _c, _c, _c,                                # given draws (or null)
@@ -88,9 +103,15 @@ def _sources() -> List[str]:
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
+def _headers() -> List[str]:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
 def _digest(sources: List[str]) -> str:
+    """Hash of the flags, the sources and every shared header: an edit to
+    a header alone must rebuild the kernels that include it."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sources:
+    for path in sources + _headers():
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as fh:
             h.update(fh.read())

@@ -7,11 +7,16 @@ model is evaluated over it in one pass:
     numpy in float64, bitwise equal to the JAX package's host prep;
   * the forward model (``model_yhat``) runs the hand-written kernel
     ``kernels.forward`` on a CUDA tensor and the plain PyTorch functions
-    below (``trend_fn``, ``seasonal_split``) on a CPU tensor.
+    below (``trend_fn``, ``seasonal_split``) on a CPU tensor;
+  * the fit's transfer form (``PackedFitData``): packed on the host in
+    numpy (``pack_fit_data``, bitwise equal to the JAX package's), copied
+    to the device (``packed_to_device``) and expanded there by torch ops
+    (``unpack_fit_data``).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -57,6 +62,261 @@ class FitData(NamedTuple):
     X_reg: torch.Tensor        # (B, T, R)
     prior_scales: torch.Tensor  # (F,) per-feature normal prior scale
     mult_mask: torch.Tensor    # (F,) 1.0 where the feature is multiplicative
+
+
+class PackedFitData(NamedTuple):
+    """Transfer form of a FitData batch on a shared calendar grid.
+
+    The same information in a fraction of the bytes, bit-exactly:
+
+      * no mask: masked cells of ``y`` travel as NaN and the device
+        recovers ``mask = isfinite(y)`` and ``y = where(mask, y, 0)``,
+        both exact because prep zeroes masked observations and the packer
+        requires an exact 0/1 mask;
+      * exact-0/1 indicator regressor columns (holidays, promos) travel
+        bit-packed, 8 time steps per byte (``X_reg_bits``);
+      * no ``t``: the (B, T) scaled-time grid is an affine map of the
+        shared calendar, rebuilt on the device from the (T,) relative grid
+        and two (B,) per-series scalars;
+      * ``cap`` collapses to (B, 1) for non-logistic growth.
+
+    Host numpy out of ``pack_fit_data``; float32 / uint8 tensors on the
+    device after ``packed_to_device``.
+    """
+
+    y: torch.Tensor            # (B, T) f32 scaled observations; NaN = masked
+    ds_rel: torch.Tensor       # (T,) f32 shared grid minus grid[0]
+    t_off: torch.Tensor        # (B,) f32: (ds_start - grid[0]) / ds_span
+    t_inv_span: torch.Tensor   # (B,) f32: 1 / ds_span
+    s: torch.Tensor            # (B, n_cp) f32 changepoints (scaled time)
+    cap: torch.Tensor          # (B, 1) f32, or (B, T) f32 for logistic
+    X_season: torch.Tensor     # (T, Fs) or (B, T, Fs) f32
+    X_reg: torch.Tensor        # (B, T, R - K) f32 non-indicator columns
+    X_reg_bits: torch.Tensor   # (B, ceil(T/8), K) u8 bit-packed indicators
+    prior_scales: torch.Tensor
+    mult_mask: torch.Tensor
+
+
+# PackedFitData fields that ALWAYS carry a leading per-series batch axis —
+# the fields a row gather/concat over series must touch.  X_season is NOT
+# here: it is (T, Fs) shared for plain seasonalities but (B, T, Fs) when
+# conditional seasonalities make it per-series.
+PACKED_PER_SERIES_FIELDS = (
+    "y", "t_off", "t_inv_span", "s", "cap", "X_reg", "X_reg_bits",
+)
+
+
+def take_fit_data(data: FitData, idx) -> FitData:
+    """Gather a row subset of a FitData batch (series axis): the design-
+    tensor half of the compaction primitive (``ops.lbfgs.take_state``).
+
+    Shared leaves — a (T, Fs) calendar seasonal matrix, the prior
+    vectors — are carried as-is; everything per-series is gathered on
+    axis 0.  Gathered rows are bitwise copies, so a solve continued on
+    the subset reproduces each selected series' full-width trajectory.
+    """
+    idx = torch.as_tensor(idx, device=data.y.device)
+    take = lambda a: a.index_select(0, idx)  # noqa: E731
+    return FitData(
+        t=take(data.t),
+        y=take(data.y),
+        mask=take(data.mask),
+        s=take(data.s),
+        cap=take(data.cap),
+        X_season=(
+            data.X_season if data.X_season.ndim == 2 else take(data.X_season)
+        ),
+        X_reg=take(data.X_reg),
+        prior_scales=data.prior_scales,
+        mult_mask=data.mult_mask,
+    )
+
+
+def _bitpack_time(a: np.ndarray) -> np.ndarray:
+    """(B, T, K) exact-0/1 array -> (B, ceil(T/8), K) uint8, little-endian
+    bits along the time axis (host side, numpy)."""
+    b, t, k = a.shape
+    tb = (t + 7) // 8
+    if k == 0:
+        return np.zeros((b, tb, 0), np.uint8)
+    pad = tb * 8 - t
+    u8 = np.asarray(a, np.uint8)
+    if pad:
+        u8 = np.concatenate([u8, np.zeros((b, pad, k), np.uint8)], axis=1)
+    w = (1 << np.arange(8, dtype=np.uint16)).reshape(1, 1, 8, 1)
+    return (
+        (u8.reshape(b, tb, 8, k).astype(np.uint16) * w).sum(axis=2)
+    ).astype(np.uint8)
+
+
+def _bitunpack_time(p: torch.Tensor, t: int) -> torch.Tensor:
+    """(B, ceil(T/8), K) uint8 -> (B, T, K) uint8 of 0/1 (device side)."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=p.device)
+    bits = (p[:, :, None, :] >> shifts[None, None, :, None]) & 1
+    return bits.reshape(p.shape[0], 8 * p.shape[1], p.shape[-1])[:, :t, :]
+
+
+def _indicator_reg_cols(x_reg: np.ndarray) -> Tuple[int, ...]:
+    """Columns of (B, T, R) whose every value is exactly 0.0 or 1.0 —
+    holiday / promo style indicators that survive a uint8 round trip
+    bit-for-bit (prep's auto rule never rescales binary columns)."""
+    return tuple(
+        j for j in range(x_reg.shape[-1])
+        if bool(np.all((x_reg[..., j] == 0.0) | (x_reg[..., j] == 1.0)))
+    )
+
+
+def packable_batch(ds, mask) -> bool:
+    """THE packed-transit eligibility predicate: a shared (T,) calendar
+    grid and an exact 0/1 mask (fractional observation weights need the
+    plain FitData path)."""
+    if np.asarray(ds).ndim != 1:
+        return False
+    if mask is None:
+        return True  # prepare derives an isfinite mask, exactly 0/1
+    m = np.asarray(mask)
+    return bool(np.all((m == 0.0) | (m == 1.0)))
+
+
+def pack_fit_data(
+    data: FitData,
+    meta: ScalingMeta,
+    ds: np.ndarray,
+    reg_u8_cols: Optional[Tuple[int, ...]] = None,
+    collapse_cap: bool = False,
+) -> Tuple[PackedFitData, Tuple[int, ...]]:
+    """Host-side (numpy) packing of a prepared batch.
+
+    ``ds`` is the shared (T,) calendar grid in absolute days (float64: the
+    ds - ds[0] subtraction happens before the f32 cast).  Requires a
+    shared grid and an exact 0/1 mask (the NaN-fold transit only encodes
+    observed/missing, so it would DROP fractionally-weighted observations
+    instead of down-weighting them).
+
+    ``reg_u8_cols``: which X_reg columns travel bit-packed.  None
+    auto-detects exact-0/1 columns; chunked callers detect ONCE on the
+    full dataset and pass the result, so every chunk packs alike.
+
+    Returns (packed, reg_u8_cols): ``unpack_fit_data`` takes the tuple to
+    reassemble X_reg in its original column order.
+    """
+    ds64 = np.asarray(ds, np.float64)
+    if ds64.ndim != 1:
+        raise ValueError("pack_fit_data requires a shared (T,) grid")
+    mask_np = np.asarray(data.mask)
+    if not np.all((mask_np == 0.0) | (mask_np == 1.0)):
+        raise ValueError(
+            "pack_fit_data requires an exact 0/1 mask; fractional "
+            "observation weights need the plain FitData path"
+        )
+    y_np = np.asarray(data.y)
+    if not np.all(np.isfinite(y_np[mask_np > 0])):
+        raise ValueError(
+            "pack_fit_data requires finite y wherever mask == 1: the "
+            "NaN-fold transit recovers the mask as isfinite(y), so a "
+            "non-finite OBSERVED cell would silently become masked on "
+            "device while the plain FitData path propagates it into the "
+            "loss"
+        )
+    f32 = np.float32
+    cap = np.asarray(data.cap)
+    # Collapse is a config-level decision (non-logistic growth has an
+    # all-ones, unused cap), never a per-chunk data one.
+    if collapse_cap and cap.shape[-1] != 1:
+        cap = cap[..., :1]
+    x_reg = np.asarray(data.X_reg, f32)
+    u8_cols = (
+        _indicator_reg_cols(x_reg) if reg_u8_cols is None
+        else tuple(reg_u8_cols)
+    )
+    if reg_u8_cols is not None:
+        bad = [
+            j for j in u8_cols
+            if not np.all((x_reg[..., j] == 0.0) | (x_reg[..., j] == 1.0))
+        ]
+        if bad:
+            raise ValueError(
+                f"reg_u8_cols {bad} contain non-0/1 values in this batch; "
+                "the bit-packed transit would corrupt them"
+            )
+    f32_cols = tuple(j for j in range(x_reg.shape[-1]) if j not in u8_cols)
+    # Mask folded into y as NaN: exact because prep zeroes masked cells.
+    y_nan = np.where(
+        mask_np > 0, np.asarray(data.y, f32), np.float32(np.nan)
+    ).astype(f32)
+    packed = PackedFitData(
+        y=y_nan,
+        ds_rel=(ds64 - ds64[0]).astype(f32),
+        t_off=((meta.ds_start - ds64[0]) / meta.ds_span).astype(f32),
+        t_inv_span=(1.0 / meta.ds_span).astype(f32),
+        s=np.asarray(data.s, f32),
+        cap=cap.astype(f32),
+        X_season=np.asarray(data.X_season, f32),
+        X_reg=np.ascontiguousarray(x_reg[..., f32_cols]),
+        X_reg_bits=_bitpack_time(
+            np.ascontiguousarray(x_reg[..., u8_cols])
+        ),
+        prior_scales=np.asarray(data.prior_scales, f32),
+        mult_mask=np.asarray(data.mult_mask, f32),
+    )
+    return packed, u8_cols
+
+
+def packed_to_device(packed: PackedFitData, device) -> PackedFitData:
+    """Copy a host-packed batch to ``device`` (contiguous leaves, dtypes
+    kept: float32, and uint8 for the indicator bits)."""
+    return PackedFitData(*(
+        torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in packed
+    ))
+
+
+def fitdata_to_device(data: FitData, device) -> FitData:
+    """Copy a host numpy FitData batch to ``device`` as float32 tensors."""
+    return FitData(*(
+        torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+        for a in data
+    ))
+
+
+def unpack_fit_data(packed: PackedFitData,
+                    reg_u8_cols: Tuple[int, ...] = ()) -> FitData:
+    """Rebuild FitData from device tensors (torch ops on the packed
+    tensors' device): ``t = ds_rel * t_inv_span - t_off`` and
+    ``mask = isfinite(y)``."""
+    t = (
+        packed.ds_rel[None, :] * packed.t_inv_span[:, None]
+        - packed.t_off[:, None]
+    )
+    finite = torch.isfinite(packed.y)
+    y = torch.where(finite, packed.y, torch.zeros_like(packed.y))
+    mask = finite.to(y.dtype)
+    cap = packed.cap
+    if cap.shape[-1] == 1:
+        cap = cap.expand(packed.y.shape).contiguous()
+    r = packed.X_reg.shape[-1] + packed.X_reg_bits.shape[-1]
+    f32_cols = tuple(j for j in range(r) if j not in reg_u8_cols)
+    if reg_u8_cols:
+        x_u8 = _bitunpack_time(packed.X_reg_bits, packed.y.shape[-1])
+    cols = [None] * r
+    for i, j in enumerate(f32_cols):
+        cols[j] = packed.X_reg[..., i]
+    for i, j in enumerate(reg_u8_cols):
+        cols[j] = x_u8[..., i].to(y.dtype)
+    x_reg = (
+        torch.stack(cols, dim=-1) if cols
+        else packed.y.new_zeros(packed.y.shape + (0,))
+    )
+    return FitData(
+        t=t,
+        y=y,
+        mask=mask,
+        s=packed.s,
+        cap=cap,
+        X_season=packed.X_season,
+        X_reg=x_reg,
+        prior_scales=packed.prior_scales,
+        mult_mask=packed.mult_mask,
+    )
 
 
 def _component(beta: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -113,6 +373,23 @@ def model_yhat(theta: torch.Tensor, data: FitData, config: ProphetConfig
     return yhat, g
 
 
+# Chunked backends fit one batch as many prepare_fit_data calls; this flag
+# (set via the context manager) silences the per-chunk out-of-span warning
+# so the backend can emit ONE full-batch warning instead.
+_CP_SPAN_WARNING_DISABLED = False
+
+
+@contextlib.contextmanager
+def changepoint_span_warning_suppressed():
+    global _CP_SPAN_WARNING_DISABLED
+    prev = _CP_SPAN_WARNING_DISABLED
+    _CP_SPAN_WARNING_DISABLED = True
+    try:
+        yield
+    finally:
+        _CP_SPAN_WARNING_DISABLED = prev
+
+
 def _warn_out_of_span(s_scaled: np.ndarray, has_obs: np.ndarray,
                       b: int) -> None:
     out = ((s_scaled <= 0.0) | (s_scaled >= 1.0)) & has_obs[:, None]
@@ -126,6 +403,30 @@ def _warn_out_of_span(s_scaled: np.ndarray, has_obs: np.ndarray,
             "are inert or shift the base trend rather than kinking it",
             stacklevel=3,
         )
+
+
+def warn_out_of_span_changepoints(config, ds, y, mask) -> None:
+    """Full-batch out-of-span check for chunked backends (see above):
+    each observed series' raw-day span, computed directly with prep's
+    first/last-observation convention, and one warning with whole-batch
+    counts."""
+    if config.changepoints is None or _CP_SPAN_WARNING_DISABLED:
+        return
+    y = np.asarray(y)
+    m = (np.asarray(mask) > 0) if mask is not None else np.isfinite(y)
+    b, t_len = m.shape
+    has_obs = m.any(axis=-1)
+    i0 = m.argmax(axis=-1)
+    i1 = t_len - 1 - m[:, ::-1].argmax(axis=-1)
+    dsb = np.asarray(ds, np.float64)
+    if dsb.ndim == 1:
+        dsb = np.broadcast_to(dsb, (b, t_len))
+    rows = np.arange(b)
+    start = dsb[rows, i0]
+    span = np.maximum(dsb[rows, i1] - start, 1e-9)
+    cp = np.asarray(config.changepoints, np.float64)
+    s = (cp[None, :] - start[:, None]) / span[:, None]
+    _warn_out_of_span(s, has_obs, b)
 
 
 def prepare_fit_data(
@@ -212,7 +513,8 @@ def prepare_fit_data(
     if config.changepoints is not None:
         cp = np.asarray(config.changepoints, np.float64)
         s_f64 = (cp[None, :] - ds_start[:, None]) / ds_span[:, None]
-        _warn_out_of_span(s_f64, mask_np.any(axis=-1), b)
+        if not _CP_SPAN_WARNING_DISABLED:
+            _warn_out_of_span(s_f64, mask_np.any(axis=-1), b)
         s = s_f64.astype(dtype)
     elif config.changepoint_placement == "quantile":
         s = quantile_changepoints(

@@ -53,3 +53,50 @@ def pack(params: ProphetParams) -> torch.Tensor:
         ],
         dim=-1,
     )
+
+
+def init_theta(config: ProphetConfig, y: torch.Tensor, mask: torch.Tensor,
+               t: torch.Tensor) -> torch.Tensor:
+    """Data-driven initialization, batched over series (the "heuristic"
+    init of ``SolverConfig.init``).
+
+    Prophet's initializer: k/m from the endpoints of the (scaled) series,
+    deltas and betas at zero, sigma at the masked std of y.
+
+    Args:
+      y:    (B, T) scaled observations (already divided by per-series scale).
+      mask: (B, T) 1.0 where observed.
+      t:    (B, T) scaled time in [0, 1] (per series).
+
+    Returns:
+      (B, P) flat initial parameters.
+    """
+    eps = 1e-8
+    n = torch.clamp(mask.sum(dim=-1), min=1.0)
+
+    # First/last observed values and times per series (masked argmin/argmax).
+    big = torch.where(mask > 0, t, torch.inf)
+    small = torch.where(mask > 0, t, -torch.inf)
+    i0 = torch.argmin(big, dim=-1, keepdim=True)
+    i1 = torch.argmax(small, dim=-1, keepdim=True)
+    t0, t1 = t.gather(-1, i0)[:, 0], t.gather(-1, i1)[:, 0]
+    y0, y1 = y.gather(-1, i0)[:, 0], y.gather(-1, i1)[:, 0]
+
+    k0 = (y1 - y0) / torch.clamp(t1 - t0, min=eps)
+    m0 = y0 - k0 * t0
+
+    mean = (y * mask).sum(dim=-1) / n
+    var = (((y - mean[:, None]) ** 2) * mask).sum(dim=-1) / n
+    sigma0 = torch.sqrt(torch.clamp(var, min=eps))
+    log_sigma0 = torch.log(torch.clamp(sigma0, min=1e-3))
+
+    batch = y.shape[0]
+    return pack(
+        ProphetParams(
+            k=k0,
+            m=m0,
+            log_sigma=log_sigma0,
+            delta=y.new_zeros((batch, config.n_changepoints)),
+            beta=y.new_zeros((batch, config.num_features)),
+        )
+    )

@@ -1,6 +1,6 @@
-"""Batch-width ladder of the serving engine's width buckets and the
-backend's chunk sizes (the port's copy of the JAX package's
-``parallel.sharding`` width helpers)."""
+"""Batch-width ladder of the serving engine's width buckets, the
+backend's chunk sizes and the fit's compacted widths (the port's copy of
+the JAX package's ``parallel.sharding`` width helpers)."""
 
 from __future__ import annotations
 
@@ -13,8 +13,15 @@ def next_pow2(n: int) -> int:
     return p
 
 
-def compacted_width(n_live: int, floor: int = 32) -> int:
+def pad_to_multiple(n: int, multiple: int) -> int:
+    return ((n + multiple - 1) // multiple) * multiple
+
+
+def compacted_width(n_live: int, floor: int = 32, multiple: int = 1) -> int:
     """Padded batch width for ``n_live`` rows: the next power of two,
-    floored at ``floor``, so widths walk one short ladder and every width
-    is one the card has seen before."""
-    return max(next_pow2(max(int(n_live), 1)), int(floor))
+    floored at ``floor`` and rounded up to a ``multiple`` (a series-shard
+    count, so a compacted width still divides evenly across shards), so
+    widths walk one short ladder and every width is one the card has seen
+    before."""
+    w = next_pow2(max(int(n_live), 1))
+    return pad_to_multiple(max(w, int(floor)), max(int(multiple), 1))
