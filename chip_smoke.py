@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA card and check it end to end.
 
-    python3 chip_smoke.py [--seed N] [--phases LIST]
+    python3 chip_smoke.py [--seed N]
 
-Phases, one JSON line each; any failure raises and the script exits
-non-zero without printing the final line:
+Every phase runs, each printing one JSON line; any failure raises and
+the script exits non-zero without printing the final line:
 
 1. device  — card name, ``nvidia-smi`` name and power limit, kernel
    build time (every CUDA source built from ``tsspark_tpu_torch/csrc``).
@@ -46,7 +46,8 @@ non-zero without printing the final line:
    iteration, peak memory, and the device-idle share of one chunk's solve
    under ``torch.profiler``.  Then parity on a 128-series subset: sMAPE
    against the port's scipy oracle (``backends/cpu.py``), and the loss
-   against the port's own plain fit on the CPU (mean and per series).
+   against that oracle and the port's own plain fit on the CPU, on
+   average and per series (``loss_parity``).
 8. kernels — each kernel at its main path's shapes, on the main path's
    inputs (K3 and K4 at 8192x1746 on config 3's first chunk), held
    against its plain version, and its time against its bound, its plain
@@ -249,9 +250,10 @@ def loss_scales(theta, data, config):
     A float32 sum of T terms in any order is within T * eps of its
     |terms| sum, so T * eps * scale bounds a kernel-vs-plain gap."""
     from tsspark_tpu_torch.kernels import forward as fk
+    from tsspark_tpu_torch.kernels.loss import SIGMA_FLOOR
 
     yhat, g, _, mult = fk.forward_plain(theta, data, config)
-    sigma = 1e-5 + (theta[:, 2]).exp()
+    sigma = SIGMA_FLOOR + (theta[:, 2]).exp()
     r = (data.y - yhat) * data.mask
     ssr = (r * r).sum(-1) / (sigma * sigma)
     w = (r * data.mask).abs() / (sigma * sigma)[:, None]
@@ -265,28 +267,18 @@ def loss_scales(theta, data, config):
 
 def fan_scale(theta, direction, ladder, data, config):
     """(K, B) sums of |terms| of the fan's expanded loss at each rung (see
-    ``loss_scales``)."""
-    from tsspark_tpu_torch.models.prophet.design import (
-        seasonal_split,
-        trend_fn,
-    )
-    from tsspark_tpu_torch.models.prophet.params import unpack
+    ``loss_scales``), from the plain version's own per-cell terms."""
+    from tsspark_tpu_torch.kernels import fan as fan_k
+    from tsspark_tpu_torch.kernels.loss import SIGMA_FLOOR
 
-    g0 = trend_fn(unpack(theta, config), data, config)
-    gd = trend_fn(unpack(direction, config), data, config)
-    a0, m0 = seasonal_split(theta, data, config)
-    ad, md = seasonal_split(direction, data, config)
-    c0 = g0 * (1.0 + m0) + a0
-    c1 = (gd * (1.0 + m0) + g0 * md + ad) * data.mask
-    c2 = gd * md * data.mask
-    r0 = (data.y - c0) * data.mask
+    r0, c1, c2, p0, pd = fan_k.ray_terms(theta, direction, data, config)
     s = ladder.abs()
-    sums = [x.sum(-1)[None] for x in (r0 * r0, (r0 * c1).abs(),
-                                       (r0 * c2).abs(), c1 * c1,
-                                       (c1 * c2).abs(), c2 * c2)]
+    sums = [(a * b).abs().sum(-1)[None] for a, b in (
+        (r0, r0), (r0, c1), (r0, c2), (c1, c1), (c1, c2), (c2, c2))]
     poly = sums[0] + 2 * s * sums[1] + s * s * (sums[3] + 2 * sums[2]) \
         + 2 * s ** 3 * sums[4] + s ** 4 * sums[5]
-    sigma = 1e-5 + (theta[:, 2][None] + ladder * direction[:, 2][None]).exp()
+    sigma = SIGMA_FLOOR + (p0.log_sigma[None]
+                           + ladder * pd.log_sigma[None]).exp()
     n_log = (data.mask.sum(-1)[None] * sigma.log()).abs()
     return 1.0 + 0.5 * poly / (sigma * sigma) + n_log
 
@@ -774,6 +766,56 @@ def phase_serve(args, device) -> dict:
 FIT_SUBSET = 128
 
 
+def fit_subset() -> np.ndarray:
+    """The parity subset: 128 series spread over config 3's 30,490."""
+    return np.linspace(0, FULL_SERIES - 1, FIT_SUBSET).astype(np.int64)
+
+
+# Loss parity of a fit, per series, in nats.  Two correct float32
+# lockstep solvers part after a few iterations and stop at the noise
+# floor at different points: on the parity subset at 1,746 days, the JAX
+# package and the port's plain fit, both on the CPU, differ by |mean| <=
+# 0.011 and per series by up to 1.39 nats, both ways, over data seeds 2
+# and 3; against the scipy oracle both batched solvers are 0.32-0.33 nats
+# worse on average and up to 2.10 per series (tests/test_torch_fit.py,
+# ``-m slow``).  The limits below leave margin over those readings, and
+# the same test holds planted faults of the fit to failing them.  A
+# gradient off by a few percent is not seen here (it moves the fit less
+# than float32 does): the kernel checks at GAP_TOL hold K3 and K4 far
+# tighter.
+PLAIN_MEAN_TOL = 0.05   # |mean| against the plain fit: KEEP_BEST_MARGIN
+PLAIN_SERIES_TOL = 2.0  # |gap| of any series against the plain fit
+ORACLE_MEAN_TOL = 0.5   # mean excess over the scipy oracle
+ORACLE_SERIES_TOL = 3.0  # excess of any series over the scipy oracle
+
+
+def loss_parity(loss, plain_loss, oracle_loss):
+    """(readings, failed checks) of a fit's per-series ``loss`` against a
+    plain fit's and the scipy oracle's on the same series."""
+    gap = np.asarray(loss, np.float64) - np.asarray(plain_loss, np.float64)
+    over = np.asarray(loss, np.float64) - np.asarray(oracle_loss, np.float64)
+    readings = {
+        "loss_minus_plain_mean": float(gap.mean()),
+        "loss_minus_plain_min": float(gap.min()),
+        "loss_minus_plain_max": float(gap.max()),
+        "loss_minus_plain_over_+0.05": int((gap > 0.05).sum()),
+        "loss_minus_plain_under_-0.05": int((gap < -0.05).sum()),
+        "loss_minus_oracle_mean": float(over.mean()),
+        "loss_minus_oracle_max": float(over.max()),
+    }
+    failed = [what for what, bad in (
+        (f"|mean gap to the plain fit| > {PLAIN_MEAN_TOL}",
+         abs(gap.mean()) > PLAIN_MEAN_TOL),
+        (f"a series' |gap to the plain fit| > {PLAIN_SERIES_TOL}",
+         not np.all(np.abs(gap) <= PLAIN_SERIES_TOL)),
+        (f"mean excess over the oracle > {ORACLE_MEAN_TOL}",
+         not over.mean() <= ORACLE_MEAN_TOL),
+        (f"a series' excess over the oracle > {ORACLE_SERIES_TOL}",
+         not np.all(over <= ORACLE_SERIES_TOL)),
+    ) if bad]
+    return readings, failed
+
+
 def phase_fit(device) -> dict:
     """Eval config 3 fitted at full width through ``CudaBackend.fit``,
     scored, profiled, and held against the scipy oracle and the plain CPU
@@ -792,10 +834,7 @@ def phase_fit(device) -> dict:
         curvature_diag,
         initial_theta,
     )
-    from tsspark_tpu_torch.models.prophet.model import (
-        KEEP_BEST_MARGIN,
-        _objective,
-    )
+    from tsspark_tpu_torch.models.prophet.model import _objective
     from tsspark_tpu_torch.ops import lbfgs
 
     cfg, solver = configs.CONFIG3, configs.SOLVER3
@@ -864,7 +903,7 @@ def phase_fit(device) -> dict:
     chunk_iters = int(res.n_iters.max())
 
     # Parity on a subset spread over the batch.
-    idx = np.linspace(0, FULL_SERIES - 1, FIT_SUBSET).astype(np.int64)
+    idx = fit_subset()
     sub = dict(mask=m_fit[idx], regressors=r_fit[idx])
     t1 = time.perf_counter()
     oracle = get_backend("cpu", cfg, solver)
@@ -882,8 +921,10 @@ def phase_fit(device) -> dict:
     plain_s = time.perf_counter() - t1
     d_train = sc["smape_train"][idx] - o_sc["smape_train"]
     d_hold = sc["smape_holdout"][idx] - o_sc["smape_holdout"]
+    loss_readings, loss_failed = loss_parity(state.loss[idx], plain.loss,
+                                             o_state.loss)
     loss_gap = state.loss[idx] - plain.loss
-    worst = np.argsort(-loss_gap)[:5]
+    worst = np.argsort(-np.abs(loss_gap))[:5]
     parity = {
         "subset": FIT_SUBSET,
         "oracle_s": oracle_s, "plain_cpu_fit_s": plain_s,
@@ -891,14 +932,8 @@ def phase_fit(device) -> dict:
         "smape_train_mean_delta": float(d_train.mean()),
         "smape_holdout_max_abs_delta": float(np.abs(d_hold).max()),
         "smape_holdout_mean_delta": float(d_hold.mean()),
-        "loss_minus_oracle_max": float(
-            (state.loss[idx] - o_state.loss).max()),
-        "loss_minus_plain_cpu_max": float(loss_gap.max()),
-        "loss_minus_plain_cpu_mean": float(loss_gap.mean()),
-        "loss_minus_plain_cpu_over_margin": int(
-            (loss_gap > KEEP_BEST_MARGIN).sum()),
-        "plain_cpu_minus_loss_over_margin": int(
-            (-loss_gap > KEEP_BEST_MARGIN).sum()),
+        **loss_readings,
+        "loss_checks_failed": loss_failed,
         "worst_rows": [
             {"series": int(idx[w]), "gap": float(loss_gap[w]),
              "status": [int(state.status[idx[w]]), int(plain.status[w])],
@@ -936,16 +971,7 @@ def phase_fit(device) -> dict:
             f"per-series train sMAPE vs the scipy oracle: {parity}")
     require(abs(parity["smape_train_mean_delta"]) <= 0.05,
             f"mean train sMAPE vs the scipy oracle: {parity}")
-    # Two float32 lockstep solvers on the same rows part after a few
-    # iterations and stop at the noise floor at different points: at
-    # 1,746 days the JAX package and the port's plain fit, both on the
-    # CPU, differ by up to 0.57 nats per series on 128 config-3 series,
-    # in both directions.  The card is held to no worse on average than
-    # the plain fit (by the keep-best margin) and to that spread per series.
-    require(parity["loss_minus_plain_cpu_mean"] <= KEEP_BEST_MARGIN,
-            f"mean card loss vs the plain CPU fit: {parity}")
-    require(parity["loss_minus_plain_cpu_max"] <= 1.0,
-            f"per-series card loss vs the plain CPU fit: {parity}")
+    require(not loss_failed, f"loss parity: {loss_failed}: {parity}")
     d = -precond * fun(theta0)[1]
     return {"out": out, "inputs": {
         "data": data, "theta0": theta0, "direction": d.contiguous(),
@@ -1110,11 +1136,8 @@ def phase_kernels(serve, fwd, bnd, fit, device) -> dict:
           "shape": [c, 32, s],
           "at_1024": {"ms": bnd["ms"],
                       "torch_quantile_ms": bnd["torch_quantile_ms"]}}
-    if fit is not None:
-        k1["launches_fit"] = fit["out"]["launches"]["forward"]
-        kernels = [k1, k2] + fit_kernels(fit, device)
-    else:
-        kernels = [k1, k2]
+    k1["launches_fit"] = fit["out"]["launches"]["forward"]
+    kernels = [k1, k2] + fit_kernels(fit, device)
     for k in kernels:
         k["max_err"] = k["max_abs_err"]
     return {"kernels": kernels}
@@ -1186,19 +1209,10 @@ def fit_kernels(fit, device) -> list:
     return [k3, k4]
 
 
-PHASES = ("forward", "bands", "loss", "fan", "serve", "fit", "kernels")
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated subset of " + ",".join(PHASES)
-                    + " (kernels needs serve; the default runs all)")
     args = ap.parse_args(argv)
-    phases = set(args.phases.split(","))
-    if not phases <= set(PHASES):
-        ap.error(f"unknown phases {sorted(phases - set(PHASES))}")
 
     import torch
 
@@ -1220,22 +1234,15 @@ def main(argv=None) -> int:
                         if "registers" in ln or "spill" in ln]
                     for k, v in build.ptxas_log.items()}})
     rng = np.random.default_rng(args.seed)
-    fwd = phase_forward(rng, device) if "forward" in phases else None
-    bnd = phase_bands(rng, device) if "bands" in phases else None
-    if "loss" in phases:
-        phase_loss(rng, device)
-    if "fan" in phases:
-        phase_fan(rng, device)
-    serve = phase_serve(args, device) if "serve" in phases else None
-    fit = phase_fit(device) if "fit" in phases else None
-    kernels = None
-    if "kernels" in phases:
-        require(None not in (fwd, bnd, serve),
-                "the kernels phase needs forward, bands and serve")
-        kernels = phase_kernels(serve, fwd, bnd, fit, device)
+    fwd = phase_forward(rng, device)
+    bnd = phase_bands(rng, device)
+    phase_loss(rng, device)
+    phase_fan(rng, device)
+    serve = phase_serve(args, device)
+    fit = phase_fit(device)
+    kernels = phase_kernels(serve, fwd, bnd, fit, device)
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
-    if kernels is not None:
-        emit(kernels)
+    emit(kernels)
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

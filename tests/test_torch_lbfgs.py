@@ -182,13 +182,13 @@ def test_segments_chain_bitwise_and_sync_period_is_free(monkeypatch):
         assert torch.equal(a, getattr(lbfgs.to_result(every), f)), f
 
 
-@pytest.mark.parametrize("num_iters,cap", [(7, None), (None, 5), (3, 2)])
+@pytest.mark.parametrize("num_iters,cap", [(7, 10), (None, 5), (3, 2)])
 def test_loop_never_runs_past_its_cap(num_iters, cap):
     fun, theta0, _ = _quadratics(b=4, p=6, seed=4)
-    cfg = SolverConfig(max_iters=10, tol=0.0, gtol=0.0)
+    cfg = SolverConfig(max_iters=cap, tol=0.0, gtol=0.0)
     st = lbfgs.init_state(fun, theta0, cfg)
-    out = lbfgs.run_segment(fun, st, cfg, num_iters, max_iters_dynamic=cap)
-    want = min(num_iters or cfg.max_iters, cap or cfg.max_iters)
+    out = lbfgs.run_segment(fun, st, cfg, num_iters)
+    want = min(num_iters or cap, cap)
     assert out.iteration == want
     assert int(out.n_iters.max()) <= want
 

@@ -292,14 +292,8 @@ class CudaBackend(ForecastBackend):
         return plan
 
     def fit(self, ds, y, mask=None, cap=None, floor=None, regressors=None,
-            init=None, conditions=None, max_iters_dynamic=None,
-            gn_precond_dynamic=None, use_init_dynamic=None,
-            reg_u8_cols=None) -> FitState:
+            init=None, conditions=None, reg_u8_cols=None) -> FitState:
         """Fit a (B, T) batch of series; returns a FitState on the host."""
-        dyn_used = any(
-            v is not None for v in
-            (max_iters_dynamic, gn_precond_dynamic, use_init_dynamic)
-        )
         segmented = self._segmented()
         # Indicator-column split decided ONCE for the main fit and the
         # rescue pass (an O(B*T*R) host scan; unused when segmented).
@@ -312,14 +306,11 @@ class CudaBackend(ForecastBackend):
             state = self._fit_main(
                 ds, y, mask=mask, cap=cap, floor=floor,
                 regressors=regressors, init=init, conditions=conditions,
-                max_iters_dynamic=max_iters_dynamic,
-                gn_precond_dynamic=gn_precond_dynamic,
-                use_init_dynamic=use_init_dynamic,
                 reg_u8_cols=reg_u8_cols,
             )
-        # No rescue under phase controls or segmented solves (bounded
-        # dispatches are the caller's priority there).
-        if not self.rescue or dyn_used or segmented:
+        # No rescue under segmented solves (bounded dispatches are the
+        # caller's priority there).
+        if not self.rescue or segmented:
             return state
         with changepoint_span_warning_suppressed(), \
                 self.stages.span("rescue"):
@@ -369,8 +360,7 @@ class CudaBackend(ForecastBackend):
 
     def _fit_main(self, ds, y, mask=None, cap=None, floor=None,
                   regressors=None, init=None, conditions=None,
-                  max_iters_dynamic=None, gn_precond_dynamic=None,
-                  use_init_dynamic=None, reg_u8_cols=None):
+                  reg_u8_cols=None):
         # Host numpy end to end until each chunk's copy to the device.
         y = np.asarray(y)
         ds = np.asarray(ds)
@@ -382,11 +372,6 @@ class CudaBackend(ForecastBackend):
         if (u8 is None and regressors is not None and not self._segmented()
                 and ds.ndim == 1):
             u8 = _indicator_reg_cols(np.asarray(regressors))
-        dyn = dict(
-            max_iters_dynamic=max_iters_dynamic,
-            gn_precond_dynamic=gn_precond_dynamic,
-            use_init_dynamic=use_init_dynamic,
-        )
         # Ragged-length bucketing (shared-grid batches only).  Masked cells
         # are exact zeros in every reduction, so this changes results only
         # at float32 reduction-order level.
@@ -410,14 +395,14 @@ class CudaBackend(ForecastBackend):
                         conditions=None if conditions is None else {
                             k2: r2(v) for k2, v in conditions.items()
                         },
-                        reg_u8_cols=u8, **dyn,
+                        reg_u8_cols=u8,
                     ))
                 inv = np.argsort(np.concatenate([p[0] for p in plan]))
                 return _take_rows(_concat_states(states), inv)
         if b <= c:
             return self._fit_padded(
                 ds, y, mask, cap, floor, regressors, init, conditions, c,
-                u8, dyn,
+                u8,
             )
         states = []
         for lo in range(0, b, c):
@@ -430,13 +415,13 @@ class CudaBackend(ForecastBackend):
                 self._fit_padded(
                     ds if ds.ndim == 1 else ds[lo:hi],
                     y[lo:hi], sl(mask), sl(cap), sl(floor), sl(regressors),
-                    sl(init), slc(conditions), c, u8, dyn,
+                    sl(init), slc(conditions), c, u8,
                 )
             )
         return _concat_states(states)
 
     def _fit_padded(self, ds, y, mask, cap, floor, regressors, init,
-                    conditions, c, reg_u8_cols=None, dyn=None):
+                    conditions, c, reg_u8_cols=None):
         b = y.shape[0]
         if b < c:
             if ds.ndim == 2:
@@ -470,7 +455,6 @@ class CudaBackend(ForecastBackend):
             init=init, iter_segment=self.iter_segment,
             on_segment=self.on_segment, conditions=conditions,
             reg_u8_cols=reg_u8_cols, compact=self.compact,
-            **(dyn or {}),
         )
         return _take_rows(state, slice(0, b))
 

@@ -22,17 +22,13 @@ from tsspark_tpu_torch.kernels.loss import SIGMA_FLOOR, smooth_abs
 launches = 0
 
 
-def fan_plain(theta: torch.Tensor, direction: torch.Tensor,
-              ladder: torch.Tensor, data, config: ProphetConfig
-              ) -> torch.Tensor:
-    """Losses (K, B) at ``theta + s * direction`` for every step s of the
-    (K, B) ``ladder``.
+def ray_terms(theta: torch.Tensor, direction: torch.Tensor, data,
+              config: ProphetConfig):
+    """The per-cell terms of the model along ``theta + s * direction``.
 
     Along a ray the linear-growth model mean is the polynomial
-    c0 + s c1 + s^2 c2, so the masked sum of squares is six reductions
-    computed once; the Gaussian priors are quadratic in s, the sigma terms
-    exact per step, and only the smoothed Laplace prior needs per-step
-    work over (K, B, n_cp).
+    c0 + s c1 + s^2 c2.  Returns (r0, c1, c2) masked, each (B, T), with
+    r0 = y - c0, and the unpacked ``theta`` and ``direction``.
     """
     from tsspark_tpu_torch.models.prophet.design import (
         seasonal_split,
@@ -51,16 +47,28 @@ def fan_plain(theta: torch.Tensor, direction: torch.Tensor,
     c0 = g0 * (1.0 + m0) + a0
     c1 = gd * (1.0 + m0) + g0 * md + ad
     c2 = gd * md
-    r0 = (data.y - c0) * mask
-    c1m = c1 * mask
-    c2m = c2 * mask
+    return (data.y - c0) * mask, c1 * mask, c2 * mask, p0, pd
+
+
+def fan_plain(theta: torch.Tensor, direction: torch.Tensor,
+              ladder: torch.Tensor, data, config: ProphetConfig
+              ) -> torch.Tensor:
+    """Losses (K, B) at ``theta + s * direction`` for every step s of the
+    (K, B) ``ladder``.
+
+    The masked sum of squares along the ray (``ray_terms``) is six
+    reductions computed once; the Gaussian priors are quadratic in s, the
+    sigma terms exact per step, and only the smoothed Laplace prior needs
+    per-step work over (K, B, n_cp).
+    """
+    r0, c1m, c2m, p0, pd = ray_terms(theta, direction, data, config)
     s00 = (r0 * r0).sum(dim=-1)            # (B,)
     s01 = (r0 * c1m).sum(dim=-1)
     s02 = (r0 * c2m).sum(dim=-1)
     s11 = (c1m * c1m).sum(dim=-1)
     s12 = (c1m * c2m).sum(dim=-1)
     s22 = (c2m * c2m).sum(dim=-1)
-    n_obs = mask.sum(dim=-1)
+    n_obs = data.mask.sum(dim=-1)
 
     s = ladder                             # (K, B)
     s2_ = s * s

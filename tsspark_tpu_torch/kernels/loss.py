@@ -101,7 +101,12 @@ def _logistic_pullback(k, m, delta, s, dx_drate, dx_doff, t):
 
 
 def _loss_rows(theta, data, config, grad: bool):
-    """The plain version on one (B, P) block against (B, T) data."""
+    """The plain version on one (B, P) block against (B, T) data.
+
+    The objective's one plain copy (``neg_log_posterior`` is its value
+    half).  ``kernels.fan.fan_plain`` and the K3 / K4 kernels re-derive
+    every term — a change here must be mirrored there.
+    """
     from tsspark_tpu_torch.models.prophet.design import (
         seasonal_split,
         trend_fn,

@@ -31,12 +31,7 @@ import torch
 from tsspark_tpu_torch.config import ProphetConfig
 from tsspark_tpu_torch.kernels import fan as fan_kernel
 from tsspark_tpu_torch.kernels import loss as loss_kernel
-from tsspark_tpu_torch.models.prophet.design import (
-    FitData,
-    seasonal_split,
-    trend_fn,
-)
-from tsspark_tpu_torch.models.prophet.params import unpack
+from tsspark_tpu_torch.models.prophet.design import FitData
 
 _HUBER_EPS = loss_kernel.HUBER_EPS
 # Floor on the observation noise (scaled units): without it the MAP
@@ -47,31 +42,9 @@ _smooth_abs = loss_kernel.smooth_abs
 
 def neg_log_posterior(theta: torch.Tensor, data: FitData,
                       config: ProphetConfig) -> torch.Tensor:
-    """Per-series negative log posterior, shape (B,), in plain torch ops.
-
-    NOTE: ``fan_value_closed_form`` (and the K3 / K4 kernels) re-derive
-    every term below — a change here must be mirrored there.
-    """
-    p = unpack(theta, config)
-    g = trend_fn(p, data, config)
-    add, mult = seasonal_split(theta, data, config)
-    yhat = g * (1.0 + mult) + add
-    sigma = _SIGMA_FLOOR + torch.exp(p.log_sigma)
-
-    resid = (data.y - yhat) * data.mask
-    n_obs = data.mask.sum(dim=-1)
-    nll = (0.5 * (resid * resid).sum(dim=-1) / (sigma * sigma)
-           + n_obs * torch.log(sigma))
-
-    prior = 0.5 * (p.k / config.k_prior_scale) ** 2
-    prior = prior + 0.5 * (p.m / config.m_prior_scale) ** 2
-    prior = prior + 0.5 * (sigma / config.sigma_prior_scale) ** 2
-    if config.n_changepoints:
-        prior = prior + (_smooth_abs(p.delta)
-                         / config.changepoint_prior_scale).sum(dim=-1)
-    if config.num_features:
-        prior = prior + 0.5 * ((p.beta / data.prior_scales) ** 2).sum(dim=-1)
-    return nll + prior
+    """Per-series negative log posterior, shape (B,), in plain torch ops:
+    the value half of K3's plain version (autograd runs through it)."""
+    return loss_kernel.loss_plain(theta, data, config, grad=False)[0]
 
 
 def value_batch(theta: torch.Tensor, data: FitData,

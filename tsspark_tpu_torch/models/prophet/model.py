@@ -11,7 +11,6 @@ forecast path.  Everything runs on the card unless ``device="cpu"``.
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -85,48 +84,30 @@ def fit_core(
     theta0: Optional[torch.Tensor],
     config: ProphetConfig,
     solver_config: SolverConfig,
-    max_iters_dynamic: Optional[int] = None,
-    gn_precond_dynamic: Optional[bool] = None,
-    use_theta0_dynamic: Optional[bool] = None,
     stages: Optional[StageClock] = None,
 ) -> lbfgs.LbfgsResult:
     """The batched MAP solve on device-resident ``data``.
 
     ``theta0=None`` computes the warm start (closed-form ridge by default,
-    init.py).  ``max_iters_dynamic`` / ``gn_precond_dynamic`` /
-    ``use_theta0_dynamic``: run-time solve depth, GN-diagonal-metric
-    switch and warm-start-vs-ridge switch (the JAX package's traced phase
-    controls; here plain values).  When ``gn_precond_dynamic`` is given
-    the curvature diagonal is always computed and replaced by ones where
-    the flag is off; when ``use_theta0_dynamic`` is given the ridge init
-    is always computed and ``theta0`` (required) taken where the flag is
-    on.  ``stages`` times "init" (warm start and metric) and "solve".
+    init.py).  ``stages`` times "init" (warm start and metric) and
+    "solve".
     """
     stages = stages if stages is not None else StageClock()
     dev = data.y.device
     with stages.span("init"):
-        if use_theta0_dynamic is not None:
-            ridge = initial_theta(data, config, solver_config)
-            theta0 = theta0 if bool(use_theta0_dynamic) else ridge
-        elif theta0 is None:
+        if theta0 is None:
             theta0 = initial_theta(data, config, solver_config)
         theta0 = torch.as_tensor(theta0).to(dev, torch.float32).contiguous()
-        if gn_precond_dynamic is not None:
-            diag = curvature_diag(data, config, theta0)
-            precond = diag if bool(gn_precond_dynamic) \
-                else torch.ones_like(diag)
-        else:
-            precond = (
-                curvature_diag(data, config, theta0)
-                if solver_config.resolved_precond(config.growth) == "gn_diag"
-                else None
-            )
+        precond = (
+            curvature_diag(data, config, theta0)
+            if solver_config.resolved_precond(config.growth) == "gn_diag"
+            else None
+        )
         _sync(dev)
     with stages.span("solve"):
         fun, fval, fan = _objective(data, config)
         res = lbfgs.minimize(fun, theta0, solver_config, fun_value=fval,
-                             precond=precond, fan_value=fan,
-                             max_iters_dynamic=max_iters_dynamic)
+                             precond=precond, fan_value=fan)
         _sync(dev)
     return res
 
@@ -137,9 +118,6 @@ def fit_core_packed(
     config: ProphetConfig,
     solver_config: SolverConfig,
     reg_u8_cols: Tuple[int, ...] = (),
-    max_iters_dynamic: Optional[int] = None,
-    gn_precond_dynamic: Optional[bool] = None,
-    use_theta0_dynamic: Optional[bool] = None,
     stages: Optional[StageClock] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """fit_core over a device-resident PackedFitData (design.py): the
@@ -148,9 +126,7 @@ def fit_core_packed(
     float32 rows = loss, grad_norm, converged, n_iters, status)."""
     res = fit_core(
         unpack_fit_data(packed, reg_u8_cols), theta0, config, solver_config,
-        max_iters_dynamic=max_iters_dynamic,
-        gn_precond_dynamic=gn_precond_dynamic,
-        use_theta0_dynamic=use_theta0_dynamic, stages=stages,
+        stages=stages,
     )
     f32 = res.f.dtype
     stats = torch.stack([
@@ -373,9 +349,6 @@ class ProphetModel:
         on_segment=None,
         conditions=None,
         reg_u8_cols: Optional[Tuple[int, ...]] = None,
-        max_iters_dynamic=None,
-        gn_precond_dynamic=None,
-        use_init_dynamic=None,
         compact: bool = False,
         compact_floor: int = 32,
         compact_multiple: int = 1,
@@ -400,9 +373,6 @@ class ProphetModel:
         which regressor columns travel bit-packed (chunked callers decide
         once per dataset).
 
-        ``max_iters_dynamic`` / ``gn_precond_dynamic`` /
-        ``use_init_dynamic``: phase controls (see ``fit_core``).
-
         ``self.stages`` times prep, pack, to_device, init, solve and
         to_host (each span waits for the device before it closes).
         """
@@ -415,25 +385,6 @@ class ProphetModel:
             not (iter_segment and iter_segment < self.solver_config.max_iters)
             and packable_batch(ds, data.mask)
         )
-        dynamic = any(
-            v is not None
-            for v in (max_iters_dynamic, gn_precond_dynamic, use_init_dynamic)
-        )
-        if dynamic:
-            # Partial controls are normalized to the full triple so every
-            # path keeps the exact semantics of the static config it
-            # replaces: missing depth = the solver's own cap, missing
-            # metric flag = resolved_precond, missing init flag = honor a
-            # caller-supplied init.
-            if max_iters_dynamic is None:
-                max_iters_dynamic = self.solver_config.max_iters
-            if gn_precond_dynamic is None:
-                gn_precond_dynamic = (
-                    self.solver_config.resolved_precond(self.config.growth)
-                    == "gn_diag"
-                )
-            if use_init_dynamic is None:
-                use_init_dynamic = init is not None
         if packable:
             with self.stages.span("pack"):
                 packed, u8 = pack_fit_data(
@@ -443,42 +394,16 @@ class ProphetModel:
             with self.stages.span("to_device"):
                 packed = packed_to_device(packed, self.device)
                 theta0 = None if init is None else self._theta_init(init)
-                if dynamic and theta0 is None:
-                    # use_init flag off: never selected, but an operand.
-                    theta0 = torch.zeros(
-                        (data.y.shape[0], self.config.num_params),
-                        device=self.device,
-                    )
                 _sync(self.device)
             theta, stats = fit_core_packed(
                 packed, theta0, self.config, self.solver_config,
-                reg_u8_cols=u8,
-                max_iters_dynamic=(None if max_iters_dynamic is None
-                                   else int(max_iters_dynamic)),
-                gn_precond_dynamic=gn_precond_dynamic,
-                use_theta0_dynamic=use_init_dynamic, stages=self.stages,
+                reg_u8_cols=u8, stages=self.stages,
             )
             del packed
             if on_segment is not None:
                 on_segment()
             with self.stages.span("to_host"):
                 return fitstate_from_packed(theta.cpu(), stats, meta)
-        if dynamic:
-            # Fallback path: fold the (normalized) phase controls into an
-            # equivalent static solver.
-            solver = dataclasses.replace(
-                self.solver_config,
-                max_iters=int(max_iters_dynamic),
-                precond="gn_diag" if bool(gn_precond_dynamic) else "none",
-            )
-            fallback = ProphetModel(self.config, solver, device=self.device)
-            fallback.stages = self.stages
-            theta0 = init if bool(use_init_dynamic) else None
-            return fallback._fit_prepared(
-                data, meta, theta0, iter_segment, on_segment,
-                compact=compact, compact_floor=compact_floor,
-                compact_multiple=compact_multiple,
-            )
         return self._fit_prepared(
             data, meta, init, iter_segment, on_segment, compact=compact,
             compact_floor=compact_floor, compact_multiple=compact_multiple,

@@ -327,7 +327,6 @@ def run_segment(
     num_iters: Optional[int] = None,
     fun_value: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     fan_value=None,
-    max_iters_dynamic: Optional[int] = None,
 ) -> LbfgsState:
     """Advance the solver by up to ``num_iters`` iterations (bounded by
     ``config.max_iters`` overall).
@@ -340,21 +339,17 @@ def run_segment(
     (B, P) or a stack (N, B, P) -> (B,) or (N, B).  ``fan_value``:
     optional ``(theta, direction, ladder (K, B)) -> (K, B)`` closed-form
     ladder losses (linear growth: ``loss.fan_value_closed_form``).
-    ``max_iters_dynamic`` overrides ``config.max_iters`` as the total
-    cap (still clamped by it).  The loop never runs past that cap; it
-    reads the converged mask at entry and every ``SYNC_EVERY``
-    iterations.
+    The loop never runs past ``config.max_iters``; it reads the converged
+    mask at entry and every ``SYNC_EVERY`` iterations.
     """
     if fun_value is None:
         def fun_value(th):
             if th.ndim == 2:
                 return fun(th)[0]
             return torch.stack([fun(t)[0] for t in th])
-    cap = (config.max_iters if max_iters_dynamic is None
-           else min(int(max_iters_dynamic), config.max_iters))
     stop_at = min(state.iteration
                   + (config.max_iters if num_iters is None else num_iters),
-                  cap)
+                  config.max_iters)
     if state.iteration >= stop_at or bool(state.converged.all()):
         return state
     # The body updates the history ring in place; the caller's stays put.
@@ -409,7 +404,6 @@ def minimize(
     fun_value: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     precond: Optional[torch.Tensor] = None,
     fan_value=None,
-    max_iters_dynamic: Optional[int] = None,
 ) -> LbfgsResult:
     """Minimize a batch of independent objectives with shared compute.
 
@@ -420,7 +414,6 @@ def minimize(
         (defaults to ``fun(th)[0]``, which wastes the gradient).
       precond: optional (B, P) inverse-curvature diagonal (initial metric).
       fan_value: optional closed-form ladder evaluator (see run_segment).
-      max_iters_dynamic: optional iteration cap (see run_segment).
 
     Returns:
       LbfgsResult with per-series optimum, loss, grad inf-norm, convergence
@@ -430,6 +423,5 @@ def minimize(
         run_segment(
             fun, init_state(fun, theta0, config, precond), config,
             fun_value=fun_value, fan_value=fan_value,
-            max_iters_dynamic=max_iters_dynamic,
         )
     )
