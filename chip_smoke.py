@@ -41,8 +41,8 @@ the script exits non-zero without printing the final line:
    changepoints, ``SolverConfig(max_iters=120)``) fitted on the first
    1,746 days of every series through ``CudaBackend.fit`` on the card,
    then forecast over all 1,941 days through K1 and scored (sMAPE on
-   train and holdout).  Launch counts set to 0 just before, read just
-   after.  Stage split, iterations, status counts, host time per solver
+   train and holdout).  Launch counts (K3 per mode) set to 0 just
+   before, read just after.  Stage split, iterations, status counts, host time per solver
    iteration, peak memory, and the device-idle share of one chunk's solve
    under ``torch.profiler``.  Then parity on a 128-series subset: sMAPE
    against the port's scipy oracle (``backends/cpu.py``), and the loss
@@ -51,7 +51,8 @@ the script exits non-zero without printing the final line:
 8. kernels — each kernel at its main path's shapes, on the main path's
    inputs (K3 and K4 at 8192x1746 on config 3's first chunk), held
    against its plain version, and its time against its bound, its plain
-   version and (where one exists) one PyTorch call.
+   version and (where one exists) one PyTorch call; K3 (both modes) and
+   K4 give a row the same bits alone, permuted and in a trial stack.
 
 The last lines: the run's wall time, the kernels JSON object,
 ``nvidia-smi``'s ``name, power.limit`` line, and
@@ -851,7 +852,7 @@ def phase_fit(device) -> dict:
     torch.cuda.reset_peak_memory_stats()
     lbfgs.timing.reset()
     # The main path: counts to 0 just before, read just after.
-    lk.launches = fan_k.launches = fk.launches = 0
+    lk.launches = lk.grad_launches = fan_k.launches = fk.launches = 0
     t0 = time.perf_counter()
     state = bk.fit(ds_fit, y_fit, mask=m_fit, regressors=r_fit)
     fit_s = time.perf_counter() - t0
@@ -861,13 +862,14 @@ def phase_fit(device) -> dict:
     fc = bk.predict(state, batch.ds, regressors=batch.regressors,
                     num_samples=0)
     predict_s = time.perf_counter() - t0
-    launches = {"loss": lk.launches, "fan": fan_k.launches,
-                "forward": fk.launches}
+    launches = {"loss": lk.launches, "loss_grad": lk.grad_launches,
+                "loss_value": lk.launches - lk.grad_launches,
+                "fan": fan_k.launches, "forward": fk.launches}
     peak = torch.cuda.max_memory_allocated()
     iters, body_s = lbfgs.timing.iters, lbfgs.timing.body_s
 
-    require(launches["loss"] > 0 and launches["fan"] > 0
-            and launches["forward"] > 0,
+    require(launches["loss_grad"] > 0 and launches["loss_value"] > 0
+            and launches["fan"] > 0 and launches["forward"] > 0,
             f"kernels launched on the fit path: {launches}")
     require(tuple(state.theta.shape) == (FULL_SERIES, cfg.num_params),
             "fitted theta shape")
@@ -1175,6 +1177,8 @@ def fit_kernels(fit, device) -> list:
           "source": "tsspark_tpu_torch/csrc/loss.cu",
           "replaces": "tsspark_tpu/models/prophet/loss.py:196",
           "launches": launches["loss"],
+          "launches_grad": launches["loss_grad"],
+          "launches_value": launches["loss_value"],
           "max_abs_err": max(abs_f, abs_g), "max_abs_err_f": abs_f,
           "gap": gaps, "tolerance": tol,
           "ms": cuda_ms(lambda: lk.loss(theta, data, cfg)),
@@ -1183,6 +1187,7 @@ def fit_kernels(fit, device) -> list:
           **loss_bound_ms(b, b, t_len, cfg, True),
           "library_ms": None, "shape": [b, t_len, cfg.num_params],
           "value_mode": {
+              "launches": launches["loss_value"],
               "ms": cuda_ms(lambda: lk.loss(theta, data, cfg, grad=False)),
               "plain_ms": cuda_ms(lambda: lk.loss_plain(theta, data, cfg,
                                                         grad=False),
@@ -1206,7 +1211,63 @@ def fit_kernels(fit, device) -> list:
                               iters=3, warmup=1),
           **fan_bound_ms(b, t_len, 20, cfg),
           "library_ms": None, "shape": [20, b, t_len]}
+    k3["row_invariance"] = k4["row_invariance"] = row_invariance(
+        data, cfg, theta, d, ladder, device)
     return [k3, k4]
+
+
+def _rows(data, idx):
+    """FitData of the rows ``idx`` (a slice or an index tensor)."""
+    per_row = ["t", "y", "mask", "s", "cap", "X_reg"]
+    if data.X_season.ndim == 3:
+        per_row.append("X_season")
+    return data._replace(**{f: getattr(data, f)[idx].contiguous()
+                            for f in per_row})
+
+
+def row_invariance(data, cfg, theta, d, ladder, device) -> dict:
+    """K3 (both modes) and K4 give a row the same bits wherever it sits:
+    rows 1000:1500 launched as a batch of their own, the batch permuted,
+    and (K3) a trial stack of 3B rows against three separate launches."""
+    import torch
+
+    from tsspark_tpu_torch.kernels import fan as fan_k
+    from tsspark_tpu_torch.kernels import loss as lk
+
+    b = theta.shape[0]
+    sl = slice(1000, 1500)
+    perm = torch.randperm(b, generator=torch.Generator().manual_seed(0))
+    perm = perm.to(device)
+    sub, permuted = _rows(data, sl), _rows(data, perm)
+    same = lambda a, c: a is None or torch.equal(a, c)  # noqa: E731
+    for grad in (True, False):
+        mode = "gradient" if grad else "value"
+        f, g = lk.loss(theta, data, cfg, grad)
+        fs, gs = lk.loss(theta[sl].contiguous(), sub, cfg, grad)
+        require(same(fs, f[sl]) and (g is None or same(gs, g[sl])),
+                f"loss ({mode}): rows 1000:1500 alone differ")
+        fp, gp = lk.loss(theta[perm].contiguous(), permuted, cfg, grad)
+        require(same(fp, f[perm]) and (g is None or same(gp, g[perm])),
+                f"loss ({mode}): a permuted batch differs")
+        parts = [theta, theta * 1.01, theta * 0.99]
+        fst, gst = lk.loss(torch.cat(parts).contiguous(), data, cfg, grad)
+        for n, part in enumerate(parts):
+            fn, gn = lk.loss(part.contiguous(), data, cfg, grad)
+            rows = slice(n * b, (n + 1) * b)
+            require(same(fst[rows], fn) and (gn is None
+                                             or same(gst[rows], gn)),
+                    f"loss ({mode}): trial stack part {n} differs")
+    out = fan_k.fan(theta, d, ladder, data, cfg)
+    require(torch.equal(fan_k.fan(theta[sl].contiguous(), d[sl].contiguous(),
+                                  ladder[:, sl].contiguous(), sub, cfg),
+                        out[:, sl]), "fan: rows 1000:1500 alone differ")
+    require(torch.equal(fan_k.fan(theta[perm].contiguous(),
+                                  d[perm].contiguous(),
+                                  ladder[:, perm].contiguous(), permuted, cfg),
+                        out[:, perm]), "fan: a permuted batch differs")
+    torch.cuda.synchronize()
+    return {"bitwise": True, "rows": [1000, 1500], "permuted": b,
+            "loss_trial_stack": 3 * b}
 
 
 def main(argv=None) -> int:

@@ -1,0 +1,169 @@
+#!/usr/bin/env python3
+"""Time the port's fit kernels of several checkouts on one card, in turns.
+
+    python3 scripts/torch_kernel_ab.py DIR [DIR ...] [--out DIR]
+
+Each DIR is a checkout of this repository (for example another commit,
+``git archive``d into a git-ignored directory).  For each DIR in the
+order given, a child process imports that checkout's
+``tsspark_tpu_torch`` (building its kernels), prepares the fit path's
+first chunk of eval config 3 — 8,192 series of ``m5_like(8192, 1941,
+seed=2)`` over the first 1,746 days, packed and unpacked as the fit does,
+the solver's ridge init and first preconditioned direction — and:
+
+* times K3 ``loss`` in gradient and in value mode and K4 ``fan`` (a
+  20-rung ladder) at that shape by CUDA events, each beside its bound
+  (``chip_smoke.loss_bound_ms`` / ``fan_bound_ms`` of the same checkout);
+* runs one chunk's L-BFGS solve under ``torch.profiler``: device-busy ms
+  by kernel, the device-idle share, and host ms per solver iteration.
+
+Give the checkouts as A B B A to see the spread.  Each child prints one
+JSON line; the outputs of K3 and K4 go to ``--out`` and the last line
+compares every child's outputs with the first child's (max |difference|)
+and prints ``nvidia-smi``'s name and power limit.  Needs one CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+FULL_DAYS = 1941
+CHUNK = 8192
+
+
+def child(out_dir: str, tag: str) -> dict:
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    from tsspark_tpu_torch.data.datasets import m5_like
+    from tsspark_tpu_torch.eval import configs
+    from tsspark_tpu_torch.kernels import build
+    from tsspark_tpu_torch.kernels import fan as fan_k
+    from tsspark_tpu_torch.kernels import loss as lk
+    from tsspark_tpu_torch.models.prophet import design
+    from tsspark_tpu_torch.models.prophet.init import (
+        curvature_diag,
+        initial_theta,
+    )
+    from tsspark_tpu_torch.models.prophet.model import _objective
+    from tsspark_tpu_torch.ops import lbfgs
+
+    device = torch.device("cuda")
+    t0 = time.perf_counter()
+    build.library()
+    build_s = time.perf_counter() - t0
+    cfg, solver = configs.CONFIG3, configs.SOLVER3
+    batch = m5_like(CHUNK, FULL_DAYS, seed=2)
+    split = configs.split_point(FULL_DAYS)
+    ds = batch.ds[:split]
+    y = np.nan_to_num(batch.y[:, :split])
+    m = batch.mask[:, :split]
+    r = batch.regressors[:, :split]
+    u8 = design._indicator_reg_cols(r)
+    data_np, meta = design.prepare_fit_data(ds, y, cfg, mask=m, regressors=r)
+    packed, _ = design.pack_fit_data(data_np, meta, ds, reg_u8_cols=u8,
+                                     collapse_cap=True)
+    data = design.unpack_fit_data(design.packed_to_device(packed, device), u8)
+    theta = initial_theta(data, cfg, solver)
+    precond = curvature_diag(data, cfg, theta)
+    fun, fval, fan = _objective(data, cfg)
+    d = (-precond * fun(theta)[1]).contiguous()
+    ladder = cs._ladder(CHUNK, device)
+    b, t_len = data.t.shape
+
+    f, g = lk.loss(theta, data, cfg)
+    v, _ = lk.loss(theta, data, cfg, grad=False)
+    fo = fan_k.fan(theta, d, ladder, data, cfg)
+    torch.save({"f": f.cpu(), "g": g.cpu(), "v": v.cpu(), "fan": fo.cpu()},
+               os.path.join(out_dir, f"{tag}.pt"))
+    kernels = {
+        "loss_grad": {"ms": cs.cuda_ms(lambda: lk.loss(theta, data, cfg)),
+                      **cs.loss_bound_ms(b, b, t_len, cfg, True)},
+        "loss_value": {"ms": cs.cuda_ms(lambda: lk.loss(theta, data, cfg,
+                                                        grad=False)),
+                       **cs.loss_bound_ms(b, b, t_len, cfg, False)},
+        "fan": {"ms": cs.cuda_ms(lambda: fan_k.fan(theta, d, ladder, data,
+                                                   cfg)),
+                **cs.fan_bound_ms(b, t_len, 20, cfg)},
+    }
+    for k in kernels.values():
+        k["share_of_bound"] = k["bound_ms"] / k["ms"]
+
+    theta0 = initial_theta(data, cfg, solver)
+    torch.cuda.synchronize()
+    lbfgs.timing.reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        res = lbfgs.minimize(fun, theta0, solver, fun_value=fval,
+                             precond=precond, fan_value=fan)
+        torch.cuda.synchronize()
+        traced = time.perf_counter() - t1
+    top = cs._device_events(prof)
+    busy = sum(ms for _, ms in top)
+    iters = lbfgs.timing.iters
+    return {
+        "tag": tag, "tree": os.getcwd(), "build_s": build_s,
+        "shape": [b, t_len, cfg.num_params], "kernels": kernels,
+        "chunk_solve": {
+            "iterations": int(res.n_iters.max()), "traced_wall_s": traced,
+            "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / 1e3 / traced,
+            "host_ms_per_iteration": 1e3 * lbfgs.timing.body_s / max(iters, 1),
+            "top_device_ms": [(k[:60], ms) for k, ms in top[:6]],
+        },
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("trees", nargs="*")
+    ap.add_argument("--out", default="chiprun_out/kernel_ab")
+    ap.add_argument("--child", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    out_dir = os.path.abspath(args.out)
+    if args.child:
+        print(json.dumps(child(out_dir, args.child)), flush=True)
+        return 0
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_kernel_ab: no CUDA device is available", file=sys.stderr)
+        return 2
+    os.makedirs(out_dir, exist_ok=True)
+    tags = []
+    for n, tree in enumerate(args.trees):
+        tree = os.path.abspath(tree)
+        tag = f"{n}_{os.path.basename(tree.rstrip('/'))}"
+        env = dict(os.environ, PYTHONPATH=tree)
+        run = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--child", tag,
+             "--out", out_dir], cwd=tree, env=env, capture_output=True,
+            text=True)
+        sys.stdout.write(run.stdout)
+        if run.returncode != 0:
+            sys.stderr.write(run.stderr[-4000:])
+            return run.returncode
+        tags.append(tag)
+    ref = torch.load(os.path.join(out_dir, f"{tags[0]}.pt"))
+    diffs = {}
+    for tag in tags[1:]:
+        got = torch.load(os.path.join(out_dir, f"{tag}.pt"))
+        diffs[tag] = {k: float((got[k] - ref[k]).abs().max()) for k in ref}
+    print(json.dumps({"max_abs_diff_vs": tags[0], "diffs": diffs}))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

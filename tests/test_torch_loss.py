@@ -255,3 +255,73 @@ def test_logistic_loss_on_the_card_raises(card):
 
 def test_jax_reference_is_on_the_cpu():
     assert jax.devices()[0].platform == "cpu"
+
+
+def test_kernel_limit_is_the_shared_memory_plan():
+    """The wrappers' limit is the K3 / K4 kernels' own: an even number of
+    seasonal columns up to 64, and a block's shared memory within the
+    card's 227 KB; config 3 (the fit's main path) fits in both layouts."""
+    from tsspark_tpu_torch.eval.configs import CONFIG3
+
+    for per_series in (False, True):
+        for kernel in ("loss", "fan"):
+            assert loss_kernel.smem_bytes(kernel, CONFIG3, per_series) \
+                <= 232448
+    wide = dataclasses.replace(
+        CONFIG3, seasonalities=(dataclasses.replace(tcfg.YEARLY,
+                                                    fourier_order=40),))
+    many = dataclasses.replace(CONFIG3, n_changepoints=2000)
+    for cfg, what in ((wide, "seasonal columns"), (many, "shared memory")):
+        for kernel in ("loss", "fan"):
+            with pytest.raises(ValueError, match=what):
+                loss_kernel.smem_bytes(kernel, cfg, False)
+
+
+@pytest.mark.parametrize("per_series", [False, True])
+def test_fit_data_rises_along_t_and_s(per_series):
+    """K3 and K4 carry each row's changepoint segment along its ascending
+    walk over T: the fit's data must give t rising along every row and
+    ascending changepoints, as prepare_fit_data does."""
+    _, tc, _, data_t, _ = _case("linear", "additive", per_series, 3)
+    assert bool((torch.diff(data_t.t, dim=-1) > 0).all())
+    assert bool((torch.diff(data_t.s, dim=-1) >= 0).all())
+
+
+def test_kernels_give_a_row_the_same_bits_anywhere(card):
+    """K3 (both modes) and K4: a row's results are the same bits in a batch
+    of its own, in a permuted batch and (K3) in a trial stack of 3B rows."""
+    _, tc, _, data_t, theta = _case("linear", "multiplicative", False, 3,
+                                    b=40, t_len=300)
+    on = tdesign.FitData(*(a.to(card) for a in data_t))
+    th = T(theta).to(card)
+    d = T(np.random.default_rng(8).normal(0, 0.05, theta.shape).astype(
+        np.float32)).to(card)
+    lad = T(_ladder(theta.shape[0])).to(card)
+    sl = slice(10, 30)
+    perm = torch.randperm(theta.shape[0],
+                          generator=torch.Generator().manual_seed(1)).to(card)
+
+    def rows(idx):
+        return on._replace(**{f: getattr(on, f)[idx].contiguous()
+                              for f in ("t", "y", "mask", "s", "cap",
+                                        "X_reg")})
+
+    for grad in (True, False):
+        f, g = loss_kernel.loss(th, on, tc, grad)
+        for idx in (sl, perm):
+            f2, g2 = loss_kernel.loss(th[idx].contiguous(), rows(idx), tc,
+                                      grad)
+            assert torch.equal(f2, f[idx])
+            assert g is None or torch.equal(g2, g[idx])
+        parts = [th, th * 1.01, th * 0.99]
+        fs, gs = loss_kernel.loss(torch.cat(parts).contiguous(), on, tc, grad)
+        for n, part in enumerate(parts):
+            fn, gn = loss_kernel.loss(part.contiguous(), on, tc, grad)
+            block = slice(n * th.shape[0], (n + 1) * th.shape[0])
+            assert torch.equal(fs[block], fn)
+            assert gn is None or torch.equal(gs[block], gn)
+    out = fan_kernel.fan(th, d, lad, on, tc)
+    for idx in (sl, perm):
+        got = fan_kernel.fan(th[idx].contiguous(), d[idx].contiguous(),
+                             lad[:, idx].contiguous(), rows(idx), tc)
+        assert torch.equal(got, out[:, idx])

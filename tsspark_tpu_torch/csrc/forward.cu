@@ -9,6 +9,7 @@
 //
 // Per cell (b, t) it computes
 //   trend = k*t + m + sum_j delta_j * relu(t - s_j)               (linear)
+//           (taken as (k + D_n) t + (m - E_n), prophet_model.cuh)
 //         = cap * sigmoid((k + A delta) * (t - (m + A gamma)))   (logistic)
 //         = m                                                    (flat)
 //   add   = sum_f beta_f (1 - mm_f) x_f,  mult = sum_f beta_f mm_f x_f
@@ -23,8 +24,9 @@
 // 3.35 TB/s.  Design: one block per (series row, tile of T).  The row's
 // parameters, its changepoints and the per-feature additive and
 // multiplicative coefficients are staged once in shared memory (the
-// logistic offsets gamma too: their recursion over changepoints runs
-// once per block, before the T loop).  Each thread takes one cell and
+// logistic offsets gamma, or the linear trend's prefix sums D and E:
+// their recursion over changepoints runs once per block, before the T
+// loop; a cell then counts its active changepoints).  Each thread takes one cell and
 // keeps every sum in registers; neighbouring threads take neighbouring
 // t, so the loads of t and cap and the four stores are coalesced.  A
 // shared (T, F) feature matrix has batch stride 0 and stays in L2.
@@ -60,6 +62,8 @@ __global__ void forward_kernel(
   float* sh_gamma = sh_delta + ncp; // ncp logistic offsets
   float* sh_ba = sh_gamma + ncp;    // F additive coefficients
   float* sh_bm = sh_ba + F;         // F multiplicative coefficients
+  float* sh_D = sh_bm + F;          // ncp + 1 prefix sums of delta
+  float* sh_E = sh_D + ncp + 1;     // ncp + 1 prefix sums of delta * s
 
   const long long b = blockIdx.x;
   const float* th = theta + b * P;
@@ -73,6 +77,8 @@ __global__ void forward_kernel(
   const float m = th[1];
   if (growth == kLogistic && threadIdx.x == 0)
     logistic_gamma(k, m, sh_s, sh_delta, sh_gamma, ncp);
+  if (growth == kLinear && threadIdx.x == 0)
+    linear_prefix(sh_s, sh_delta, sh_D, sh_E, ncp);
   __syncthreads();
 
   const int tt = blockIdx.y * blockDim.x + threadIdx.x;
@@ -82,7 +88,8 @@ __global__ void forward_kernel(
 
   float g;
   if (growth == kLinear) {
-    g = linear_trend(tv, k, m, sh_s, sh_delta, ncp);
+    const int n = active_changepoints(tv, sh_s, ncp, 0);
+    g = linear_trend(tv, segment_line(k, m, sh_D[n], sh_E[n]));
   } else if (growth == kLogistic) {
     g = logistic_trend(tv, cap[cell], k, m, sh_s, sh_delta, sh_gamma, ncp);
   } else {
@@ -118,7 +125,7 @@ extern "C" int tsspark_forward(
   if (B == 0 || T == 0) return 0;
   const int tile = T <= 32 ? 32 : (T <= 64 ? 64 : 128);
   const dim3 grid(B, (T + tile - 1) / tile);
-  const size_t shmem = sizeof(float) * (3 * ncp + 2 * (Fs + R));
+  const size_t shmem = sizeof(float) * (5 * ncp + 2 + 2 * (Fs + R));
   forward_kernel<<<grid, tile, shmem, static_cast<cudaStream_t>(stream)>>>(
       theta, t, s, cap, xs, xs_bstride, xr, mm, y_scale, floor_,
       yhat, trend, add_out, mult_out, T, P, ncp, Fs, R, growth);

@@ -7,9 +7,19 @@
 // here, and all three kernels pick it up (kernels/build.py hashes this
 // header into the library's name, so an edit rebuilds them).
 //
-// The sums run in changepoint and feature order, the order of the plain
-// PyTorch versions (models/prophet/trend.py, design._component).
-
+// The linear trend is taken in its prefix form.  With the n = #{j: s_j < t}
+// active changepoints (s ascending, as design.py builds it: quantiles of
+// sorted times, or the config's sorted explicit list),
+//   k t + m + sum_{j<n} delta_j (t - s_j) = (k + D_n) t + (m - E_n),
+//   D_n = delta_0 + ... + delta_{n-1},  E_n = delta_0 s_0 + ... ,
+// so a cell costs O(1) once n is known: K1 counts n per cell, K3 and K4
+// carry it along each lane's ascending walk over T.  D and E are summed
+// in changepoint order.  The feature totals run in feature order, the
+// order of the plain PyTorch versions (design._component): the Fs
+// seasonal columns, then the R regressor columns, then the two added.
+//
+// This header also holds the bulk-copy (TMA) staging helpers and the
+// fixed-order warp sums K3 and K4 share.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -30,13 +40,45 @@ __device__ __forceinline__ float safe_div(float a, float b) {
   return a / b;
 }
 
-// k*t + m + sum_j delta_j * relu(t - s_j).
-__device__ __forceinline__ float linear_trend(float tv, float k, float m,
-                                              const float* s,
-                                              const float* delta, int ncp) {
-  float g = k * tv + m;
-  for (int j = 0; j < ncp; ++j) g = g + delta[j] * fmaxf(tv - s[j], 0.0f);
-  return g;
+// D_n and E_n of the prefix form, n = 0..ncp (D, E hold ncp + 1 floats),
+// summed in changepoint order.  Sequential; one thread runs it.
+__device__ __forceinline__ void linear_prefix(const float* s,
+                                              const float* delta, float* D,
+                                              float* E, int ncp) {
+  float d = 0.0f, e = 0.0f;
+  D[0] = 0.0f;
+  E[0] = 0.0f;
+  for (int j = 0; j < ncp; ++j) {
+    d = d + delta[j];
+    e = e + delta[j] * s[j];
+    D[j + 1] = d;
+    E[j + 1] = e;
+  }
+}
+
+// n = #{j : s_j < tv} for ascending s, moved from any start n; a NaN tv
+// gives 0 (its trend is NaN either way).
+__device__ __forceinline__ int active_changepoints(float tv, const float* s,
+                                                   int ncp, int n) {
+  while (n < ncp && s[n] < tv) ++n;
+  while (n > 0 && !(s[n - 1] < tv)) --n;
+  return n;
+}
+
+// The line of the trend between changepoints n - 1 and n:
+// k*t + m + sum_j delta_j * relu(t - s_j) = slope * t + intercept there,
+// slope = k + D[n], intercept = m - E[n] (the prefix form).
+struct Line {
+  float slope, intercept;
+};
+
+__device__ __forceinline__ Line segment_line(float k, float m, float Dn,
+                                             float En) {
+  return {k + Dn, m - En};
+}
+
+__device__ __forceinline__ float linear_trend(float tv, Line line) {
+  return line.slope * tv + line.intercept;
 }
 
 // gamma_j = (s_j - m - sum_{l<j} gamma_l) * (1 - k_{j-1} / k_j),
@@ -125,21 +167,246 @@ __device__ __forceinline__ float smooth_abs_grad(float x) {
 
 __device__ __forceinline__ float sq(float x) { return x * x; }
 
-// Sum of v over the block, valid in thread 0: a fixed shuffle tree in each
-// warp, then the warps' sums in warp order.  The order depends on nothing
-// but the block size, so a row's sum is the same in any batch.  `scratch`
-// holds kThreads / 32 floats; every thread of the block must call.
-template <int kThreads>
-__device__ __forceinline__ float block_sum(float v, float* scratch) {
+// Whether any of the F features is multiplicative: one load a lane, then
+// a vote (a loop of dependent loads would stall every block's start).
+__device__ __forceinline__ bool any_multiplicative(const float* mm, int F) {
+  bool any = false;
+  for (int f = threadIdx.x & 31; f < F; f += 32) any = any || mm[f] != 0.0f;
+  return __any_sync(0xffffffffu, any);
+}
+
+// Sum of v over the 32 lanes of a warp, valid in lane 0: a fixed
+// shuffle tree, so a row's sum is the same in any batch.
+__device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1)
     v += __shfl_down_sync(0xffffffffu, v, off);
-  __syncthreads();  // scratch may still be read by an earlier call
-  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float total = 0.0f;
-  if (threadIdx.x == 0)
-    for (int w = 0; w < kThreads / 32; ++w) total += scratch[w];
-  return total;
+  return v;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Four floats from shared memory that the compiler may not keep in
+// registers across a loop (it would hoist the per-row coefficients of a
+// cell loop and run out of registers).
+__device__ __forceinline__ float4 lds4_volatile(const float* p) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(smem_addr(p)));
+  return v;
+}
+
+__device__ __forceinline__ float2 lds2_volatile(const float* p) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(smem_addr(p)));
+  return v;
+}
+
+// Hopper's bulk copy engine (TMA, 1-D): a copy of whole 16-byte pieces
+// from global to shared memory that reports its bytes to an mbarrier.
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count));
+}
+
+// Make the barriers' initialisation and earlier generic writes to shared
+// memory visible to the bulk copy engine; the block synchronises after.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Order this thread's earlier generic shared-memory writes before its
+// later bulk copies into the same memory.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect(unsigned long long* bar,
+                                                   unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// How one thread stages the floats [first, first + n) of an array of
+// `total` floats whose base is 16-byte aligned: the 16-byte pieces that
+// cover them (from a0, nbulk floats) by one bulk copy into a 16-byte-
+// aligned dst; the last floats of the array past its final whole piece
+// (ntail, at most 3) by plain loads.  The staged floats start at
+// dst + (first & 3).
+struct Staged {
+  long long a0;
+  int nbulk, ntail;
+};
+
+__device__ __forceinline__ Staged stage_plan(long long first, int n,
+                                             long long total) {
+  Staged st;
+  st.a0 = first & ~3ll;
+  const long long whole = total & ~3ll;
+  long long a1 = (first + n + 3) & ~3ll;
+  if (a1 > whole) a1 = whole;
+  st.nbulk = a1 > st.a0 ? static_cast<int>(a1 - st.a0) : 0;
+  const long long end = first + n;
+  st.ntail = end > st.a0 + st.nbulk
+                 ? static_cast<int>(end - (st.a0 + st.nbulk))
+                 : 0;
+  return st;
+}
+
+// The plain-load part of a staged copy (issued before the barrier's
+// arrival), then the bulk part (after it).
+__device__ __forceinline__ void stage_tail(float* dst, const float* base,
+                                           const Staged& st) {
+  for (int j = 0; j < st.ntail; ++j)
+    dst[st.nbulk + j] = base[st.a0 + st.nbulk + j];
+}
+
+__device__ __forceinline__ void stage_bulk(float* dst, const float* base,
+                                           const Staged& st,
+                                           unsigned long long* bar) {
+  if (st.nbulk > 0) bulk_copy(dst, base + st.a0, 4u * st.nbulk, bar);
+}
+
+// The row pipeline of K3 and K4 (loss.cu, fan.cu).  A block is
+// kRowWarps row warps, one series row each, and one producer warp.  The
+// producer keeps a kStages-deep ring of T tiles in flight through the bulk
+// copy engine: lane w copies row w's t, y, mask and regressor cells, lane
+// 31 the tile's shared seasonal slice once for all rows (per series, each
+// row lane its own slice).  Stage s has two mbarriers: full[s] (bars[s])
+// counts the producer lanes' arrivals and bytes, empty[s]
+// (bars[kStages + s]) one arrival from each live row done with it.
+constexpr int kRowWarps = 7;
+constexpr int kPipeThreads = 32 * (kRowWarps + 1);
+constexpr int kStages = 2;
+constexpr int kSharedTile = 128;
+constexpr int kSeriesTile = 32;
+constexpr int kMaxSmemBytes = 232448;  // a block's shared memory, sm_90
+
+__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
+
+// One stage, in floats: each row's slot (t, y, mask and regressor cells,
+// 8 floats of room each for the 16-byte pieces around them), then the
+// seasonal slice(s) with kFs floats of room past the last cell's columns.
+struct StageLayout {
+  int tile, t, y, m, r, row, x0, x1, size;
+  __host__ __device__ StageLayout(int kFs, int Fs, int R, bool per_series) {
+    tile = per_series ? kSeriesTile : kSharedTile;
+    t = 0;
+    y = t + tile + 8;
+    m = y + tile + 8;
+    r = m + tile + 8;
+    row = r + round4(tile * R) + 8;
+    x0 = kRowWarps * row;
+    x1 = round4(tile * Fs) + 8 + kFs;
+    size = x0 + (per_series ? kRowWarps : 1) * x1;
+  }
+};
+
+__device__ __forceinline__ void pipeline_init(unsigned long long* bars,
+                                              int nlive, bool per_series) {
+  for (int s = threadIdx.x; s < kStages; s += blockDim.x) {
+    mbar_init(bars + s, per_series ? 2 * nlive : nlive + 1);
+    mbar_init(bars + kStages + s, nlive);
+  }
+}
+
+// One staged copy from one thread: the plain loads, the thread's arrival
+// on `full` with the bytes it expects, the bulk copy.
+__device__ __forceinline__ void stage_arrive(float* dst, const float* base,
+                                             long long first, int n,
+                                             long long total,
+                                             unsigned long long* full) {
+  const Staged p = stage_plan(first, n, total);
+  stage_tail(dst, base, p);
+  mbar_arrive_expect(full, 4u * p.nbulk);
+  fence_proxy_async();
+  stage_bulk(dst, base, p, full);
+}
+
+// The producer warp's whole walk over T for the rows row0 .. row0 + nlive
+// (data row (row0 + w) % B), every tile once its stage is empty.
+__device__ __forceinline__ void produce_tiles(
+    float* stages, const StageLayout& sl, unsigned long long* bars, int nlive,
+    long long row0, int B, int T, int R, int Fs, const float* t,
+    const float* y, const float* mask, const float* xr, const float* xs,
+    long long xs_bstride) {
+  const int lane = threadIdx.x & 31;
+  const bool per_series = xs_bstride != 0;
+  const bool row_lane = lane < nlive;
+  const long long b = row_lane ? (row0 + lane) % B : 0;
+  const bool x_lane = per_series ? row_lane : lane == 31;
+  const long long cells = static_cast<long long>(B) * T;
+  const long long xs_total =
+      per_series ? cells * Fs : static_cast<long long>(T) * Fs;
+  const int ntiles = (T + sl.tile - 1) / sl.tile;
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it % kStages;
+    if (it >= kStages) mbar_wait(bars + kStages + s, ((it / kStages) - 1) & 1);
+    const int t0 = it * sl.tile;
+    const int n = min(sl.tile, T - t0);
+    float* stage = stages + s * sl.size;
+    unsigned long long* full = bars + s;
+    if (row_lane) {
+      float* slot = stage + lane * sl.row;
+      const long long c0 = b * T + t0;
+      const Staged pt = stage_plan(c0, n, cells);
+      const Staged pr = stage_plan(c0 * R, n * R, cells * R);
+      stage_tail(slot + sl.t, t, pt);
+      stage_tail(slot + sl.y, y, pt);
+      stage_tail(slot + sl.m, mask, pt);
+      stage_tail(slot + sl.r, xr, pr);
+      mbar_arrive_expect(full, 4u * (3 * pt.nbulk + pr.nbulk));
+      fence_proxy_async();
+      stage_bulk(slot + sl.t, t, pt, full);
+      stage_bulk(slot + sl.y, y, pt, full);
+      stage_bulk(slot + sl.m, mask, pt, full);
+      stage_bulk(slot + sl.r, xr, pr, full);
+    }
+    if (x_lane)
+      stage_arrive(stage + sl.x0 + (per_series ? lane * sl.x1 : 0), xs,
+                   b * xs_bstride + static_cast<long long>(t0) * Fs, n * Fs,
+                   xs_total, full);
+  }
 }
 
 }  // namespace tsspark

@@ -16,7 +16,12 @@ import torch
 from tsspark_tpu_torch.config import ProphetConfig
 from tsspark_tpu_torch.kernels import build
 from tsspark_tpu_torch.kernels.forward import _require
-from tsspark_tpu_torch.kernels.loss import SIGMA_FLOOR, smooth_abs
+from tsspark_tpu_torch.kernels.loss import (
+    SIGMA_FLOOR,
+    aligned16,
+    smem_bytes,
+    smooth_abs,
+)
 
 #: Kernel launches since the count was last set to 0.
 launches = 0
@@ -125,6 +130,7 @@ def fan(theta: torch.Tensor, direction: torch.Tensor, ladder: torch.Tensor,
     fs = config.num_seasonal_features
     r = config.num_regressors
     p = config.num_params
+    smem_bytes("fan", config, data.X_season.ndim == 3)
     _require("theta", theta, (b, p), dev)
     _require("direction", direction, (b, p), dev)
     _require("ladder", ladder, (k_steps, b), dev)
@@ -139,6 +145,7 @@ def fan(theta: torch.Tensor, direction: torch.Tensor, ladder: torch.Tensor,
         _require("X_season", xs, (b, t_len, fs), dev)
         xs_bstride = t_len * fs
     _require("X_reg", data.X_reg, (b, t_len, r), dev)
+    t, y, mask, xs, xr = aligned16(data.t, data.y, data.mask, xs, data.X_reg)
     _require("prior_scales", data.prior_scales, (fs + r,), dev)
     _require("mult_mask", data.mult_mask, (fs + r,), dev)
     out = torch.empty((k_steps, b), dtype=torch.float32, device=dev)
@@ -147,9 +154,9 @@ def fan(theta: torch.Tensor, direction: torch.Tensor, ladder: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.tsspark_fan(
             theta.data_ptr(), direction.data_ptr(), ladder.data_ptr(),
-            data.t.data_ptr(), data.y.data_ptr(), data.mask.data_ptr(),
-            data.s.data_ptr(), xs.data_ptr(), xs_bstride,
-            data.X_reg.data_ptr(), data.prior_scales.data_ptr(),
+            t.data_ptr(), y.data_ptr(), mask.data_ptr(), data.s.data_ptr(),
+            xs.data_ptr(), xs_bstride, xr.data_ptr(),
+            data.prior_scales.data_ptr(),
             data.mult_mask.data_ptr(), out.data_ptr(),
             b, t_len, p, ncp, fs, r, k_steps, config.k_prior_scale,
             config.m_prior_scale, config.sigma_prior_scale,

@@ -7,11 +7,13 @@ sums the kernel takes (``csrc/loss.cu``), with logistic growth's pull
 back through the offset recursion on top.  On a CUDA tensor it launches
 the kernel or raises; logistic growth is not ported to the card yet and
 raises ``NotImplementedError`` there.  ``launches`` counts kernel
-launches.
+launches, ``grad_launches`` those in gradient mode among them.
 
 ``theta`` may hold N stacked copies of the batch, (N * B, P) for a (B, T)
 ``data``: row i is scored on data row i % B (the stacked line-search
-trials of flat growth and the fallback row).
+trials of flat growth and the fallback row).  The kernel needs ``t``
+rising along each row and ascending changepoints, as ``prepare_fit_data``
+builds them (K4 too).
 """
 
 from __future__ import annotations
@@ -24,12 +26,63 @@ from tsspark_tpu_torch.config import ProphetConfig
 from tsspark_tpu_torch.kernels import build
 from tsspark_tpu_torch.kernels.forward import GROWTH_CODES, _require
 
-#: Kernel launches since the count was last set to 0.
+#: Kernel launches since the count was last set to 0, and those of them
+#: in gradient mode.
 launches = 0
+grad_launches = 0
 
-#: The kernel's block size: the 2 + n_cp + F gradient sums of one row
-#: each need a lane of the block.
-_THREADS = 256
+# The K3 / K4 kernels' shared-memory plan (csrc/loss.cu, csrc/fan.cu
+# ``Plan``): a block of ROWS row warps, one row each, and one producer
+# warp walks T in tiles through a STAGES-deep pipeline; seasonal columns
+# are unrolled to the next of _FS_BUCKETS.
+ROWS = 7
+STAGES = 2
+_FS_BUCKETS = (8, 16, 24, 32, 48, 64)
+_MAX_SMEM_BYTES = 232448
+
+
+def aligned16(*tensors: torch.Tensor):
+    """The tensors, each copied if its data does not start on a 16-byte
+    boundary: the kernels stage rows by 16-byte bulk copies."""
+    return tuple(x if x.data_ptr() % 16 == 0 else x.clone()
+                 for x in tensors)
+
+
+def _r4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def smem_bytes(kernel: str, config: ProphetConfig, per_series: bool,
+               grad: bool = True) -> int:
+    """Bytes of shared memory one block of the ``"loss"`` or ``"fan"``
+    kernel takes for ``config``; ValueError past the kernels' limits."""
+    ncp = config.n_changepoints
+    fs = config.num_seasonal_features
+    r = config.num_regressors
+    p = config.num_params
+    if fs % 2 or fs > _FS_BUCKETS[-1]:
+        raise ValueError(
+            f"{kernel} kernel: {fs} seasonal columns; it takes an even "
+            f"number (sin/cos pairs) up to {_FS_BUCKETS[-1]}")
+    kfs = next(k for k in _FS_BUCKETS if fs <= k)
+    tile = 32 if per_series else 128
+    if kernel == "loss":
+        row = (_r4(p) + 3 * _r4(ncp) + 2 * _r4(ncp + 1) + 4 * kfs
+               + 4 * _r4(r) + _r4(r + kfs + 2) + _r4(fs + r))
+    else:
+        row = (2 * _r4(p) + _r4(ncp) + 4 * _r4(ncp + 1) + 4 * kfs
+               + 4 * _r4(r) + 16 + _r4(fs + r))
+    st_row = 3 * (tile + 8) + _r4(tile * r) + 8
+    st_x = (_r4(tile * fs) + 8 + kfs) * (ROWS if per_series else 1)
+    racc = _r4(r) * 32 * (ROWS + 1) if kernel == "loss" and grad else 0
+    total = 4 * (4 * STAGES + ROWS * row + STAGES * (ROWS * st_row + st_x)
+                 + racc)
+    if total > _MAX_SMEM_BYTES:
+        raise ValueError(
+            f"{kernel} kernel: {ncp} changepoints, {fs} seasonal and {r} "
+            f"regressor columns need {total} bytes of shared memory a "
+            f"block, past the card's {_MAX_SMEM_BYTES}")
+    return total
 
 # models/prophet/loss.py's constants (the kernel's copies live in
 # csrc/prophet_model.cuh).
@@ -206,7 +259,7 @@ def loss(theta: torch.Tensor, data, config: ProphetConfig,
          grad: bool = True
          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The objective (and its gradient); see ``loss_plain``."""
-    global launches
+    global launches, grad_launches
     dev = theta.device
     if dev.type == "cpu":
         return loss_plain(theta, data, config, grad)
@@ -225,9 +278,7 @@ def loss(theta: torch.Tensor, data, config: ProphetConfig,
     f_all = fs + r
     if b == 0 or n % b:
         raise ValueError(f"loss: {n} parameter rows for {b} data rows")
-    if 2 + ncp + f_all > _THREADS:
-        raise ValueError("loss: more than 254 changepoints and features "
-                         "for the kernel's one block per row")
+    smem_bytes("loss", config, data.X_season.ndim == 3, grad)
     _require("theta", theta, (n, config.num_params), dev)
     for name in ("t", "y", "mask"):
         _require(name, getattr(data, name), (b, t_len), dev)
@@ -240,6 +291,7 @@ def loss(theta: torch.Tensor, data, config: ProphetConfig,
         _require("X_season", xs, (b, t_len, fs), dev)
         xs_bstride = t_len * fs
     _require("X_reg", data.X_reg, (b, t_len, r), dev)
+    t, y, mask, xs, xr = aligned16(data.t, data.y, data.mask, xs, data.X_reg)
     _require("prior_scales", data.prior_scales, (f_all,), dev)
     _require("mult_mask", data.mult_mask, (f_all,), dev)
     f = torch.empty((n,), dtype=torch.float32, device=dev)
@@ -249,9 +301,9 @@ def loss(theta: torch.Tensor, data, config: ProphetConfig,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.tsspark_loss(
-            theta.data_ptr(), data.t.data_ptr(), data.y.data_ptr(),
-            data.mask.data_ptr(), data.s.data_ptr(), xs.data_ptr(),
-            xs_bstride, data.X_reg.data_ptr(), data.prior_scales.data_ptr(),
+            theta.data_ptr(), t.data_ptr(), y.data_ptr(), mask.data_ptr(),
+            data.s.data_ptr(), xs.data_ptr(), xs_bstride, xr.data_ptr(),
+            data.prior_scales.data_ptr(),
             data.mult_mask.data_ptr(), f.data_ptr(),
             None if g is None else g.data_ptr(),
             n, b, t_len, config.num_params, ncp, fs, r,
@@ -261,4 +313,5 @@ def loss(theta: torch.Tensor, data, config: ProphetConfig,
         )
     build.check(err, "loss")
     launches += 1
+    grad_launches += bool(grad)
     return f, g
