@@ -12,11 +12,15 @@ the script exits non-zero without printing the final line:
    (B=2048, T=1969, 25 changepoints, 26 Fourier columns; shared and
    per-series features, 3 regressors; linear, flat and logistic growth).
 3. bands   — kernel K2 against its plain version: first on given draws
-   (B=1024, T=32, S=256, and S up to 16,384 on a few rows; equal to
-   float32 tolerance), then on its own Philox draws against the plain
-   version's generator (Monte-Carlo bounds on the yhat bands, where the
-   normal draws dominate, and on the trend bands of a horizon where
-   simulated changepoints dominate), and lo <= hi everywhere.
+   (B=1024, T=32, S=256, and S of 1,000 to 65,536 on a few rows, past
+   one block into the device-memory scratch path; equal to float32
+   tolerance), then on its own Philox draws against the plain version's
+   generator (Monte-Carlo bounds on the yhat bands, where the normal
+   draws dominate, and on the trend bands of a horizon where simulated
+   changepoints dominate), and lo <= hi everywhere; then its own draws at
+   S=65,536 on 1,024 rows x 32 steps (finite, ordered, the yhat bands
+   against the plain version on 16 rows on the CPU, rows bitwise
+   invariant).
 4. loss    — kernel K3 against its plain version (B=1024, T=1746, config
    3's widths): value and gradient modes, linear and flat growth,
    additive and multiplicative features, shared and per-series seasonal
@@ -52,7 +56,9 @@ the script exits non-zero without printing the final line:
    inputs (K3 and K4 at 8192x1746 on config 3's first chunk), held
    against its plain version, and its time against its bound, its plain
    version and (where one exists) one PyTorch call; K3 (both modes) and
-   K4 give a row the same bits alone, permuted and in a trial stack.
+   K4 give a row the same bits alone, permuted and in a trial stack; K1
+   (both shapes) and K2 (its own Philox draws, each row keeping its
+   Philox coordinate) alone and permuted.
 
 The last lines: the run's wall time, the kernels JSON object,
 ``nvidia-smi``'s ``name, power.limit`` line, and
@@ -74,6 +80,12 @@ import numpy as np
 # bandwidth, and float32 outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+# Its 132 multiprocessors at the 1.98 GHz boost clock of that float32 peak
+# (132 x 128 lanes x 2 x 1.98e9), at the CUDA programming guide's rates a
+# multiprocessor for compute capability 9.0: 64 32-bit integer multiplies
+# and 16 special-function operations (log2, rsqrt, sin, cos) a clock.
+PEAK_INT32_MUL_PER_S = 132 * 64 * 1.98e9
+PEAK_SFU_PER_S = 132 * 16 * 1.98e9
 
 FULL_SERIES = 30490
 FULL_DAYS = 1941
@@ -108,6 +120,26 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def device_ms(fn, iters: int = 50) -> float:
+    """Mean device time of ``fn`` in ms, the host's launch cost left out:
+    the card first sleeps (~30 ms of its clock) while the host enqueues
+    ``iters`` calls between two events, which then bracket the calls run
+    back to back."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -194,6 +226,28 @@ def bands_bound_ms(b, t_len, s, config, given_draws=False) -> dict:
     t_ops = b * t_len * s * (20 + 2 * 2) / PEAK_F32_PER_S * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def bands_variates_bound_ms(b, t_len, s, config) -> dict:
+    """``bands_bound_ms`` with the variates K2 must draw counted too: one
+    Philox4x32-10 draw a sample-cell, 10 rounds of two 32x32-bit products
+    each taken as a low and a high multiply (40 integer multiplies), at
+    the integer multiply rate; and four transcendentals a sample-cell (the
+    Laplace draw's log, Box-Muller's log, square root and cosine) at the
+    special-function rate.  The units run side by side, so the least time
+    is the largest of the bytes, float32, integer and special-function
+    times."""
+    base = bands_bound_ms(b, t_len, s, config)
+    cells = b * t_len * s
+    times = {
+        "bytes_or_float32": base["bound_ms"],
+        "integer_multiplies": cells * 40 / PEAK_INT32_MUL_PER_S * 1e3,
+        "transcendentals": cells * 4 / PEAK_SFU_PER_S * 1e3,
+    }
+    by = max(times, key=times.get)
+    return {"bound_with_variates_ms": times[by],
+            "bound_with_variates_by": by,
+            "bound_with_variates_parts_ms": times}
 
 
 def loss_bound_ms(n_rows, b, t_len, config, grad) -> dict:
@@ -431,10 +485,11 @@ def phase_bands(rng, device) -> dict:
                        / (scale[:, None] + want[k].abs())).max())
              for k in want}
     require(max(given.values()) <= tol, f"bands given-draws: {given}")
-    # Sample counts past one thread per sample (several per thread, and
-    # the largest the kernel takes), on a few rows.
+    # Sample counts past one thread per sample (several per thread), past
+    # one block (the device-memory scratch path) and past the 16,384 one
+    # block held before, on a few rows.
     wide = {}
-    for n_s in (1000, 3000, bk.MAX_SAMPLES):
+    for n_s in (1000, 3000, 16384, 16385, 65536):
         wargs = inputs(16, eng_t[:8])
         wdraws = bk.sample_draws((n_s, 16, 8), gen, device)
         e = _band_err(bk.bands(*wargs, cfg, n_s, draws=wdraws),
@@ -483,6 +538,7 @@ def phase_bands(rng, device) -> dict:
     _require_mc(mc_trend, "trend_lower", "trend_upper", "bands trend")
     require(bool((own_c["trend_lower"] <= own_c["trend_upper"]).all()),
             "trend_lower <= trend_upper (changepoint horizon)")
+    big = big_sample_run(inputs, on_cpu, cfg, eng_t, device)
     ms = cuda_ms(lambda: bk.bands(*args, cfg, s, seed=3))
     plain_ms = cuda_ms(lambda: bk.bands_plain(*args, cfg, draws),
                        iters=3, warmup=1)
@@ -496,10 +552,94 @@ def phase_bands(rng, device) -> dict:
            "tolerance": f"|k-p|/(y_scale+|p|) <= {tol}",
            "monte_carlo_yhat": mc_yhat,
            "monte_carlo_trend": {"cp_prob": p_cp, **mc_trend},
+           "philox_65536": big,
            "ms": ms, "plain_ms": plain_ms,
            "torch_quantile_ms": quantile_ms}
     emit(out)
     return out
+
+
+# Where most trend paths tie (no simulated changepoint yet), both trend
+# quantiles are that one value, each rounded by its own float32 weights
+# (q * (S - 1) is not exact for every S): they may part by an ulp.
+TIE_ULPS = 4
+
+
+def ordered(lo, hi, ties: bool) -> bool:
+    """lo <= hi, or within TIE_ULPS of it where a column may tie."""
+    import torch
+
+    if not ties:
+        return bool((lo <= hi).all())
+    eps = float(np.finfo(np.float32).eps)
+    return bool((lo <= hi + TIE_ULPS * eps * hi.abs()).all())
+
+
+def _band_rows(args, idx):
+    """K2's inputs (theta, data, det, add, mult, scale, floor) of rows
+    ``idx``."""
+    theta, data, *rest = args
+    return (theta[idx].contiguous(), _rows(data, idx),
+            *(x[idx].contiguous() for x in rest))
+
+
+def band_row_invariance(args, cfg, s, device) -> dict:
+    """K2 with its own Philox draws gives a row the same bits wherever it
+    sits, the row keeping its Philox coordinate (``rows``): a slice of the
+    batch launched alone, and the batch permuted."""
+    import torch
+
+    from tsspark_tpu_torch.kernels import bands as bk
+
+    b = args[0].shape[0]
+    full = bk.bands(*args, cfg, s, seed=21)
+    lo, hi = b // 8, b // 8 + max(1, b // 16)
+    ids = torch.arange(b, dtype=torch.int32, device=device)
+    perm = torch.randperm(b, generator=torch.Generator().manual_seed(1))
+    perm = perm.to(device)
+    for name, idx in (("slice", slice(lo, hi)), ("permuted", perm)):
+        got = bk.bands(*_band_rows(args, idx), cfg, s, seed=21,
+                       rows=ids[idx].contiguous())
+        require(all(torch.equal(got[k], full[k][idx]) for k in full),
+                f"bands S={s}: a {name} batch differs")
+    torch.cuda.synchronize()
+    return {"bitwise": True, "rows": [lo, hi], "permuted": b, "S": s}
+
+
+def big_sample_run(inputs, on_cpu, cfg, eng_t, device) -> dict:
+    """K2 with its own draws at 65,536 samples (the scratch path) on
+    1,024 rows of the engine grid: finite, ordered bands; the yhat bands
+    against the plain version's generator on 16 rows on the CPU (at this
+    S a quantile's standard error is ~0.007 of the noise's sd); rows
+    bitwise invariant."""
+    import torch
+
+    from tsspark_tpu_torch.kernels import bands as bk
+
+    s, b, sub = 65536, 1024, 16
+    args = inputs(b, eng_t)
+    t0 = time.perf_counter()
+    own = bk.bands(*args, cfg, s, seed=13)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for lo, hi in (("yhat_lower", "yhat_upper"),
+                   ("trend_lower", "trend_upper")):
+        require(bool(torch.isfinite(own[lo]).all()
+                     & torch.isfinite(own[hi]).all()), f"S={s} {lo} finite")
+        require(ordered(own[lo], own[hi], lo.startswith("trend")),
+                f"S={s} {lo} <= {hi}")
+    part = _band_rows(args, slice(0, sub))
+    ref = {k: v.to(device) for k, v in
+           bk.bands(*on_cpu(part), cfg, s, seed=13).items()}
+    theta, scale = part[0], part[5]
+    sigma = torch.exp(theta[:, 2])[:, None] * scale[:, None]
+    mc = _mc_compare({k: v[:sub] for k, v in own.items()}, ref,
+                     "yhat_lower", "yhat_upper", sigma)
+    _require_mc(mc, "yhat_lower", "yhat_upper", f"bands S={s} yhat")
+    return {"shape": [b, len(eng_t), s], "wall_s": wall,
+            "monte_carlo_yhat_16_rows": mc,
+            "row_invariance": band_row_invariance(
+                _band_rows(args, slice(0, 128)), cfg, s, device)}
 
 
 def synthetic_fit_data(rng, config, b, t_len, per_series, device):
@@ -1091,6 +1231,10 @@ def phase_kernels(serve, fwd, bnd, fit, device) -> dict:
     k1e_err = _forward_err(got, want, scale)
     k1e_abs = max(float((g - w).abs().max()) for g, w in zip(got, want))
     require(k1e_err <= f_tol, f"forward at the engine chunk: {k1e_err}")
+    k1_rows = {"in_sample": forward_row_invariance(theta, data, cfg, scale,
+                                                   floor, device),
+               "engine_chunk": forward_row_invariance(theta, eng, cfg, scale,
+                                                      floor, device)}
     k1 = {"name": "forward", "route": "cuda",
           "source": "tsspark_tpu_torch/csrc/forward.cu",
           "replaces": "tsspark_tpu/models/prophet/design.py:377",
@@ -1105,8 +1249,11 @@ def phase_kernels(serve, fwd, bnd, fit, device) -> dict:
               "shape": list(eng.t.shape),
               "ms": cuda_ms(lambda: fk.forward(theta, eng, cfg, scale,
                                                floor)),
+              "device_ms": device_ms(lambda: fk.forward(theta, eng, cfg,
+                                                        scale, floor)),
               **forward_bound_ms(c, 32, cfg, True, True)},
-          "at_2048": {"max_abs_err_scaled": fwd["max_abs_err_scaled"]}}
+          "at_2048": {"max_abs_err_scaled": fwd["max_abs_err_scaled"]},
+          "row_invariance": k1_rows}
     # K2: the engine's sampled chunk, S=256, on the engine chunk's own
     # forward outputs, with given draws so both versions see one set.
     _, det, add, mult = fk.forward(theta, eng, cfg)
@@ -1132,6 +1279,8 @@ def phase_kernels(serve, fwd, bnd, fit, device) -> dict:
           "tolerance": f"|k-p|/(y_scale+|p|) <= {b_tol} (given draws)",
           "ms": k2_ms, "plain_ms": k2_plain,
           **bands_bound_ms(c, 32, s, cfg),
+          **bands_variates_bound_ms(c, 32, s, cfg),
+          "row_invariance": band_row_invariance(kargs[:7], cfg, s, device),
           # torch.quantile refuses inputs above 2**24 elements; the main
           # path's (256, 8192, 32) sample tensor holds 2**26.
           "library_ms": None,
@@ -1214,6 +1363,27 @@ def fit_kernels(fit, device) -> list:
     k3["row_invariance"] = k4["row_invariance"] = row_invariance(
         data, cfg, theta, d, ladder, device)
     return [k3, k4]
+
+
+def forward_row_invariance(theta, data, cfg, scale, floor, device) -> dict:
+    """K1 gives a row the same bits wherever it sits: rows 1000:1500 as a
+    batch of their own, and the batch permuted."""
+    import torch
+
+    from tsspark_tpu_torch.kernels import forward as fk
+
+    b = theta.shape[0]
+    full = fk.forward(theta, data, cfg, scale, floor)
+    perm = torch.randperm(b, generator=torch.Generator().manual_seed(2))
+    perm = perm.to(device)
+    for name, idx in (("rows 1000:1500", slice(1000, 1500)),
+                      ("a permuted batch", perm)):
+        got = fk.forward(theta[idx].contiguous(), _rows(data, idx), cfg,
+                         scale[idx].contiguous(), floor[idx].contiguous())
+        require(all(torch.equal(g, w[idx]) for g, w in zip(got, full)),
+                f"forward at {tuple(data.t.shape)}: {name} differs")
+    torch.cuda.synchronize()
+    return {"bitwise": True, "rows": [1000, 1500], "permuted": b}
 
 
 def _rows(data, idx):

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the port's fit kernels of several checkouts on one card, in turns.
+"""Time the port's kernels of several checkouts on one card, in turns.
 
     python3 scripts/torch_kernel_ab.py DIR [DIR ...] [--out DIR]
 
@@ -15,12 +15,20 @@ the solver's ridge init and first preconditioned direction — and:
   20-rung ladder) at that shape by CUDA events, each beside its bound
   (``chip_smoke.loss_bound_ms`` / ``fan_bound_ms`` of the same checkout);
 * runs one chunk's L-BFGS solve under ``torch.profiler``: device-busy ms
-  by kernel, the device-idle share, and host ms per solver iteration.
+  by kernel, the device-idle share, and host ms per solver iteration;
+* times the serve path's kernels on the same 8,192 series under the
+  default ``ProphetConfig`` (random parameters from a fixed seed): K1
+  ``forward`` at the in-sample + 28-day chunk (8192 x 1969, shared
+  seasonal matrix) and at the engine's 32-step chunk (8192 x 32,
+  per-series matrix), both mapped to data units, and K2 ``bands`` at
+  8192 x 32 x 256 with its own Philox draws, each beside its bound.
 
 Give the checkouts as A B B A to see the spread.  Each child prints one
-JSON line; the outputs of K3 and K4 go to ``--out`` and the last line
-compares every child's outputs with the first child's (max |difference|)
-and prints ``nvidia-smi``'s name and power limit.  Needs one CUDA card.
+JSON line; the outputs of K1-K4 go to ``--out`` (a temporary directory,
+removed at the end, unless given: K1's are ~0.5 GB a child) and the last
+lines compare every child's outputs with the first child's (max
+|difference| and whether they are the same bits) and print
+``nvidia-smi``'s name and power limit.  Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -28,8 +36,10 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 FULL_DAYS = 1941
@@ -109,9 +119,14 @@ def child(out_dir: str, tag: str) -> dict:
     top = cs._device_events(prof)
     busy = sum(ms for _, ms in top)
     iters = lbfgs.timing.iters
+    serve, serve_out = serve_kernels(batch, device)
+    saved = torch.load(os.path.join(out_dir, f"{tag}.pt"))
+    saved.update(serve_out)
+    torch.save(saved, os.path.join(out_dir, f"{tag}.pt"))
     return {
         "tag": tag, "tree": os.getcwd(), "build_s": build_s,
         "shape": [b, t_len, cfg.num_params], "kernels": kernels,
+        "serve_kernels": serve,
         "chunk_solve": {
             "iterations": int(res.n_iters.max()), "traced_wall_s": traced,
             "device_busy_ms": busy,
@@ -122,14 +137,84 @@ def child(out_dir: str, tag: str) -> dict:
     }
 
 
+def device_ms(fn, iters: int = 20) -> float:
+    """Mean device time of ``fn`` in ms from ``torch.profiler`` (the host's
+    launch cost between back-to-back calls left out)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ms for _, ms in cs._device_events(prof)) / iters
+
+
+def serve_kernels(batch, device):
+    """K1 at both serve shapes and K2 at the sampled chunk: times beside
+    their bounds, and the outputs on the host."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from tsspark_tpu_torch.config import ProphetConfig
+    from tsspark_tpu_torch.kernels import bands as bk
+    from tsspark_tpu_torch.kernels import forward as fk
+    from tsspark_tpu_torch.models.prophet.design import prepare_fit_data
+    from tsspark_tpu_torch.models.prophet.predict import prepare_predict_data
+
+    cfg = ProphetConfig()
+    _, meta = prepare_fit_data(batch.ds, batch.y, cfg)
+    theta = torch.from_numpy(
+        cs.random_theta(np.random.default_rng(0), CHUNK, cfg)).to(device)
+    scale = torch.as_tensor(meta.y_scale, dtype=torch.float32, device=device)
+    floor = torch.as_tensor(meta.floor, dtype=torch.float32, device=device)
+    ds_full = np.concatenate([batch.ds, batch.ds[-1] + np.arange(1, 29)])
+    full = prepare_predict_data(ds_full, meta, cfg, device)
+    last = meta.ds_start + meta.ds_span
+    eng = prepare_predict_data(last[:, None] + np.arange(1, 33)[None, :],
+                               meta, cfg, device)
+    out, times = {}, {}
+    for name, data in (("k1_shared", full), ("k1_per_series", eng)):
+        b, t_len = data.t.shape
+        got = fk.forward(theta, data, cfg, scale, floor)
+        out.update({f"{name}_{k}": v.cpu() for k, v in zip(
+            ("yhat", "trend", "add", "mult"), got)})
+        times[name] = {
+            "shape": [b, t_len],
+            "ms": cs.cuda_ms(lambda: fk.forward(theta, data, cfg, scale,
+                                                floor)),
+            "device_ms": device_ms(lambda: fk.forward(theta, data, cfg,
+                                                      scale, floor)),
+            **cs.forward_bound_ms(b, t_len, cfg, data.X_season.ndim == 3,
+                                  True)}
+    _, det, add, mult = fk.forward(theta, eng, cfg)
+    kargs = (theta, eng, det, add, mult, scale, floor, cfg, 256)
+    got = bk.bands(*kargs, seed=1)
+    out.update({f"k2_{k}": v.cpu() for k, v in got.items()})
+    times["k2_philox"] = {
+        "shape": [CHUNK, 32, 256],
+        "ms": cs.cuda_ms(lambda: bk.bands(*kargs, seed=1)),
+        "device_ms": device_ms(lambda: bk.bands(*kargs, seed=1)),
+        **cs.bands_bound_ms(CHUNK, 32, 256, cfg)}
+    for k in times.values():
+        k["share_of_bound"] = k["bound_ms"] / k["ms"]
+    return times, out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("trees", nargs="*")
-    ap.add_argument("--out", default="chiprun_out/kernel_ab")
+    ap.add_argument("--out", default=None)
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    out_dir = os.path.abspath(args.out)
     if args.child:
+        out_dir = os.path.abspath(args.out)
         print(json.dumps(child(out_dir, args.child)), flush=True)
         return 0
     import torch
@@ -137,9 +222,21 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("torch_kernel_ab: no CUDA device is available", file=sys.stderr)
         return 2
+    out_dir = (os.path.abspath(args.out) if args.out
+               else tempfile.mkdtemp(prefix="kernel_ab_"))
     os.makedirs(out_dir, exist_ok=True)
+    try:
+        return compare(args.trees, out_dir)
+    finally:
+        if not args.out:
+            shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def compare(trees, out_dir) -> int:
+    import torch
+
     tags = []
-    for n, tree in enumerate(args.trees):
+    for n, tree in enumerate(trees):
         tree = os.path.abspath(tree)
         tag = f"{n}_{os.path.basename(tree.rstrip('/'))}"
         env = dict(os.environ, PYTHONPATH=tree)
@@ -153,11 +250,15 @@ def main(argv=None) -> int:
             return run.returncode
         tags.append(tag)
     ref = torch.load(os.path.join(out_dir, f"{tags[0]}.pt"))
-    diffs = {}
+    diffs, same = {}, {}
     for tag in tags[1:]:
         got = torch.load(os.path.join(out_dir, f"{tag}.pt"))
         diffs[tag] = {k: float((got[k] - ref[k]).abs().max()) for k in ref}
+        same[tag] = {k: bool(torch.equal(got[k].view(torch.int32),
+                                         ref[k].view(torch.int32)))
+                     for k in ref}
     print(json.dumps({"max_abs_diff_vs": tags[0], "diffs": diffs}))
+    print(json.dumps({"same_bits_as": tags[0], "same_bits": same}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)

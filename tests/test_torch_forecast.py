@@ -135,6 +135,48 @@ def test_quantile_linear_is_jnp_quantile(s):
                                    rtol=2e-7, atol=1e-7)
 
 
+@pytest.mark.parametrize("column", ["nan", "inf", "-inf", "both-inf",
+                                    "ties"])
+def test_quantile_linear_is_jnp_quantile_on_non_finite_columns(column):
+    """A column holding a NaN gives NaN at every q, as jnp.quantile's
+    does; +-inf sort as values (inf * 0 weights give NaN in both)."""
+    rng = np.random.default_rng(3)
+    x = rng.normal(0, 1, (40, 6)).astype(np.float32)
+    if column == "nan":
+        x[[3, 17], 2] = np.nan
+    elif column == "inf":
+        x[:6, 1] = np.inf
+    elif column == "-inf":
+        x[:5, 4] = -np.inf
+    elif column == "both-inf":
+        x[:4, 0], x[4:8, 0] = np.inf, -np.inf
+    else:
+        x[:, 5] = 1.5
+    qs = [np.float32(q) for q in (0.0, 0.1, 0.5, 0.9, 1.0)]
+    got = bk.quantile_linear(torch.from_numpy(x), qs)
+    want = jnp.quantile(jnp.asarray(x), jnp.asarray(qs, jnp.float32), axis=0)
+    for i in range(len(qs)):
+        np.testing.assert_allclose(got[i].numpy(), np.asarray(want[i]),
+                                   rtol=2e-7, atol=1e-7, equal_nan=True)
+
+
+@pytest.mark.parametrize("s,t_len,b,expect", [
+    (256, 32, 8192, 0),                     # fused: no scratch
+    (1024, 1969, 64, 0),
+    (1025, 8, 16, 16 * (2 * 1025 * 8 + 2 * 1025)),
+    (65536, 32, 1024, bk.SCRATCH_BYTES // 4),   # capped: rows in chunks
+    (65536, 4096, 1, bk.SCRATCH_BYTES // 4),    # one row's steps in chunks
+])
+def test_band_scratch_stays_within_its_budget(s, t_len, b, expect):
+    assert bk.scratch_floats(b, t_len, s) == expect
+    assert 4 * bk.scratch_floats(b, t_len, s) <= bk.SCRATCH_BYTES
+
+
+def test_band_scratch_refuses_a_step_that_cannot_fit():
+    with pytest.raises(ValueError):
+        bk.scratch_floats(1, 1, bk.SCRATCH_BYTES // 16 + 1)
+
+
 def test_component_breakdown_matches():
     jc, tc, meta, theta, data_t, data_j = _setup(
         "linear", regressors=())
@@ -249,3 +291,44 @@ def test_bands_kernel_matches_plain_on_given_draws(card):
     for k in want:
         torch.testing.assert_close(got[k], want[k], rtol=1e-5,
                                    atol=1e-5 * float(scale.max()))
+
+
+@pytest.mark.parametrize("s", [16385, 40000])
+def test_bands_kernel_past_the_old_sample_cap_on_the_card(card, s):
+    """Sample counts past one block's shared memory go through the
+    device-memory scratch, and still agree with the plain version."""
+    from tsspark_tpu_torch.kernels import forward as fk
+
+    _, tc, meta, theta, data_t, _ = _setup("linear", b=4, horizon=6)
+    data = tdesign.FitData(*(a.to(card) for a in data_t))
+    th = torch.from_numpy(theta).to(card)
+    _, det, add, mult = fk.forward(th, data, tc)
+    scale = torch.as_tensor(meta.y_scale, dtype=torch.float32, device=card)
+    floor = torch.zeros_like(scale)
+    gen = torch.Generator(device=card).manual_seed(1)
+    draws = bk.sample_draws((s,) + tuple(data.t.shape), gen, card)
+    got = bk.bands(th, data, det, add, mult, scale, floor, tc, s,
+                   draws=draws)
+    want = bk.bands_plain(th, data, det, add, mult, scale, floor, tc, draws)
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=1e-5,
+                                   atol=1e-5 * float(scale.max()))
+
+
+def test_forward_kernel_is_row_invariant_on_the_card(card):
+    """A row's outputs are the same bits alone, sliced out of the batch
+    and in a permuted batch."""
+    from tsspark_tpu_torch.kernels import forward as fk
+
+    _, tc, meta, theta, data_t, _ = _setup("linear", b=24)
+    data = tdesign.FitData(*(a.to(card) for a in data_t))
+    th = torch.from_numpy(theta).to(card)
+    full = fk.forward(th, data, tc)
+    perm = torch.randperm(24, generator=torch.Generator().manual_seed(0))
+    for idx in (slice(5, 17), perm.to(card)):
+        sub = data._replace(**{
+            f: getattr(data, f)[idx].contiguous()
+            for f in ("t", "y", "mask", "s", "cap", "X_reg")})
+        got = fk.forward(th[idx].contiguous(), sub, tc)
+        for g, w in zip(got, full):
+            assert torch.equal(g, w[idx])

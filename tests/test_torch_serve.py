@@ -34,7 +34,6 @@ from tsspark_tpu_torch.serve import (
     SamplesUnsupported,
     UnknownSeries,
 )
-from tsspark_tpu_torch.kernels.bands import MAX_SAMPLES
 from tsspark_tpu_torch.utils import checkpoint as tckpt
 
 torch.set_num_threads(2)
@@ -344,15 +343,70 @@ def test_registry_open_without_a_manifest(tmp_path):
     assert e.value.reason == "no-rollback-target"
 
 
-@pytest.mark.parametrize("num_samples", [-1, MAX_SAMPLES + 1])
+@pytest.mark.parametrize("num_samples", [-1])
 def test_requests_outside_the_band_kernel_are_refused_when_made(
         num_samples):
     with pytest.raises(SamplesUnsupported) as e:
         ForecastRequest.make(["s0"], 7, num_samples=num_samples)
     assert e.value.to_dict()["reason"] == "samples-unsupported"
     assert isinstance(e.value, ValueError)
-    assert ForecastRequest.make(["s0"], 7, num_samples=MAX_SAMPLES) \
-        .num_samples == MAX_SAMPLES
+    assert ForecastRequest.make(["s0"], 7, num_samples=0).num_samples == 0
+
+
+@pytest.mark.parametrize("num_samples", [16384, 16385, 1_000_000])
+def test_sample_counts_past_the_old_cap_are_accepted(num_samples):
+    """K2 takes any sample count, so the engine no longer refuses counts
+    past the 16,384 one block once held."""
+    req = ForecastRequest.make(["s0"], 7, num_samples=num_samples, seed=4)
+    assert req.num_samples == num_samples and req.seed == 4
+
+
+def test_engine_serves_20000_samples(tmp_path, jax_fitted):
+    """A sampled request past the old cap through the engine on the CPU
+    (the plain path); given draws at that count give the quantiles of
+    their own samples."""
+    from tsspark_tpu_torch.kernels import bands as bk
+    from tsspark_tpu_torch.kernels import forward as fk
+    from tsspark_tpu_torch.models.prophet.predict import prepare_predict_data
+
+    s, h, sids = 20_000, 5, ["s0", "s2", "s5"]
+    reg = _port_registry(tmp_path, jax_fitted)
+    eng = PredictionEngine(reg, device="cpu", cache=ForecastCache(0))
+    res = eng.forecast(sids, h, num_samples=s, seed=3)
+    eps = float(np.finfo(np.float32).eps)
+    for lo, hi in (("yhat_lower", "yhat_upper"),
+                   ("trend_lower", "trend_upper")):
+        lo_v, hi_v = res.values[lo], res.values[hi]
+        assert lo_v.shape == (3, h)
+        assert np.isfinite(lo_v).all() and np.isfinite(hi_v).all()
+        # Where most trend paths tie (no simulated changepoint yet), both
+        # quantiles are that value, each rounded by its own float32
+        # weights: they may part by an ulp either way.
+        assert (lo_v <= hi_v + 4 * eps * np.abs(hi_v)).all()
+    assert (res.values["yhat_lower"] <= res.values["yhat"]).all()
+    assert (res.values["yhat"] <= res.values["yhat_upper"]).all()
+
+    snap = reg.load()
+    idx, _ = snap.rows(sids)
+    sub, step = snap.take(idx)
+    last = np.asarray(sub.meta.ds_start + sub.meta.ds_span, np.float64)
+    grid = last[:, None] + step[:, None] * np.arange(1, h + 1)
+    data = prepare_predict_data(grid, sub.meta, CFG, torch.device("cpu"))
+    theta = sub.theta
+    _, det, add, mult = fk.forward(theta, data, CFG)
+    scale = torch.as_tensor(sub.meta.y_scale, dtype=torch.float32)
+    floor = torch.as_tensor(sub.meta.floor, dtype=torch.float32)
+    draws = bk.sample_draws((s, 3, h), torch.Generator().manual_seed(9),
+                            torch.device("cpu"))
+    out = bk.bands(theta, data, det, add, mult, scale, floor, CFG, s,
+                   draws=draws, return_samples=True)
+    samples = out["yhat_samples"].numpy().astype(np.float64)
+    qs = [float(q) for q in bk.quantile_points(CFG.interval_width)]
+    want = np.quantile(samples, qs, axis=0, method="linear")
+    atol = 1e-5 * sub.meta.y_scale[:, None]
+    for i, k in enumerate(("yhat_lower", "yhat_upper")):
+        assert (np.abs(out[k].numpy() - want[i])
+                <= atol + 1e-5 * np.abs(want[i])).all(), k
 
 
 def test_engine_and_backend_stage_clocks(tmp_path, jax_fitted):

@@ -12,14 +12,14 @@
 // sorted times, or the config's sorted explicit list),
 //   k t + m + sum_{j<n} delta_j (t - s_j) = (k + D_n) t + (m - E_n),
 //   D_n = delta_0 + ... + delta_{n-1},  E_n = delta_0 s_0 + ... ,
-// so a cell costs O(1) once n is known: K1 counts n per cell, K3 and K4
-// carry it along each lane's ascending walk over T.  D and E are summed
-// in changepoint order.  The feature totals run in feature order, the
-// order of the plain PyTorch versions (design._component): the Fs
-// seasonal columns, then the R regressor columns, then the two added.
+// so a cell costs O(1) once n is known: K1, K3 and K4 carry it along each
+// lane's ascending walk over T.  D and E are summed in changepoint order.
+// The feature totals run in feature order, the order of the plain PyTorch
+// versions (design._component): the Fs seasonal columns, then the R
+// regressor columns, then the two added.
 //
-// This header also holds the bulk-copy (TMA) staging helpers and the
-// fixed-order warp sums K3 and K4 share.
+// This header also holds the bulk-copy (TMA) staging helpers K1, K3 and K4
+// share and the fixed-order warp sums of K3 and K4.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -117,39 +117,61 @@ __device__ __forceinline__ float logistic_trend(float tv, float capv, float k,
   return capv * (1.0f / (1.0f + expf(-x)));
 }
 
-// Additive and multiplicative coefficients of the F = Fs + R features:
-// ba_f = beta_f * (1 - mm_f), bm_f = beta_f * mm_f.  Block-strided.
-__device__ __forceinline__ void split_coefs(const float* beta, const float* mm,
-                                            float* ba, float* bm, int F) {
-  for (int f = threadIdx.x; f < F; f += blockDim.x) {
-    const float b = beta[f];
-    const float m = mm[f];
-    ba[f] = b * (1.0f - m);
-    bm[f] = b * m;
-  }
-}
-
-// Feature totals of one cell: the Fs seasonal columns at xrow, then the R
-// regressor columns at rrow, each block summed in order, then added.
-__device__ __forceinline__ void feature_totals(const float* xrow, int Fs,
-                                               const float* rrow, int R,
+// Feature totals of C cells of one row at once, 32 steps apart (a lane's
+// cells of a tile): cell q's seasonal row at x0 + 32 q Fs (Fs even: 8-byte
+// aligned rows, read two columns at a time), its regressor row at
+// r0 + 32 q R; each coefficient read once for all C cells.  Per cell, the Fs seasonal columns are summed in
+// order, then the R regressor columns, then the two added: the order of
+// the plain version (design._component).
+template <int C>
+__device__ __forceinline__ void feature_totals(const float* x0, int Fs,
+                                               const float* r0, int R,
                                                const float* ba,
                                                const float* bm, float* add,
                                                float* mult) {
-  float add_s = 0.0f, mult_s = 0.0f;
-  for (int f = 0; f < Fs; ++f) {
-    const float x = xrow[f];
-    add_s = add_s + ba[f] * x;
-    mult_s = mult_s + bm[f] * x;
+  float add_s[C], mult_s[C], add_r[C], mult_r[C];
+#pragma unroll
+  for (int q = 0; q < C; ++q)
+    add_s[q] = mult_s[q] = add_r[q] = mult_r[q] = 0.0f;
+  if ((Fs & 1) == 0) {
+    for (int f = 0; f < Fs; f += 2) {
+      const float2 a = *reinterpret_cast<const float2*>(ba + f);
+      const float2 m = *reinterpret_cast<const float2*>(bm + f);
+#pragma unroll
+      for (int q = 0; q < C; ++q) {
+        const float2 x =
+            *reinterpret_cast<const float2*>(x0 + 32 * q * Fs + f);
+        add_s[q] = add_s[q] + a.x * x.x;
+        mult_s[q] = mult_s[q] + m.x * x.x;
+        add_s[q] = add_s[q] + a.y * x.y;
+        mult_s[q] = mult_s[q] + m.y * x.y;
+      }
+    }
+  } else {
+    for (int f = 0; f < Fs; ++f) {
+      const float a = ba[f], m = bm[f];
+#pragma unroll
+      for (int q = 0; q < C; ++q) {
+        const float x = x0[32 * q * Fs + f];
+        add_s[q] = add_s[q] + a * x;
+        mult_s[q] = mult_s[q] + m * x;
+      }
+    }
   }
-  float add_r = 0.0f, mult_r = 0.0f;
   for (int r = 0; r < R; ++r) {
-    const float x = rrow[r];
-    add_r = add_r + ba[Fs + r] * x;
-    mult_r = mult_r + bm[Fs + r] * x;
+    const float a = ba[Fs + r], m = bm[Fs + r];
+#pragma unroll
+    for (int q = 0; q < C; ++q) {
+      const float x = r0[32 * q * R + r];
+      add_r[q] = add_r[q] + a * x;
+      mult_r[q] = mult_r[q] + m * x;
+    }
   }
-  *add = add_s + add_r;
-  *mult = mult_s + mult_r;
+#pragma unroll
+  for (int q = 0; q < C; ++q) {
+    add[q] = add_s[q] + add_r[q];
+    mult[q] = mult_s[q] + mult_r[q];
+  }
 }
 
 __device__ __forceinline__ float sigma_of(float log_sigma) {

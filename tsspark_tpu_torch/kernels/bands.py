@@ -29,10 +29,14 @@ from tsspark_tpu_torch.kernels.forward import GROWTH_CODES, _require
 #: Kernel launches since the count was last set to 0.
 launches = 0
 
-#: One block holds every sample of a row, in shared memory: S is padded
-#: to a power of two of at most this many (``kMaxSamples`` in bands.cu).
-#: The engine refuses sampled requests above it on every device.
-MAX_SAMPLES = 16384
+#: Sample counts up to this many run in one block a row, in shared
+#: memory (``kFusedMaxSamples`` in bands.cu); larger ones go through a
+#: device-memory scratch of the samples' keys.
+FUSED_MAX_SAMPLES = 1024
+
+#: The most device memory the scratch of a launch takes: rows (or, for a
+#: very long row, steps) are taken in chunks whose keys fit it.
+SCRATCH_BYTES = 256 * 2**20
 
 Draws = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -46,10 +50,13 @@ def quantile_points(interval_width: float) -> Tuple[np.float32, np.float32]:
 def quantile_linear(x: torch.Tensor, qs) -> Tuple[torch.Tensor, ...]:
     """``jnp.quantile(x, q, axis=0)`` for each q of ``qs`` with the
     "linear" rule, by one sort: position q*(S-1) in float32, the floor
-    and ceil neighbours weighted by the fractional part.  No input-size
-    limit (``torch.quantile`` refuses more than 2**24 elements)."""
+    and ceil neighbours weighted by the fractional part; a column holding
+    a NaN gives NaN, as jnp.quantile's does, and +-inf are values like any
+    other.  No input-size limit (``torch.quantile`` refuses more than
+    2**24 elements)."""
     n = x.shape[0]
     srt = torch.sort(x, dim=0).values
+    nan = torch.isnan(srt[-1])  # torch.sort puts NaN last
     out = []
     for q in qs:
         pos = np.float32(q) * np.float32(n - 1)
@@ -58,7 +65,9 @@ def quantile_linear(x: torch.Tensor, qs) -> Tuple[torch.Tensor, ...]:
         lw = np.float32(1.0) - hw
         il = int(min(max(lo, 0), n - 1))
         ih = int(min(max(hi, 0), n - 1))
-        out.append(srt[il] * float(lw) + srt[ih] * float(hw))
+        q_val = srt[il] * float(lw) + srt[ih] * float(hw)
+        out.append(torch.where(nan, torch.full_like(q_val, float("nan")),
+                               q_val))
     return tuple(out)
 
 
@@ -99,17 +108,39 @@ def bands_plain(theta: torch.Tensor, data, det: torch.Tensor,
     return out
 
 
+def scratch_floats(b: int, t_len: int, num_samples: int) -> int:
+    """Floats of device scratch a CUDA launch takes: none up to
+    ``FUSED_MAX_SAMPLES``; else two keys a sample and step, plus the
+    running sums of a row's samples, for as many rows as fit
+    ``SCRATCH_BYTES`` (at least one step of one row)."""
+    if num_samples <= FUSED_MAX_SAMPLES:
+        return 0
+    per_row = 2 * num_samples * t_len + 2 * num_samples
+    need = min(b * per_row, SCRATCH_BYTES // 4)
+    if need < 4 * num_samples:
+        raise ValueError(f"bands: {num_samples} samples do not fit the "
+                         f"{SCRATCH_BYTES}-byte scratch")
+    return need
+
+
 def bands(theta: torch.Tensor, data, det: torch.Tensor, add: torch.Tensor,
           mult: torch.Tensor, y_scale: torch.Tensor, floor: torch.Tensor,
           config: ProphetConfig, num_samples: int, seed: int = 0,
           draws: Optional[Draws] = None,
-          return_samples: bool = False) -> Dict[str, torch.Tensor]:
+          return_samples: bool = False,
+          rows: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """``yhat_lower/upper`` and ``trend_lower/upper`` in data units, each
     (B, T), plus ``yhat_samples`` (S, B, T) when asked.
 
     ``det``, ``add``, ``mult``: the deterministic trend and the additive
     and multiplicative totals in scaled units (the forward kernel's
-    outputs).  ``seed`` keys the draws unless ``draws`` are given."""
+    outputs).  ``seed`` keys the draws unless ``draws`` are given.
+    ``rows`` (B,) int32: the kernel's Philox row coordinate of each row
+    (default its index), so a row can be drawn alike in another batch.
+
+    Any ``num_samples`` >= 1.  On the card, more than
+    ``FUSED_MAX_SAMPLES`` samples take a scratch of at most
+    ``SCRATCH_BYTES`` (256 MiB) of device memory for the launch."""
     global launches
     dev = theta.device
     b, t_len = data.t.shape
@@ -128,11 +159,9 @@ def bands(theta: torch.Tensor, data, det: torch.Tensor, add: torch.Tensor,
         raise NotImplementedError(
             "bands: logistic-growth trend simulation has no CUDA kernel yet"
         )
-    if not 1 <= num_samples <= MAX_SAMPLES:
-        raise ValueError(
-            f"bands: num_samples must be in [1, {MAX_SAMPLES}] on CUDA, "
-            f"got {num_samples}"
-        )
+    if num_samples < 1:
+        raise ValueError(f"bands: num_samples must be >= 1, got "
+                         f"{num_samples}")
     _require("theta", theta, (b, config.num_params), dev)
     for name, x in (("t", data.t), ("det", det), ("add", add),
                     ("mult", mult)):
@@ -142,23 +171,32 @@ def bands(theta: torch.Tensor, data, det: torch.Tensor, add: torch.Tensor,
     if draws is not None:
         for name, x in zip(("u", "laplace", "normal"), draws):
             _require(name, x, shape, dev)
+    if rows is not None:
+        if rows.device != dev or rows.dtype != torch.int32 \
+                or tuple(rows.shape) != (b,) or not rows.is_contiguous():
+            raise ValueError(f"rows: expected a contiguous int32 ({b},) "
+                             f"tensor on {dev}")
     lo_q, hi_q = quantile_points(config.interval_width)
     outs = [torch.empty((b, t_len), dtype=torch.float32, device=dev)
             for _ in range(4)]
     samples = (torch.empty(shape, dtype=torch.float32, device=dev)
                if return_samples else None)
+    n_scratch = scratch_floats(b, t_len, num_samples)
+    scratch = (torch.empty(n_scratch, dtype=torch.float32, device=dev)
+               if n_scratch else None)
     given = (None, None, None) if draws is None else \
         tuple(d.data_ptr() for d in draws)
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     lib = build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.tsspark_bands(
             data.t.data_ptr(), det.data_ptr(), add.data_ptr(),
             mult.data_ptr(), theta.data_ptr(), y_scale.data_ptr(),
-            floor.data_ptr(), *given,
+            floor.data_ptr(), *given, ptr(rows),
             int(seed) & 0xFFFFFFFFFFFFFFFF, float(lo_q), float(hi_q),
-            *(o.data_ptr() for o in outs),
-            None if samples is None else samples.data_ptr(),
+            *(o.data_ptr() for o in outs), ptr(samples),
+            ptr(scratch), n_scratch,
             b, t_len, config.num_params, config.n_changepoints,
             num_samples, GROWTH_CODES[config.growth], stream,
         )

@@ -69,8 +69,10 @@ SIGNATURES = {
     "tsspark_bands": [
         _c, _c, _c, _c, _c, _c, _c,                # t det add mult theta scale floor
         _c, _c, _c,                                # given draws (or null)
+        _c,                                        # Philox row ids (or null)
         _ull, _f, _f,                              # seed q_lo q_hi
         _c, _c, _c, _c, _c,                        # outputs
+        _c, _ll,                                   # scratch, its floats
         _i, _i, _i, _i, _i, _i,                    # B T P ncp S growth
         _c,                                        # stream
     ],
@@ -175,6 +177,8 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        lib.tsspark_forward_smem.argtypes = [_i, _i, _i, _i, _i, _i]
+        lib.tsspark_forward_smem.restype = ctypes.c_longlong
         lib.tsspark_error_string.argtypes = [ctypes.c_int]
         lib.tsspark_error_string.restype = ctypes.c_char_p
         build_seconds = time.perf_counter() - t0

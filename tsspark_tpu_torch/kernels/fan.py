@@ -15,13 +15,8 @@ import torch
 
 from tsspark_tpu_torch.config import ProphetConfig
 from tsspark_tpu_torch.kernels import build
-from tsspark_tpu_torch.kernels.forward import _require
-from tsspark_tpu_torch.kernels.loss import (
-    SIGMA_FLOOR,
-    aligned16,
-    smem_bytes,
-    smooth_abs,
-)
+from tsspark_tpu_torch.kernels.forward import _require, aligned16
+from tsspark_tpu_torch.kernels.loss import SIGMA_FLOOR, smem_bytes, smooth_abs
 
 #: Kernel launches since the count was last set to 0.
 launches = 0

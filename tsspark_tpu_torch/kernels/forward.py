@@ -57,6 +57,13 @@ def _require(name: str, x: torch.Tensor, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def aligned16(*tensors: torch.Tensor):
+    """The tensors, each copied if its data does not start on a 16-byte
+    boundary: the kernels stage rows by 16-byte bulk copies."""
+    return tuple(x if x.data_ptr() % 16 == 0 else x.clone()
+                 for x in tensors)
+
+
 def forward(theta: torch.Tensor, data, config: ProphetConfig,
             y_scale: Optional[torch.Tensor] = None,
             floor: Optional[torch.Tensor] = None) -> Outputs:
@@ -91,19 +98,23 @@ def forward(theta: torch.Tensor, data, config: ProphetConfig,
     if y_scale is not None:
         _require("y_scale", y_scale, (b,), dev)
         _require("floor", floor, (b,), dev)
-    if 4 * (3 * ncp + 2 * (fs + r)) > 48 * 1024:
+    lib = build.library()
+    if not lib.tsspark_forward_smem(t_len, ncp, fs, r, int(xs_bstride != 0),
+                                    growth):
         raise ValueError("forward: too many changepoints and features for "
-                         "the kernel's 48 KB of shared memory")
+                         "a block's shared memory")
+    # The kernel stages its rows by 16-byte bulk copies.
+    t, xs, xr = aligned16(data.t, xs, data.X_reg)
+    cap = aligned16(data.cap)[0] if growth == GROWTH_CODES["logistic"] \
+        else None
     outs = tuple(torch.empty((b, t_len), dtype=torch.float32, device=dev)
                  for _ in range(4))
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
-    lib = build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.tsspark_forward(
-            theta.data_ptr(), data.t.data_ptr(), ptr(data.s),
-            data.cap.data_ptr() if growth == 1 else None,
-            xs.data_ptr(), xs_bstride, ptr(data.X_reg),
+            theta.data_ptr(), t.data_ptr(), ptr(data.s), ptr(cap),
+            xs.data_ptr(), xs_bstride, xr.data_ptr(),
             ptr(data.mult_mask), ptr(y_scale), ptr(floor),
             *(o.data_ptr() for o in outs),
             b, t_len, config.num_params, ncp, fs, r, growth, stream,

@@ -24,7 +24,11 @@ import torch
 
 from tsspark_tpu_torch.config import ProphetConfig
 from tsspark_tpu_torch.kernels import build
-from tsspark_tpu_torch.kernels.forward import GROWTH_CODES, _require
+from tsspark_tpu_torch.kernels.forward import (
+    GROWTH_CODES,
+    _require,
+    aligned16,
+)
 
 #: Kernel launches since the count was last set to 0, and those of them
 #: in gradient mode.
@@ -39,13 +43,6 @@ ROWS = 7
 STAGES = 2
 _FS_BUCKETS = (8, 16, 24, 32, 48, 64)
 _MAX_SMEM_BYTES = 232448
-
-
-def aligned16(*tensors: torch.Tensor):
-    """The tensors, each copied if its data does not start on a 16-byte
-    boundary: the kernels stage rows by 16-byte bulk copies."""
-    return tuple(x if x.data_ptr() % 16 == 0 else x.clone()
-                 for x in tensors)
 
 
 def _r4(n: int) -> int:

@@ -17,8 +17,8 @@ width and row order of whichever miss-set batch first computed them;
 repeated identical requests return the same cached values.
 
 Deadline-expired requests are SHED with a structured error before the
-batch dispatches.  A request for more interval samples than the band
-kernel holds (``kernels.bands.MAX_SAMPLES``) is refused when it is made.
+batch dispatches.  A request for a negative interval sample count is
+refused when it is made; any other count is served.
 
 ``EngineStats.stages`` times the host stages of each dispatch: "gather"
 (snapshot rows, padding, parameter take, future grid), "predict" (the
@@ -40,7 +40,6 @@ import numpy as np
 
 from tsspark_tpu_torch.backends.registry import ForecastBackend, get_backend
 from tsspark_tpu_torch.config import SolverConfig
-from tsspark_tpu_torch.kernels.bands import MAX_SAMPLES
 from tsspark_tpu_torch.parallel.sharding import compacted_width, next_pow2
 from tsspark_tpu_torch.serve.cache import ForecastCache
 from tsspark_tpu_torch.serve.registry import ParamRegistry, Snapshot
@@ -70,7 +69,7 @@ class ForecastRequest:
             raise ValueError(f"horizon must be >= 1, got {horizon}")
         if not series_ids:
             raise ValueError("series_ids must be non-empty")
-        if not 0 <= int(num_samples) <= MAX_SAMPLES:
+        if int(num_samples) < 0:
             raise SamplesUnsupported(int(num_samples))
         return cls(
             series_ids=tuple(str(s) for s in series_ids),
@@ -134,15 +133,14 @@ class EngineOverloaded(ServeError):
 
 
 class SamplesUnsupported(ServeError, ValueError):
-    """The request asks for a sample count outside [0, MAX_SAMPLES]: the
-    band kernel keeps one row's samples in one block of the card."""
+    """The request asks for a negative interval sample count."""
 
     reason = "samples-unsupported"
 
     def __init__(self, num_samples: int):
         self.num_samples = num_samples
         super().__init__(
-            f"num_samples must be in [0, {MAX_SAMPLES}], got {num_samples}"
+            f"num_samples must be >= 0, got {num_samples}"
         )
 
 
