@@ -247,10 +247,23 @@ def test_loss_and_fan_kernels_match_their_plain_versions(card, growth, mode,
 
 
 def test_logistic_loss_on_the_card_raises(card):
-    _, tc, _, data_t, theta = _case("logistic", "additive", False, 0)
-    on = tdesign.FitData(*(a.to(card) for a in data_t))
-    with pytest.raises(NotImplementedError, match="logistic"):
-        loss_kernel.loss(T(theta).to(card), on, tc)
+    """Logistic growth, once refused on the card (the name is that
+    check's), now runs K3's logistic branch: on every logistic case, the
+    loss and gradient and a trial stack against the plain version, at
+    the tolerances of the linear and flat cases above."""
+    for growth, mode, per_series, regs in CASES:
+        if growth != "logistic":
+            continue
+        _, tc, _, data_t, theta = _case(growth, mode, per_series, regs)
+        on = tdesign.FitData(*(a.to(card) for a in data_t))
+        f_k, g_k = loss_kernel.loss(T(theta).to(card), on, tc)
+        f_p, g_p = loss_kernel.loss_plain(T(theta), data_t, tc)
+        npt.assert_allclose(f_k.cpu().numpy(), f_p.numpy(), rtol=2e-5)
+        _grad_close(g_k.cpu().numpy(), g_p.numpy())
+        stack = T(np.concatenate([theta, theta * 1.01]))
+        s_k, _ = loss_kernel.loss(stack.to(card), on, tc, grad=False)
+        s_p, _ = loss_kernel.loss_plain(stack, data_t, tc, grad=False)
+        npt.assert_allclose(s_k.cpu().numpy(), s_p.numpy(), rtol=2e-5)
 
 
 def test_jax_reference_is_on_the_cpu():

@@ -3,19 +3,32 @@
 //
 // Replaces the XLA-fused sampling path of the JAX package (no Pallas
 // kernel there either):
-//   tsspark_tpu/models/prophet/predict.py  _simulate_trends (linear and
-//     flat growth) and the noise draw + jnp.quantile of forecast
+//   tsspark_tpu/models/prophet/predict.py  _simulate_trends (linear,
+//     logistic and flat growth) and the noise draw + jnp.quantile of
+//     forecast
 // which materializes (S, B, T) trend paths and samples in device memory
-// and sorts them along S.
+// and sorts them along S (and, for logistic growth, recomputes the trend
+// of every sample over n_cp + T changepoints).
 //
 // Per series row b and sample s it walks t in order:
 //   new_delta = 1[u < cp_prob] * 1[t > 1] * laplace * lam
 //   c += new_delta;  d += new_delta * t
 //   trend_s = det + t*c - d                 (linear; flat: trend_s = det)
 //   sample  = trend_s * (1 + mult) + add + normal * exp(log_sigma)
-// with cp_prob and lam computed once per row exactly as predict.py
-// does (mean future spacing times n_cp, clipped to [0, 1]; mean |delta|
-// floored at 1e-8), and no noise floor on sigma.  At each t it takes the
+// with cp_prob and lam computed once per row as predict.py does (mean
+// future spacing times n_cp, clipped to [0, 1]; mean |delta| floored at
+// 1e-8), and no noise floor on sigma.
+// Logistic growth carries the offset recursion of the JAX package's
+// per-sample recompute along the steps instead (predict._logistic_paths,
+// the plain version): c is the running sum of deltas (the history
+// changepoints', then each step's draw) and d the running sum of gammas,
+// each step adding one changepoint at t_clamped = max(t, 1 + 1e-6) by
+// logistic_step (prophet_model.cuh: no fused multiply-adds, so c, k + c
+// and d are the plain version's bits); a step with t >= t_clamped reads
+//   trend_s = cap * sigmoid((k + c) (t - (m + d)))
+// and an earlier one the deterministic trend det.  Its cp_prob and lam
+// come from the wrapper (predict.sample_rates), so the sampled deltas are
+// the plain version's bits too.  At each t it takes the
 // lower and upper quantiles of the S samples and of the S trend values
 // with jnp.quantile's "linear" rule (position q * (S - 1), the floor and
 // ceil order statistics weighted by its fractional part), mapped to data
@@ -31,9 +44,11 @@
 // variates.
 //
 // What bounds it: operations.  The simulation is ~20 float operations a
-// sample and step, the variates one Philox4x32-10 draw (40 integer
+// sample and step (logistic growth: ~30 and a division and an
+// exponential), the variates one Philox4x32-10 draw (40 integer
 // multiplies) and four transcendentals; the bytes moved (four (B, T)
-// inputs, four (B, T) outputs) are small beside that.  The quantiles need
+// inputs, five with the capacity, four (B, T) outputs) are small beside
+// that.  The quantiles need
 // two order statistics per column, which a selection finds in O(S) work:
 // no sort.
 //
@@ -72,9 +87,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "prophet_model.cuh"
+
 namespace {
 
-constexpr int kLinear = 0;
+constexpr int kLinear = tsspark::kLinear;
+constexpr int kLogistic = tsspark::kLogistic;
+// float(1 + 1e-6): predict.py's clamp of a step's changepoint position.
+constexpr float kClampT = 1.00000095367431640625f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kFusedThreads = 256;
 constexpr int kFusedMaxSamples = 1024;   // four samples a thread at most
@@ -128,37 +148,57 @@ __device__ __forceinline__ float key_value(uint32_t k) {
 }
 
 // What a row needs besides its cells: the changepoint probability of a
-// future step, the Laplace scale and sigma.  One thread, serial sums.
+// future step, the Laplace scale and sigma; for logistic growth k, m and
+// the offset recursion's running sums after the history changepoints
+// (c0, d0: the paths' start).  One thread, serial sums.  Logistic growth
+// takes cp and lam from the wrapper (`rate_row`, the plain version's
+// reductions), so both versions draw the same deltas.
 struct RowConsts {
-  float cp, lam, sigma;
+  float cp, lam, sigma, k, m, c0, d0;
 };
 
+template <bool kLogi>
 __device__ __forceinline__ RowConsts row_consts(const float* t_row, int T,
-                                                const float* th, int ncp) {
-  float num = 0.0f, cnt = 0.0f, prev = t_row[0];
-  for (int i = 0; i < T; ++i) {
-    const float ti = t_row[i];
-    const float fut = ti > 1.0f ? 1.0f : 0.0f;
-    num = num + (ti - prev) * fut;
-    cnt = cnt + fut;
-    prev = ti;
-  }
-  const float mean_dt = num / fmaxf(cnt, 1.0f);
+                                                const float* th, int ncp,
+                                                const float* s_row,
+                                                const float* rate_row) {
   RowConsts rc;
-  rc.cp = fminf(fmaxf(static_cast<float>(ncp) * mean_dt, 0.0f), 1.0f);
-  float lam = 0.0f;
-  if (ncp > 0) {
-    for (int j = 0; j < ncp; ++j) lam = lam + fabsf(th[3 + j]);
-    lam = lam / static_cast<float>(ncp);
-  }
-  rc.lam = fmaxf(lam, 1e-8f);
   rc.sigma = expf(th[2]);
+  rc.k = th[0];
+  rc.m = th[1];
+  rc.c0 = rc.d0 = 0.0f;
+  if constexpr (kLogi) {
+    rc.cp = rate_row[0];
+    rc.lam = rate_row[1];
+    float k_prev = rc.k;
+    for (int j = 0; j < ncp; ++j)
+      tsspark::logistic_step(rc.k, rc.m, s_row[j], th[3 + j], rc.c0, k_prev,
+                             rc.d0);
+  } else {
+    float num = 0.0f, cnt = 0.0f, prev = t_row[0];
+    for (int i = 0; i < T; ++i) {
+      const float ti = t_row[i];
+      const float fut = ti > 1.0f ? 1.0f : 0.0f;
+      num = num + (ti - prev) * fut;
+      cnt = cnt + fut;
+      prev = ti;
+    }
+    const float mean_dt = num / fmaxf(cnt, 1.0f);
+    rc.cp = fminf(fmaxf(static_cast<float>(ncp) * mean_dt, 0.0f), 1.0f);
+    float lam = 0.0f;
+    if (ncp > 0) {
+      for (int j = 0; j < ncp; ++j) lam = lam + fabsf(th[3 + j]);
+      lam = lam / static_cast<float>(ncp);
+    }
+    rc.lam = fmaxf(lam, 1e-8f);
+  }
   return rc;
 }
 
 // Everything one step of one sample path reads.
 struct SimArgs {
   const float *t, *det, *add, *mult;
+  const float *cap, *s, *rates;  // logistic growth: (B, T), (B, ncp), (B, 2)
   const float *du, *dlap, *dz;  // given draws, or null
   uint32_t k0, k1;
   int B, T, growth;
@@ -166,6 +206,10 @@ struct SimArgs {
 
 // Step i of sample s of data row `row` (Philox row coordinate `crow`):
 // advances c and d and gives the sample and the trend, scaled units.
+// Linear growth: c, d = the sums of new_delta and new_delta * t; logistic
+// (kLogi, its own instantiation, so the linear and flat code keeps its
+// registers): of the deltas and the gammas (starting at the row's c0, d0).
+template <bool kLogi>
 __device__ __forceinline__ void simulate_step(const SimArgs& a,
                                               const RowConsts& rc, int row,
                                               uint32_t crow, int s, int i,
@@ -189,7 +233,17 @@ __device__ __forceinline__ void simulate_step(const SimArgs& a,
     z = sqrtf(-2.0f * logf(u01_open(rn.z))) * cospif(2.0f * u01(rn.w));
   }
   float tr = a.det[cell];
-  if (a.growth == kLinear) {
+  if constexpr (kLogi) {
+    const float fut = ti > 1.0f ? 1.0f : 0.0f;
+    const float ind = (u < rc.cp ? 1.0f : 0.0f) * fut;
+    const float nd = ind * (lap * rc.lam);
+    const float tcl = fmaxf(ti, kClampT);
+    float k_prev = __fadd_rn(rc.k, c);
+    tsspark::logistic_step(rc.k, rc.m, tcl, nd, c, k_prev, d);
+    if (ti >= tcl)
+      tr = a.cap[cell] * tsspark::sigmoid(__fmul_rn(
+                             k_prev, __fsub_rn(ti, __fadd_rn(rc.m, d))));
+  } else if (a.growth == kLinear) {
     const float fut = ti > 1.0f ? 1.0f : 0.0f;
     const float ind = (u < rc.cp ? 1.0f : 0.0f) * fut;
     const float nd = ind * (lap * rc.lam);
@@ -516,7 +570,7 @@ __device__ __forceinline__ void select_column(
 
 // ---- fused design: one block a row -----------------------------------------
 
-template <int SPT>
+template <int SPT, bool kLogi>
 __global__ void __launch_bounds__(kFusedThreads, kFusedMinBlocks) bands_fused(
     SimArgs a,
     const float* __restrict__ theta,  // (B, P)
@@ -545,8 +599,10 @@ __global__ void __launch_bounds__(kFusedThreads, kFusedMinBlocks) bands_fused(
   const int lane = tid & 31, warp = tid >> 5;
   const int T = a.T;
   if (tid == 0)
-    sh_rc = row_consts(a.t + static_cast<long long>(row) * T, T,
-                       theta + static_cast<long long>(row) * P, ncp);
+    sh_rc = row_consts<kLogi>(a.t + static_cast<long long>(row) * T, T,
+                              theta + static_cast<long long>(row) * P, ncp,
+                              a.s + static_cast<long long>(row) * ncp,
+                              a.rates + 2ll * row);
   const uint32_t crow =
       rows != nullptr ? static_cast<uint32_t>(rows[row]) : row;
   const float sc = y_scale[row], fl = floor_[row];
@@ -555,7 +611,10 @@ __global__ void __launch_bounds__(kFusedThreads, kFusedMinBlocks) bands_fused(
   const Rule r_lo = quantile_rule(q_lo, S), r_hi = quantile_rule(q_hi, S);
   float c[SPT], d[SPT];
 #pragma unroll
-  for (int r = 0; r < SPT; ++r) c[r] = d[r] = 0.0f;
+  for (int r = 0; r < SPT; ++r) {
+    c[r] = rc.c0;
+    d[r] = rc.d0;
+  }
 
   const int ntiles = (T + TT - 1) / TT;
   for (int tile = 0; tile < ntiles; ++tile) {
@@ -572,7 +631,8 @@ __global__ void __launch_bounds__(kFusedThreads, kFusedMinBlocks) bands_fused(
         const int s = tid + r * nt;
         if (s < S) {
           float smp, trs;
-          simulate_step(a, rc, row, crow, s, i, c[r], d[r], smp, trs);
+          simulate_step<kLogi>(a, rc, row, crow, s, i, c[r], d[r], smp,
+                               trs);
           if (samples != nullptr)
             samples[(static_cast<long long>(s) * a.B + row) * T + i] =
                 __fadd_rn(__fmul_rn(smp, sc), fl);
@@ -626,6 +686,7 @@ __global__ void __launch_bounds__(kFusedThreads, kFusedMinBlocks) bands_fused(
 
 // Rows [r0, r0 + nr), steps [t0, t0 + nst): thread = sample, y = row.
 // keys: [nr][nst][2][S]; carry: [nr][2][S] c and d between step chunks.
+template <bool kLogi>
 __global__ void __launch_bounds__(kSimThreads) bands_simulate(
     SimArgs a, const float* __restrict__ theta,
     const float* __restrict__ y_scale, const float* __restrict__ floor_,
@@ -637,8 +698,10 @@ __global__ void __launch_bounds__(kSimThreads) bands_simulate(
   const int row = r0 + rl;
   const int T = a.T;
   if (threadIdx.x == 0)
-    sh_rc = row_consts(a.t + static_cast<long long>(row) * T, T,
-                       theta + static_cast<long long>(row) * P, ncp);
+    sh_rc = row_consts<kLogi>(a.t + static_cast<long long>(row) * T, T,
+                              theta + static_cast<long long>(row) * P, ncp,
+                              a.s + static_cast<long long>(row) * ncp,
+                              a.rates + 2ll * row);
   __syncthreads();
   const int s = blockIdx.x * kSimThreads + threadIdx.x;
   if (s >= S) return;
@@ -647,7 +710,7 @@ __global__ void __launch_bounds__(kSimThreads) bands_simulate(
       rows != nullptr ? static_cast<uint32_t>(rows[row]) : row;
   const float sc = y_scale[row], fl = floor_[row];
   float* cc = carry + static_cast<long long>(rl) * 2 * S;
-  float c = 0.0f, d = 0.0f;
+  float c = rc.c0, d = rc.d0;
   if (t0 > 0) {
     c = cc[s];
     d = cc[S + s];
@@ -656,7 +719,7 @@ __global__ void __launch_bounds__(kSimThreads) bands_simulate(
   for (int j = 0; j < nst; ++j) {
     const int i = t0 + j;
     float smp, trs;
-    simulate_step(a, rc, row, crow, s, i, c, d, smp, trs);
+    simulate_step<kLogi>(a, rc, row, crow, s, i, c, d, smp, trs);
     if (samples != nullptr)
       samples[(static_cast<long long>(s) * a.B + row) * T + i] =
           __fadd_rn(__fmul_rn(smp, sc), fl);
@@ -712,7 +775,7 @@ int fused_tile(int S, int nt, int T) {
   return tt < T ? tt : T;
 }
 
-template <int SPT>
+template <int SPT, bool kLogi>
 cudaError_t launch_fused(int B, int nt, int TT, cudaStream_t st,
                          const SimArgs& a, const float* theta,
                          const float* y_scale, const float* floor_,
@@ -724,13 +787,13 @@ cudaError_t launch_fused(int B, int nt, int TT, cudaStream_t st,
                        sizeof(int) * (nt / 32) * (kBins + 2 * kCand);
   if (shmem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        bands_fused<SPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bands_fused<SPT, kLogi>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(shmem));
     if (err != cudaSuccess) return err;
   }
-  bands_fused<SPT><<<B, nt, shmem, st>>>(a, theta, y_scale, floor_, rows,
-                                         q_lo, q_hi, y_lo, y_hi, tr_lo, tr_hi,
-                                         samples, P, ncp, S, TT);
+  bands_fused<SPT, kLogi><<<B, nt, shmem, st>>>(
+      a, theta, y_scale, floor_, rows, q_lo, q_hi, y_lo, y_hi, tr_lo, tr_hi,
+      samples, P, ncp, S, TT);
   return cudaGetLastError();
 }
 
@@ -757,22 +820,32 @@ bool scratch_plan(long long scratch_floats, int B, int T, int S,
 
 }  // namespace
 
+// cap (B, T), s (B, ncp) and rates (B, 2): logistic growth's capacity,
+// history changepoints and each row's (changepoint probability, Laplace
+// scale); null for linear and flat.
 extern "C" int tsspark_bands(
     const float* t, const float* det, const float* add, const float* mult,
     const float* theta, const float* y_scale, const float* floor_,
+    const float* cap, const float* s, const float* rates,
     const float* du, const float* dlap, const float* dz, const int* rows,
     unsigned long long seed, float q_lo, float q_hi,
     float* y_lo, float* y_hi, float* tr_lo, float* tr_hi, float* samples,
     float* scratch, long long scratch_floats,
     int B, int T, int P, int ncp, int S, int growth, void* stream) {
   if (B == 0 || T == 0) return 0;
-  if (S < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (S < 1 || (growth == kLogistic &&
+                 (cap == nullptr || rates == nullptr ||
+                  (ncp > 0 && s == nullptr))))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   SimArgs a;
   a.t = t;
   a.det = det;
   a.add = add;
   a.mult = mult;
+  a.cap = cap;
+  a.s = s;
+  a.rates = rates;
   a.du = du;
   a.dlap = dlap;
   a.dz = dz;
@@ -786,13 +859,18 @@ extern "C" int tsspark_bands(
     const int nt = s32 < kFusedThreads ? s32 : kFusedThreads;
     const int spt = (S + nt - 1) / nt;
     const int TT = fused_tile(S, nt, T);
-#define TSSPARK_FUSED(SPT)                                                  \
-  launch_fused<SPT>(B, nt, TT, st, a, theta, y_scale, floor_, rows, q_lo,   \
-                    q_hi, y_lo, y_hi, tr_lo, tr_hi, samples, P, ncp, S)
+#define TSSPARK_FUSED(SPT, LOGI)                                            \
+  launch_fused<SPT, LOGI>(B, nt, TT, st, a, theta, y_scale, floor_, rows,   \
+                          q_lo, q_hi, y_lo, y_hi, tr_lo, tr_hi, samples, P, \
+                          ncp, S)
+    const bool logi = growth == kLogistic;
     cudaError_t err;
-    if (spt == 1) err = TSSPARK_FUSED(1);
-    else if (spt == 2) err = TSSPARK_FUSED(2);
-    else err = TSSPARK_FUSED(4);
+    if (spt == 1)
+      err = logi ? TSSPARK_FUSED(1, true) : TSSPARK_FUSED(1, false);
+    else if (spt == 2)
+      err = logi ? TSSPARK_FUSED(2, true) : TSSPARK_FUSED(2, false);
+    else
+      err = logi ? TSSPARK_FUSED(4, true) : TSSPARK_FUSED(4, false);
 #undef TSSPARK_FUSED
     return static_cast<int>(err);
   }
@@ -807,9 +885,14 @@ extern "C" int tsspark_bands(
     const int rn = B - r0 < nr ? B - r0 : nr;
     for (int t0 = 0; t0 < T; t0 += nst) {
       const int sn = T - t0 < nst ? T - t0 : nst;
-      bands_simulate<<<dim3(sblocks, rn), kSimThreads, 0, st>>>(
-          a, theta, y_scale, floor_, rows, samples, keys, carry, P, ncp, S,
-          r0, t0, sn);
+      if (growth == kLogistic)
+        bands_simulate<true><<<dim3(sblocks, rn), kSimThreads, 0, st>>>(
+            a, theta, y_scale, floor_, rows, samples, keys, carry, P, ncp, S,
+            r0, t0, sn);
+      else
+        bands_simulate<false><<<dim3(sblocks, rn), kSimThreads, 0, st>>>(
+            a, theta, y_scale, floor_, rows, samples, keys, carry, P, ncp, S,
+            r0, t0, sn);
       cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return static_cast<int>(err);
       const long long cols = 2ll * rn * sn;

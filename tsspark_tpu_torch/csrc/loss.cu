@@ -20,7 +20,14 @@
 //   df/dbeta_f  = -sum w ((1 - mm_f) + mm_f trend) x_f + beta_f / p_f^2
 //   df/dlog_sig = e^ls (-sum r^2 / sigma^3 + n_obs / sigma + sigma / sigma_s^2)
 // (flat growth: trend = m, and k and delta see only their priors).
-// Linear and flat growth; logistic growth is refused by the wrapper.
+// Logistic growth, trend_t = cap_t sigmoid(x_t), x_t = rate_t (t - off_t),
+// rate_t = k + sum_{s_j <= t} delta_j, off_t = m + sum_{s_j <= t} gamma_j,
+// with v_t = -u_t cap_t sigmoid(x_t) (1 - sigmoid(x_t)) (= df/dx_t):
+//   df/dk, df/dm, df/ddelta_j = the pull-back through gamma's recursion
+//   (kernels/loss.py _logistic_pullback) of
+//     A = sum v (t - off), C = sum v (-rate) and, for each changepoint j,
+//     their suffix sums over t >= s_j
+//   plus the priors.
 //
 // What bounds it: bytes.  A row reads t, y, mask and its R regressor
 // columns (six floats a cell for config 3: 343 MB at 8192 x 1746, 0.10 ms
@@ -58,6 +65,16 @@
 // cells before boundary j, taken (a warp sum) in the step that crosses
 // it.  df/dk and df/dm are V and U.  Value mode does none of the gradient
 // work.
+//   Logistic growth is its own instantiation (kLogistic), so the linear
+// and flat ones keep their code, registers and bits.  One lane of a row
+// runs the offset recursion (logistic_prefix, prophet_model.cuh) into the
+// row's D and G slots; a lane carries its segment n(t) = #{s_j <= t} and
+// takes rate = k + D_n and off = m + G_n in O(1) a cell, and the
+// producer stages each row's capacity cells beside t.  Gradient mode
+// sums A and C where the linear trend sums U and V, with the same
+// snapshot at each boundary, so the suffix sums past s_j are A - A_j and
+// C - C_j; after the walk one lane runs the recursion's pull-back, last
+// changepoint first, in _logistic_pullback's arithmetic.
 //   Reduction order: each lane adds its cells in ascending order; the
 // slots are added over the 32 lanes in lane order, the register sums by a
 // fixed shuffle tree; nothing is atomic.  The order depends only on T,
@@ -81,20 +98,22 @@ namespace {
 using namespace tsspark;
 
 // Shared-memory plan of one block, in floats (the stages' mbarriers come
-// first, 2 floats each).  Per warp: theta, s, the prefix sums D and E, the
+// first, 2 floats each).  Per warp: theta, s, the prefix sums D and E (G
+// for logistic growth), the
 // seasonal coefficients (additive, multiplicative, 1 - mm, mm; kFs each,
 // zero past Fs), the same four for the regressors (zero past R, to a
 // multiple of 4), the boundary snapshots, the row's column sums and the
 // prior scales.  Per stage: each row's t, y, mask and regressor cells and
 // the seasonal slice(s), each with 8 floats of room for the 16-byte
-// pieces around them.  Gradient mode: each lane's regressor sums.
+// pieces around them (and each row's capacity cells for logistic growth).
+// Gradient mode: each lane's regressor sums.
 struct Plan {
   StageLayout sl;
   int R4, th, s, D, E, ba, bm, om, mm, bar, bmr, omr, mmr, snu, snv, res,
       ps, row, rows0, racc, total;
   __host__ __device__ Plan(bool grad, int kFs, int P, int ncp, int Fs, int R,
-                           bool per_series)
-      : sl(kFs, Fs, R, per_series) {
+                           bool per_series, bool logistic)
+      : sl(kFs, Fs, R, per_series, logistic) {
     R4 = round4(R);
     th = 0;
     s = th + round4(P);
@@ -126,13 +145,50 @@ constexpr int min_blocks(bool grad, int kFs) {
   return kFs <= 24 && !(grad && kFs >= 16) ? 2 : 1;
 }
 
-template <bool kGrad, int kFs>
+// Logistic growth's df/dk, df/dm and df/ddelta of one row (g[0], g[1],
+// g[3 .. 3 + ncp)), one lane: the data sums A = sum v (t - off) and
+// C = sum v (-rate), their sums before each boundary j < q (sna, snc;
+// the suffix past a boundary the walk never crossed is empty), pulled
+// back through the offset recursion last changepoint first, as
+// kernels/loss.py _logistic_pullback does, then the priors.
+__device__ __forceinline__ void logistic_pullback(
+    const float* th, const float* s, const float* D, const float* G,
+    const float* sna, const float* snc, float A, float C, int q, int ncp,
+    float k_scale, float m_scale, float cp_scale, float* g) {
+  const float eps = 1e-10f;
+  const float k = th[0], m = th[1];
+  float g_gsum = 0.0f, g_kprev = 0.0f, gm_rec = 0.0f, tail = 0.0f;
+  for (int j = ncp - 1; j >= 0; --j) {
+    const float kp = j > 0 ? k + D[j] : k;
+    const float kn = k + D[j + 1];
+    const float a = (s[j] - m) - G[j];
+    const float omq = 1.0f - safe_div(kp, kn);
+    const float gd = j < q ? A - sna[j] : 0.0f;
+    const float gg = j < q ? C - snc[j] : 0.0f;
+    const float g_gamma = gg + g_gsum;
+    const float g_a = g_gamma * omq;
+    const float g_q = -(g_gamma * a);
+    gm_rec = gm_rec - g_a;
+    g_gsum = g_gsum - g_a;
+    const bool clamped = fabsf(kn) < eps;
+    const float safe = clamped ? (kn < 0.0f ? -eps : eps) : kn;
+    const float g_kn = g_kprev + (clamped ? 0.0f : -g_q * kp / (safe * safe));
+    tail = tail + g_kn;
+    g[3 + j] = smooth_abs_grad(th[3 + j]) / cp_scale + (gd + tail);
+    g_kprev = g_q / safe;
+  }
+  g[0] = k / (k_scale * k_scale) + (A + g_kprev + tail);
+  g[1] = m / (m_scale * m_scale) + (C + gm_rec);
+}
+
+template <bool kGrad, int kFs, bool kLogistic>
 __global__ void __launch_bounds__(kPipeThreads, min_blocks(kGrad, kFs))
     loss_kernel(
     const float* __restrict__ theta,  // (N, P); row i uses data row i % B
     const float* __restrict__ t,      // (B, T), ascending along T
     const float* __restrict__ y,      // (B, T)
     const float* __restrict__ mask,   // (B, T)
+    const float* __restrict__ cap,    // (B, T), logistic growth only
     const float* __restrict__ s,      // (B, ncp), ascending
     const float* __restrict__ xs,     // (T, Fs) or (B, T, Fs)
     long long xs_bstride,             // 0 (shared) or T * Fs
@@ -145,7 +201,7 @@ __global__ void __launch_bounds__(kPipeThreads, min_blocks(kGrad, kFs))
     float k_scale, float m_scale, float sigma_scale, float cp_scale) {
   extern __shared__ __align__(16) float sh[];
   const bool per_series = xs_bstride != 0;
-  const Plan pl(kGrad, kFs, P, ncp, Fs, R, per_series);
+  const Plan pl(kGrad, kFs, P, ncp, Fs, R, per_series, kLogistic);
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -157,7 +213,7 @@ __global__ void __launch_bounds__(kPipeThreads, min_blocks(kGrad, kFs))
   const long long b = live ? i % B : 0;
   const int F = Fs + R;
   const int R4 = pl.R4;
-  const bool linear = growth == kLinear;
+  const bool linear = !kLogistic && growth == kLinear;
 
   unsigned long long* bars = reinterpret_cast<unsigned long long*>(sh);
   float* rp = sh + pl.rows0 + warp * pl.row;
@@ -211,14 +267,20 @@ __global__ void __launch_bounds__(kPipeThreads, min_blocks(kGrad, kFs))
   pipeline_init(bars, nlive, per_series);
   const bool has_mult = any_multiplicative(mm, F);
   __syncwarp();
-  if (live && linear && lane == 0) linear_prefix(r_s, r_th + 3, r_D, r_E, ncp);
+  if constexpr (kLogistic) {
+    if (live && lane == 0)
+      logistic_prefix(r_th[0], r_th[1], r_s, r_th + 3, r_D, r_E, ncp);
+  } else {
+    if (live && linear && lane == 0)
+      linear_prefix(r_s, r_th + 3, r_D, r_E, ncp);
+  }
   fence_async_shared();
   __syncthreads();
 
   const int ntiles = (T + pl.sl.tile - 1) / pl.sl.tile;
   if (warp == kRowWarps) {
-    produce_tiles(stages, pl.sl, bars, nlive, row0, B, T, R, Fs, t, y, mask,
-                  xr, xs, xs_bstride);
+    produce_tiles<kLogistic>(stages, pl.sl, bars, nlive, row0, B, T, R, Fs, t,
+                             y, mask, xr, xs, xs_bstride, cap);
     return;
   }
   if (!live) return;
@@ -238,6 +300,12 @@ __global__ void __launch_bounds__(kPipeThreads, min_blocks(kGrad, kFs))
   float s_lo = -inf;
   float s_hi = ncp > 0 ? r_s[0] : inf;
   Line line = segment_line(r_th[0], r_th[1], 0.0f, 0.0f);
+  // Logistic growth: the segment's rate k + D_n and offset m + G_n.
+  float rate = 0.0f, off = 0.0f;
+  if constexpr (kLogistic) {
+    rate = r_th[0] + r_D[0];
+    off = r_th[1] + r_E[0];
+  }
 
   for (int it = 0; it < ntiles; ++it) {
     mbar_wait(bars + it % kStages, (it / kStages) & 1);
@@ -249,6 +317,7 @@ __global__ void __launch_bounds__(kPipeThreads, min_blocks(kGrad, kFs))
     const float* tp = rows + pl.sl.t + (c0 & 3);
     const float* yp = rows + pl.sl.y + (c0 & 3);
     const float* mp = rows + pl.sl.m + (c0 & 3);
+    const float* cp = rows + pl.sl.c + (c0 & 3);
     const float* rxp = rows + pl.sl.r + ((c0 * R) & 3);
     const float* xp =
         st + pl.sl.x0 + (per_series ? warp * pl.sl.x1 : 0) +
@@ -260,7 +329,19 @@ __global__ void __launch_bounds__(kPipeThreads, min_blocks(kGrad, kFs))
       const float tv = valid ? tp[cl] : 0.0f;
       if (valid) {
         float g = r_th[1];
-        if (linear) {
+        float capv = 0.0f, sig = 0.0f;
+        if constexpr (kLogistic) {
+          if (!(tv >= s_lo && tv < s_hi)) {
+            nl = active_changepoints_at(tv, r_s, ncp, nl);
+            s_lo = nl > 0 ? r_s[nl - 1] : -inf;
+            s_hi = nl < ncp ? r_s[nl] : inf;
+            rate = r_th[0] + r_D[nl];
+            off = r_th[1] + r_E[nl];
+          }
+          capv = cp[cl];
+          sig = sigmoid(rate * (tv - off));
+          g = capv * sig;
+        } else if (linear) {
           if (!(tv > s_lo) || tv > s_hi) {
             nl = active_changepoints(tv, r_s, ncp, nl);
             s_lo = nl > 0 ? r_s[nl - 1] : -inf;
@@ -328,8 +409,15 @@ __global__ void __launch_bounds__(kPipeThreads, min_blocks(kGrad, kFs))
         nobs = nobs + mk;
         if (kGrad) {
           const float w = res * mk * inv_s2;
-          u = w * (1.0f + mult);
-          uv = u * tv;
+          if constexpr (kLogistic) {
+            // A and C's terms: v (t - off) and v (-rate), v = df/dx.
+            const float v = -(w * (1.0f + mult)) * capv * sig * (1.0f - sig);
+            u = v * (tv - off);
+            uv = -(v * rate);
+          } else {
+            u = w * (1.0f + mult);
+            uv = u * tv;
+          }
           const float wg = w * g;
           // The cell's seasonal row is read again (volatile: not kept
           // from the forward pass), so the column sums and the row
@@ -366,11 +454,12 @@ __global__ void __launch_bounds__(kPipeThreads, min_blocks(kGrad, kFs))
           }
         }
       }
-      if (kGrad && linear) {
+      if (kGrad && (linear || kLogistic)) {
         // Boundaries j crossed in this step (t ascends along the row, so
         // the lanes past boundary j are those with n > j): the row's
-        // sums of u and u t before it, all earlier cells and this step's
-        // lanes with n <= j, by a fixed shuffle tree.
+        // sums of u and u t (logistic: of A's and C's terms) before it,
+        // all earlier cells and this step's lanes with n <= j, by a fixed
+        // shuffle tree.
         const int q_next = __shfl_sync(0xffffffffu, nl, min(n - step, 32) - 1);
         for (int j = q; j < q_next; ++j) {
           const bool before = valid && nl <= j;
@@ -421,7 +510,12 @@ __global__ void __launch_bounds__(kPipeThreads, min_blocks(kGrad, kFs))
     __syncwarp();
     const float TUr = r_res[R + kFs], TVr = r_res[R + kFs + 1];
     float* g = g_out + i * P;
-    for (int j = lane; j < ncp; j += 32) {
+    if constexpr (kLogistic) {
+      if (lane == 0)
+        logistic_pullback(r_th, r_s, r_D, r_E, r_snu, r_snv, TUr, TVr, q,
+                          ncp, k_scale, m_scale, cp_scale, g);
+    }
+    for (int j = lane; j < ncp && !kLogistic; j += 32) {
       // sum_{t > s_j} u (t - s_j): the sums past boundary j (none if the
       // walk never crossed it).
       float data = 0.0f;
@@ -435,8 +529,10 @@ __global__ void __launch_bounds__(kPipeThreads, min_blocks(kGrad, kFs))
       g[3 + ncp + f] = r_th[3 + ncp + f] / (p * p) - sum;
     }
     if (lane == 0) {
-      g[0] = k / (k_scale * k_scale) - (linear ? TVr : 0.0f);
-      g[1] = m / (m_scale * m_scale) - TUr;
+      if (!kLogistic) {
+        g[0] = k / (k_scale * k_scale) - (linear ? TVr : 0.0f);
+        g[1] = m / (m_scale * m_scale) - TUr;
+      }
       const float e = expf(log_sigma);
       g[2] = e * (-ssr / (sigma * sigma * sigma) + nobs / sigma +
                   sigma / (sigma_scale * sigma_scale));
@@ -457,18 +553,19 @@ __global__ void __launch_bounds__(kPipeThreads, min_blocks(kGrad, kFs))
   }
 }
 
-template <bool kGrad, int kFs>
+template <bool kGrad, int kFs, bool kLogistic>
 int launch(const float* theta, const float* t, const float* y,
-           const float* mask, const float* s, const float* xs,
-           long long xs_bstride, const float* xr, const float* ps,
+           const float* mask, const float* cap, const float* s,
+           const float* xs, long long xs_bstride, const float* xr,
+           const float* ps,
            const float* mm, float* f_out, float* g_out, int N, int B, int T,
            int P, int ncp, int Fs, int R, int growth, float k_scale,
            float m_scale, float sigma_scale, float cp_scale,
            cudaStream_t st) {
-  const Plan pl(kGrad, kFs, P, ncp, Fs, R, xs_bstride != 0);
+  const Plan pl(kGrad, kFs, P, ncp, Fs, R, xs_bstride != 0, kLogistic);
   const size_t bytes = sizeof(float) * static_cast<size_t>(pl.total);
   if (bytes > kMaxSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = loss_kernel<kGrad, kFs>;
+  auto kernel = loss_kernel<kGrad, kFs, kLogistic>;
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -480,23 +577,24 @@ int launch(const float* theta, const float* t, const float* y,
                        cudaSharedmemCarveoutMaxShared);
   const int grid = (N + kRowWarps - 1) / kRowWarps;
   kernel<<<grid, kPipeThreads, bytes, st>>>(
-      theta, t, y, mask, s, xs, xs_bstride, xr, ps, mm, f_out, g_out, N, B, T,
-      P, ncp, Fs, R, growth, k_scale, m_scale, sigma_scale, cp_scale);
+      theta, t, y, mask, cap, s, xs, xs_bstride, xr, ps, mm, f_out, g_out, N,
+      B, T, P, ncp, Fs, R, growth, k_scale, m_scale, sigma_scale, cp_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kGrad>
+template <bool kGrad, bool kLogistic>
 int dispatch(const float* theta, const float* t, const float* y,
-             const float* mask, const float* s, const float* xs,
-             long long xs_bstride, const float* xr, const float* ps,
+             const float* mask, const float* cap, const float* s,
+             const float* xs, long long xs_bstride, const float* xr,
+             const float* ps,
              const float* mm, float* f_out, float* g_out, int N, int B,
              int T, int P, int ncp, int Fs, int R, int growth, float k_scale,
              float m_scale, float sigma_scale, float cp_scale,
              cudaStream_t st) {
 #define TSSPARK_LOSS(KF)                                                     \
-  return launch<kGrad, KF>(theta, t, y, mask, s, xs, xs_bstride, xr, ps, mm, \
-                           f_out, g_out, N, B, T, P, ncp, Fs, R, growth,     \
-                           k_scale, m_scale, sigma_scale, cp_scale, st)
+  return launch<kGrad, KF, kLogistic>(                                       \
+      theta, t, y, mask, cap, s, xs, xs_bstride, xr, ps, mm, f_out, g_out, N, \
+      B, T, P, ncp, Fs, R, growth, k_scale, m_scale, sigma_scale, cp_scale, st)
   if (Fs <= 8) TSSPARK_LOSS(8);
   if (Fs <= 16) TSSPARK_LOSS(16);
   if (Fs <= 24) TSSPARK_LOSS(24);
@@ -508,26 +606,36 @@ int dispatch(const float* theta, const float* t, const float* y,
 
 }  // namespace
 
+// cap: (B, T) capacities for logistic growth, null for linear and flat.
 extern "C" int tsspark_loss(
     const float* theta, const float* t, const float* y, const float* mask,
-    const float* s, const float* xs, long long xs_bstride, const float* xr,
-    const float* ps, const float* mm, float* f_out, float* g_out, int N,
+    const float* cap, const float* s, const float* xs, long long xs_bstride,
+    const float* xr, const float* ps, const float* mm, float* f_out,
+    float* g_out, int N,
     int B, int T, int P, int ncp, int Fs, int R, int growth, float k_scale,
     float m_scale, float sigma_scale, float cp_scale, void* stream) {
   if (N == 0) return 0;
+  const bool logistic = growth == kLogistic;
   const unsigned long long align = reinterpret_cast<unsigned long long>(t) |
       reinterpret_cast<unsigned long long>(y) |
       reinterpret_cast<unsigned long long>(mask) |
+      reinterpret_cast<unsigned long long>(logistic ? cap : t) |
       reinterpret_cast<unsigned long long>(xs) |
       reinterpret_cast<unsigned long long>(xr);
-  if (Fs % 2 != 0 || Fs > 64 || (align & 15ull) != 0)
+  if (Fs % 2 != 0 || Fs > 64 || (align & 15ull) != 0 ||
+      (logistic && cap == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (g_out != nullptr)
-    return dispatch<true>(theta, t, y, mask, s, xs, xs_bstride, xr, ps, mm,
-                          f_out, g_out, N, B, T, P, ncp, Fs, R, growth,
-                          k_scale, m_scale, sigma_scale, cp_scale, st);
-  return dispatch<false>(theta, t, y, mask, s, xs, xs_bstride, xr, ps, mm,
-                         f_out, nullptr, N, B, T, P, ncp, Fs, R, growth,
-                         k_scale, m_scale, sigma_scale, cp_scale, st);
+#define TSSPARK_DISPATCH(GRAD, LOGI, G)                                      \
+  return dispatch<GRAD, LOGI>(theta, t, y, mask, cap, s, xs, xs_bstride, xr, \
+                              ps, mm, f_out, G, N, B, T, P, ncp, Fs, R,      \
+                              growth, k_scale, m_scale, sigma_scale,         \
+                              cp_scale, st)
+  if (logistic) {
+    if (g_out != nullptr) TSSPARK_DISPATCH(true, true, g_out);
+    TSSPARK_DISPATCH(false, true, nullptr);
+  }
+  if (g_out != nullptr) TSSPARK_DISPATCH(true, false, g_out);
+  TSSPARK_DISPATCH(false, false, nullptr);
+#undef TSSPARK_DISPATCH
 }

@@ -18,6 +18,16 @@
 // versions (design._component): the Fs seasonal columns, then the R
 // regressor columns, then the two added.
 //
+// The logistic trend cap * sigmoid((k + D_n) (t - (m + G_n))) takes the
+// same prefix form, with n = #{j: s_j <= t} (a changepoint is active AT
+// its own time, as trend.step_weighted_sum has it) and G_n the running
+// sum of the offset recursion's gammas.  That recursion divides by
+// k_j = k + D_{j+1} and is ill-conditioned where k_j nears 0, so its
+// steps (logistic_step) round every operation on its own, without fused
+// multiply-adds, in the plain version's order: K1, K2 and K3 then hold
+// the plain version's D and G bits exactly, and only the sigmoid may
+// differ by an ulp.
+//
 // This header also holds the bulk-copy (TMA) staging helpers K1, K3 and K4
 // share and the fixed-order warp sums of K3 and K4.
 #pragma once
@@ -81,24 +91,75 @@ __device__ __forceinline__ float linear_trend(float tv, Line line) {
   return line.slope * tv + line.intercept;
 }
 
+// One step of the logistic offset recursion (trend._logistic_gamma) for
+// the changepoint at s_j with rate change delta_j:
+//   csum += delta_j;  k_j = k + csum;
+//   gamma_j = (s_j - m - gamma_sum) * (1 - k_{j-1} / k_j);
+//   gamma_sum += gamma_j;  k_prev = k_j
+// every operation rounded on its own (no contraction into a fused
+// multiply-add), in the plain version's order, so csum, k_j and gamma_sum
+// are the plain version's bits.  Returns gamma_j.
+__device__ __forceinline__ float logistic_step(float k, float m, float s_j,
+                                               float delta_j, float& csum,
+                                               float& k_prev,
+                                               float& gamma_sum) {
+  const float eps = 1e-10f;
+  csum = __fadd_rn(csum, delta_j);
+  const float k_next = __fadd_rn(k, csum);
+  const float den = fabsf(k_next) < eps ? (k_next < 0.0f ? -eps : eps)
+                                        : k_next;
+  const float q = __fdiv_rn(k_prev, den);
+  const float g = __fmul_rn(__fsub_rn(__fsub_rn(s_j, m), gamma_sum),
+                            __fsub_rn(1.0f, q));
+  gamma_sum = __fadd_rn(gamma_sum, g);
+  k_prev = k_next;
+  return g;
+}
+
 // gamma_j = (s_j - m - sum_{l<j} gamma_l) * (1 - k_{j-1} / k_j),
-// k_j = k + (delta_0 + ... + delta_j), summed in changepoint order exactly
-// as the plain version sums it: the recursion is ill-conditioned where k_j
-// nears 0.  Sequential; one thread runs it.
+// k_j = k + (delta_0 + ... + delta_j), by logistic_step.  Sequential; one
+// thread runs it.
 __device__ __forceinline__ void logistic_gamma(float k, float m,
                                                const float* s,
                                                const float* delta,
                                                float* gamma, int ncp) {
   float gamma_sum = 0.0f, csum = 0.0f;
   float k_prev = k;
+  for (int j = 0; j < ncp; ++j)
+    gamma[j] = logistic_step(k, m, s[j], delta[j], csum, k_prev, gamma_sum);
+}
+
+// D_n (the deltas' running sum) and G_n (the gammas') of the logistic
+// prefix form, n = 0..ncp (D, G hold ncp + 1 floats), by logistic_step.
+// Sequential; one thread runs it.
+__device__ __forceinline__ void logistic_prefix(float k, float m,
+                                                const float* s,
+                                                const float* delta, float* D,
+                                                float* G, int ncp) {
+  float gamma_sum = 0.0f, csum = 0.0f;
+  float k_prev = k;
+  D[0] = 0.0f;
+  G[0] = 0.0f;
   for (int j = 0; j < ncp; ++j) {
-    csum = csum + delta[j];
-    const float k_next = k + csum;
-    const float g = (s[j] - m - gamma_sum) * (1.0f - safe_div(k_prev, k_next));
-    gamma[j] = g;
-    gamma_sum = gamma_sum + g;
-    k_prev = k_next;
+    logistic_step(k, m, s[j], delta[j], csum, k_prev, gamma_sum);
+    D[j + 1] = csum;
+    G[j + 1] = gamma_sum;
   }
+}
+
+// n = #{j : s_j <= tv} for ascending s, moved from any start n (the
+// logistic trend's count: a changepoint is active at its own time); a NaN
+// tv gives 0.
+__device__ __forceinline__ int active_changepoints_at(float tv,
+                                                      const float* s, int ncp,
+                                                      int n) {
+  while (n < ncp && s[n] <= tv) ++n;
+  while (n > 0 && !(s[n - 1] <= tv)) --n;
+  return n;
+}
+
+__device__ __forceinline__ float sigmoid(float x) {
+  return 1.0f / (1.0f + expf(-x));
 }
 
 // cap * sigmoid((k + A delta) * (t - (m + A gamma))), A = 1[t >= s_j].
@@ -114,7 +175,7 @@ __device__ __forceinline__ float logistic_trend(float tv, float capv, float k,
     }
   }
   const float x = (k + rate) * (tv - (m + off));
-  return capv * (1.0f / (1.0f + expf(-x)));
+  return capv * sigmoid(x);
 }
 
 // Feature totals of C cells of one row at once, 32 steps apart (a lane's
@@ -346,17 +407,20 @@ constexpr int kMaxSmemBytes = 232448;  // a block's shared memory, sm_90
 
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 
-// One stage, in floats: each row's slot (t, y, mask and regressor cells,
-// 8 floats of room each for the 16-byte pieces around them), then the
-// seasonal slice(s) with kFs floats of room past the last cell's columns.
+// One stage, in floats: each row's slot (t, y, mask, the capacity where
+// the trend is logistic, and regressor cells, 8 floats of room each for
+// the 16-byte pieces around them), then the seasonal slice(s) with kFs
+// floats of room past the last cell's columns.
 struct StageLayout {
-  int tile, t, y, m, r, row, x0, x1, size;
-  __host__ __device__ StageLayout(int kFs, int Fs, int R, bool per_series) {
+  int tile, t, y, m, c, r, row, x0, x1, size;
+  __host__ __device__ StageLayout(int kFs, int Fs, int R, bool per_series,
+                                  bool cap = false) {
     tile = per_series ? kSeriesTile : kSharedTile;
     t = 0;
     y = t + tile + 8;
     m = y + tile + 8;
-    r = m + tile + 8;
+    c = m + tile + 8;
+    r = cap ? c + tile + 8 : c;
     row = r + round4(tile * R) + 8;
     x0 = kRowWarps * row;
     x1 = round4(tile * Fs) + 8 + kFs;
@@ -386,12 +450,14 @@ __device__ __forceinline__ void stage_arrive(float* dst, const float* base,
 }
 
 // The producer warp's whole walk over T for the rows row0 .. row0 + nlive
-// (data row (row0 + w) % B), every tile once its stage is empty.
+// (data row (row0 + w) % B), every tile once its stage is empty; with
+// kCap, each row's capacity cells too.
+template <bool kCap = false>
 __device__ __forceinline__ void produce_tiles(
     float* stages, const StageLayout& sl, unsigned long long* bars, int nlive,
     long long row0, int B, int T, int R, int Fs, const float* t,
     const float* y, const float* mask, const float* xr, const float* xs,
-    long long xs_bstride) {
+    long long xs_bstride, const float* cap = nullptr) {
   const int lane = threadIdx.x & 31;
   const bool per_series = xs_bstride != 0;
   const bool row_lane = lane < nlive;
@@ -416,12 +482,14 @@ __device__ __forceinline__ void produce_tiles(
       stage_tail(slot + sl.t, t, pt);
       stage_tail(slot + sl.y, y, pt);
       stage_tail(slot + sl.m, mask, pt);
+      if (kCap) stage_tail(slot + sl.c, cap, pt);
       stage_tail(slot + sl.r, xr, pr);
-      mbar_arrive_expect(full, 4u * (3 * pt.nbulk + pr.nbulk));
+      mbar_arrive_expect(full, 4u * ((kCap ? 4 : 3) * pt.nbulk + pr.nbulk));
       fence_proxy_async();
       stage_bulk(slot + sl.t, t, pt, full);
       stage_bulk(slot + sl.y, y, pt, full);
       stage_bulk(slot + sl.m, mask, pt, full);
+      if (kCap) stage_bulk(slot + sl.c, cap, pt, full);
       stage_bulk(slot + sl.r, xr, pr, full);
     }
     if (x_lane)

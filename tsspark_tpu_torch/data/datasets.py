@@ -1,9 +1,13 @@
-"""Synthetic M5-scale retail data (numpy), for driving the port at full size.
+"""Synthetic data (numpy), for driving the port at full size.
 
-A copy of the JAX package's ``m5_like`` generator: 30,490 daily series
-over 1,941 days with M5's onset pattern (leading unobserved days),
-weekly and yearly seasonality, changepoints, and holiday, price and
-promo effects.  Deterministic in its seed; plain numpy arrays out.
+Copies of two of the JAX package's generators, deterministic in their
+seed, plain numpy arrays out:
+
+* ``m5_like`` (eval config 3): 30,490 daily series over 1,941 days with
+  M5's onset pattern (leading unobserved days), weekly and yearly
+  seasonality, changepoints, and holiday, price and promo effects;
+* ``wiki_logistic_like`` (eval config 4): saturating pageview series
+  with a known capacity and a multiplicative weekly pattern.
 """
 
 from __future__ import annotations
@@ -90,4 +94,28 @@ def m5_like(
     return SeriesBatch(
         ds=ds, y=y, mask=mask, series_ids=ids, regressors=reg,
         regressor_names=names,
+    )
+
+
+def wiki_logistic_like(
+    n_series: int = 8, n_days: int = 1200, seed: int = 3
+) -> SeriesBatch:
+    """Saturating-growth pageview series with known capacity (eval
+    config 4)."""
+    rng = np.random.default_rng(seed)
+    ds = 14000.0 + np.arange(n_days, dtype=np.float64)
+    t = np.linspace(0, 1, n_days)
+    caps = rng.uniform(5e3, 5e4, (n_series, 1))
+    k = rng.uniform(4, 10, (n_series, 1))
+    m = rng.uniform(0.2, 0.5, (n_series, 1))
+    base = caps / (1.0 + np.exp(-k * (t[None, :] - m)))
+    dow = ds.astype(np.int64) % 7
+    weekly_mult = 1.0 + 0.1 * np.asarray(
+        [0.5, 1, 0.8, 0.6, 0.2, -1.5, -1.8])[dow]
+    y = base * weekly_mult[None, :] * (
+        1 + rng.normal(0, 0.04, (n_series, n_days)))
+    ids = np.asarray([f"wiki_{i}" for i in range(n_series)])
+    return SeriesBatch(
+        ds=ds, y=y, mask=np.ones_like(y), series_ids=ids,
+        cap=np.broadcast_to(caps * 1.1, y.shape).copy(),
     )

@@ -1,12 +1,17 @@
-"""The headline evaluation config of the port: eval config 3, M5 retail.
+"""The port's evaluation configs: eval config 3 (M5 retail, the headline)
+and eval config 4 (logistic growth with a known capacity).
 
 ``config3_m5`` builds ``m5_like`` (30,490 daily series over 1,941 days
 with holiday, price and promo regressors; ``scale`` shrinks the series
-count), fits the first 90% of every series through the chosen backend
-(``"cuda"`` on the card by default), forecasts the whole calendar and
-scores sMAPE on the training span and on the held-out tail.
+count); ``config4_wiki_logistic`` builds ``wiki_logistic_like`` (8
+saturating series over 1,200 days at scale 1; ``scale`` multiplies the
+count: 1,024 gives 8,192).  Each fits the first 90% of every series
+through the chosen backend (``"cuda"`` on the card by default),
+forecasts the whole calendar and scores sMAPE on the training span and
+on the held-out tail.
 
-Usage:  python -m tsspark_tpu_torch.eval.configs [--scale S] [--device D]
+Usage:  python -m tsspark_tpu_torch.eval.configs [--config {3,4}]
+            [--scale S] [--device D]
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ from tsspark_tpu_torch.config import (
     SeasonalityConfig,
     SolverConfig,
 )
-from tsspark_tpu_torch.data.datasets import m5_like
+from tsspark_tpu_torch.data.datasets import m5_like, wiki_logistic_like
 from tsspark_tpu_torch.eval import metrics
 
 CONFIG3 = ProphetConfig(
@@ -41,6 +46,15 @@ CONFIG3 = ProphetConfig(
     n_changepoints=25,
 )
 SOLVER3 = SolverConfig(max_iters=120)
+
+CONFIG4 = ProphetConfig(
+    growth="logistic",
+    seasonalities=(
+        SeasonalityConfig("weekly", 7.0, 3, mode="multiplicative"),
+    ),
+    n_changepoints=15,
+)
+SOLVER4 = SolverConfig(max_iters=200)
 
 
 def split_point(t_len: int, holdout_frac: float = 0.1) -> int:
@@ -109,14 +123,28 @@ def config3_m5(backend="cuda", scale=1.0, device: Optional[str] = None
     return _fit_and_score(CONFIG3, batch, backend, SOLVER3, **kw)
 
 
+def config4_wiki_logistic(backend="cuda", scale=1.0,
+                          device: Optional[str] = None) -> Dict:
+    """Logistic growth with capacity, multiplicative seasonality."""
+    batch = wiki_logistic_like(n_series=max(2, int(8 * scale)))
+    kw = {} if device is None or backend != "cuda" else {"device": device}
+    return _fit_and_score(CONFIG4, batch, backend, SOLVER4, **kw)
+
+
+CONFIGS = {3: config3_m5, 4: config4_wiki_logistic}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", type=int, choices=sorted(CONFIGS),
+                    default=3)
     ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--backend", default="cuda")
     ap.add_argument("--device", default=None)
     args = ap.parse_args()
-    print(json.dumps({"config3": config3_m5(args.backend, args.scale,
-                                            args.device)}))
+    run = CONFIGS[args.config]
+    print(json.dumps({f"config{args.config}": run(args.backend, args.scale,
+                                                  args.device)}))
 
 
 if __name__ == "__main__":

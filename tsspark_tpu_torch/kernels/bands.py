@@ -155,10 +155,6 @@ def bands(theta: torch.Tensor, data, det: torch.Tensor, add: torch.Tensor,
                            config, draws, return_samples)
     if dev.type != "cuda":
         raise ValueError(f"bands: unsupported device {dev}")
-    if config.growth == "logistic":
-        raise NotImplementedError(
-            "bands: logistic-growth trend simulation has no CUDA kernel yet"
-        )
     if num_samples < 1:
         raise ValueError(f"bands: num_samples must be >= 1, got "
                          f"{num_samples}")
@@ -168,6 +164,20 @@ def bands(theta: torch.Tensor, data, det: torch.Tensor, add: torch.Tensor,
         _require(name, x, (b, t_len), dev)
     _require("y_scale", y_scale, (b,), dev)
     _require("floor", floor, (b,), dev)
+    logistic = config.growth == "logistic"
+    rates = None
+    if logistic:
+        _require("cap", data.cap, (b, t_len), dev)
+        _require("s", data.s, (b, config.n_changepoints), dev)
+        # Logistic growth's row rates come from the plain version's own
+        # reductions, so both draw the same deltas: the offset recursion
+        # amplifies an ulp of them.  Linear and flat growth sum them in
+        # the kernel.
+        from tsspark_tpu_torch.models.prophet.params import unpack
+        from tsspark_tpu_torch.models.prophet.predict import sample_rates
+
+        rates = torch.stack(sample_rates(unpack(theta, config), data,
+                                         config), -1).contiguous()
     if draws is not None:
         for name, x in zip(("u", "laplace", "normal"), draws):
             _require(name, x, shape, dev)
@@ -193,7 +203,9 @@ def bands(theta: torch.Tensor, data, det: torch.Tensor, add: torch.Tensor,
         err = lib.tsspark_bands(
             data.t.data_ptr(), det.data_ptr(), add.data_ptr(),
             mult.data_ptr(), theta.data_ptr(), y_scale.data_ptr(),
-            floor.data_ptr(), *given, ptr(rows),
+            floor.data_ptr(), ptr(data.cap if logistic else None),
+            ptr(data.s if logistic else None), ptr(rates), *given,
+            ptr(rows),
             int(seed) & 0xFFFFFFFFFFFFFFFF, float(lo_q), float(hi_q),
             *(o.data_ptr() for o in outs), ptr(samples),
             ptr(scratch), n_scratch,

@@ -53,7 +53,8 @@ SIGNATURES = {
         _c,                                        # stream
     ],
     "tsspark_loss": [
-        _c, _c, _c, _c, _c, _c, _ll, _c, _c, _c,  # theta t y mask s xs xs_bstride xr ps mm
+        _c, _c, _c, _c, _c,                        # theta t y mask cap (or null)
+        _c, _c, _ll, _c, _c, _c,                   # s xs xs_bstride xr ps mm
         _c, _c,                                    # f_out, g_out (or null)
         _i, _i, _i, _i, _i, _i, _i, _i,            # N B T P ncp Fs R growth
         _f, _f, _f, _f,                            # k m sigma cp prior scales
@@ -68,6 +69,7 @@ SIGNATURES = {
     ],
     "tsspark_bands": [
         _c, _c, _c, _c, _c, _c, _c,                # t det add mult theta scale floor
+        _c, _c, _c,                                # cap s rates (logistic, or null)
         _c, _c, _c,                                # given draws (or null)
         _c,                                        # Philox row ids (or null)
         _ull, _f, _f,                              # seed q_lo q_hi

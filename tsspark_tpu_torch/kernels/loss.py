@@ -4,16 +4,16 @@
 ``value_and_grad_batch``).  On a CPU tensor it runs the plain PyTorch
 version, ``loss_plain``, whose gradient is written out by hand: the same
 sums the kernel takes (``csrc/loss.cu``), with logistic growth's pull
-back through the offset recursion on top.  On a CUDA tensor it launches
-the kernel or raises; logistic growth is not ported to the card yet and
-raises ``NotImplementedError`` there.  ``launches`` counts kernel
-launches, ``grad_launches`` those in gradient mode among them.
+back through the offset recursion on top (the kernel's logistic branch
+takes the same pull-back).  On a CUDA tensor it launches the kernel or
+raises.  ``launches`` counts kernel launches, ``grad_launches`` those in
+gradient mode among them.
 
 ``theta`` may hold N stacked copies of the batch, (N * B, P) for a (B, T)
 ``data``: row i is scored on data row i % B (the stacked line-search
-trials of flat growth and the fallback row).  The kernel needs ``t``
-rising along each row and ascending changepoints, as ``prepare_fit_data``
-builds them (K4 too).
+trials of logistic and flat growth, and the fallback row).  The kernel
+needs ``t`` rising along each row and ascending changepoints, as
+``prepare_fit_data`` builds them (K4 too).
 """
 
 from __future__ import annotations
@@ -52,7 +52,9 @@ def _r4(n: int) -> int:
 def smem_bytes(kernel: str, config: ProphetConfig, per_series: bool,
                grad: bool = True) -> int:
     """Bytes of shared memory one block of the ``"loss"`` or ``"fan"``
-    kernel takes for ``config``; ValueError past the kernels' limits."""
+    kernel takes for ``config`` (the loss kernel stages each row's
+    capacity too under logistic growth); ValueError past the kernels'
+    limits."""
     ncp = config.n_changepoints
     fs = config.num_seasonal_features
     r = config.num_regressors
@@ -69,7 +71,8 @@ def smem_bytes(kernel: str, config: ProphetConfig, per_series: bool,
     else:
         row = (2 * _r4(p) + _r4(ncp) + 4 * _r4(ncp + 1) + 4 * kfs
                + 4 * _r4(r) + 16 + _r4(fs + r))
-    st_row = 3 * (tile + 8) + _r4(tile * r) + 8
+    streams = 4 if kernel == "loss" and config.growth == "logistic" else 3
+    st_row = streams * (tile + 8) + _r4(tile * r) + 8
     st_x = (_r4(tile * fs) + 8 + kfs) * (ROWS if per_series else 1)
     racc = _r4(r) * 32 * (ROWS + 1) if kernel == "loss" and grad else 0
     total = 4 * (4 * STAGES + ROWS * row + STAGES * (ROWS * st_row + st_x)
@@ -262,11 +265,6 @@ def loss(theta: torch.Tensor, data, config: ProphetConfig,
         return loss_plain(theta, data, config, grad)
     if dev.type != "cuda":
         raise ValueError(f"loss: unsupported device {dev}")
-    if config.growth == "logistic":
-        raise NotImplementedError(
-            "loss kernel: logistic growth is not ported to CUDA yet; fit "
-            "it with device='cpu'"
-        )
     b, t_len = data.t.shape
     n = theta.shape[0]
     ncp = config.n_changepoints
@@ -277,7 +275,8 @@ def loss(theta: torch.Tensor, data, config: ProphetConfig,
         raise ValueError(f"loss: {n} parameter rows for {b} data rows")
     smem_bytes("loss", config, data.X_season.ndim == 3, grad)
     _require("theta", theta, (n, config.num_params), dev)
-    for name in ("t", "y", "mask"):
+    logistic = config.growth == "logistic"
+    for name in ("t", "y", "mask") + (("cap",) if logistic else ()):
         _require(name, getattr(data, name), (b, t_len), dev)
     _require("s", data.s, (b, ncp), dev)
     xs = data.X_season
@@ -289,6 +288,7 @@ def loss(theta: torch.Tensor, data, config: ProphetConfig,
         xs_bstride = t_len * fs
     _require("X_reg", data.X_reg, (b, t_len, r), dev)
     t, y, mask, xs, xr = aligned16(data.t, data.y, data.mask, xs, data.X_reg)
+    cap = aligned16(data.cap)[0] if logistic else None
     _require("prior_scales", data.prior_scales, (f_all,), dev)
     _require("mult_mask", data.mult_mask, (f_all,), dev)
     f = torch.empty((n,), dtype=torch.float32, device=dev)
@@ -299,6 +299,7 @@ def loss(theta: torch.Tensor, data, config: ProphetConfig,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.tsspark_loss(
             theta.data_ptr(), t.data_ptr(), y.data_ptr(), mask.data_ptr(),
+            None if cap is None else cap.data_ptr(),
             data.s.data_ptr(), xs.data_ptr(), xs_bstride, xr.data_ptr(),
             data.prior_scales.data_ptr(),
             data.mult_mask.data_ptr(), f.data_ptr(),

@@ -15,7 +15,7 @@ is the plain trend simulation).
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -139,6 +139,34 @@ def component_breakdown(theta: torch.Tensor, data: FitData,
     return out
 
 
+def sample_rates(p, data: FitData, config: ProphetConfig
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B,) changepoint probability of a future grid step (the mean
+    spacing of the row's future steps times n_cp, clipped to [0, 1]: the
+    history's changepoint frequency) and (B,) Laplace scale of its delta
+    (the mean |delta| of the fit, Prophet's lambda, floored at 1e-8)."""
+    future = (data.t > 1.0).to(data.t.dtype)  # (B, T)
+    dt = torch.diff(data.t, dim=-1, prepend=data.t[..., :1])
+    mean_dt = (dt * future).sum(-1) / torch.clamp(future.sum(-1), min=1.0)
+    cp_prob = torch.clamp(config.n_changepoints * mean_dt, 0.0, 1.0)
+    if config.n_changepoints:
+        lam = p.delta.abs().mean(-1)
+    else:
+        lam = torch.zeros_like(data.t[:, 0])
+    return cp_prob, torch.clamp(lam, min=1e-8)
+
+
+def sampled_deltas(p, data: FitData, config: ProphetConfig,
+                   u: torch.Tensor, lap: torch.Tensor) -> torch.Tensor:
+    """(S, B, T) rate changes of the simulated future changepoints, one
+    possible at every future grid step, from the (S, B, T) uniform and
+    standard-Laplace draws."""
+    cp_prob, lam = sample_rates(p, data, config)
+    future = (data.t > 1.0).to(data.t.dtype)
+    ind = (u < cp_prob[None, :, None]).to(data.t.dtype) * future[None]
+    return ind * (lap * lam[None, :, None])
+
+
 def _simulate_trends(theta: torch.Tensor, data: FitData,
                      config: ProphetConfig, u: torch.Tensor,
                      lap: torch.Tensor,
@@ -149,23 +177,7 @@ def _simulate_trends(theta: torch.Tensor, data: FitData,
     p = unpack(theta, config)
     num_samples = u.shape[0]
     b, t_len = data.t.shape
-    future = (data.t > 1.0).to(data.t.dtype)  # (B, T)
-
-    # Mean spacing of future points (scaled units) -> per-step changepoint
-    # probability matching the historical changepoint frequency.
-    dt = torch.diff(data.t, dim=-1, prepend=data.t[..., :1])
-    mean_dt = (dt * future).sum(-1) / torch.clamp(future.sum(-1), min=1.0)
-    cp_prob = torch.clamp(config.n_changepoints * mean_dt, 0.0, 1.0)
-
-    # Laplace MLE scale of fitted deltas (Prophet's lambda), per series.
-    if config.n_changepoints:
-        lam = p.delta.abs().mean(-1)
-    else:
-        lam = torch.zeros((b,), dtype=data.t.dtype, device=data.t.device)
-    lam = torch.clamp(lam, min=1e-8)
-
-    ind = (u < cp_prob[None, :, None]).to(data.t.dtype) * future[None]
-    new_delta = ind * (lap * lam[None, :, None])  # (S, B, T)
+    new_delta = sampled_deltas(p, data, config, u, lap)
 
     if det is None:
         det = trend_fn(p, data, config)  # (B, T) deterministic trend
@@ -176,18 +188,66 @@ def _simulate_trends(theta: torch.Tensor, data: FitData,
         d = torch.cumsum(new_delta * data.t[None], dim=-1)
         return det[None] + data.t[None] * c - d
     if config.growth == "logistic":
-        # Full recompute with history + sampled future changepoints.
-        # In-sample positions carry delta == 0, so clamping them to just
-        # past the history keeps the changepoint vector sorted.
-        t_clamped = torch.clamp(data.t, min=1.0 + 1e-6)
-        paths = []
-        for i in range(num_samples):
-            s_ext = torch.cat([data.s, t_clamped], dim=-1)
-            d_ext = torch.cat([p.delta, new_delta[i]], dim=-1)
-            paths.append(trend.logistic(data.t, data.cap, p.k, p.m,
-                                        d_ext, s_ext))
-        return torch.stack(paths)
+        return _logistic_paths(p, data, new_delta)
     return det[None].expand((num_samples, b, t_len))
+
+
+def _logistic_paths(p, data: FitData, new_delta: torch.Tensor
+                    ) -> torch.Tensor:
+    """(S, B, T) logistic trend paths with the sampled changepoints
+    ``new_delta`` (S, B, T), one at every grid step, by a scan over the
+    steps: O(S B (T + n_cp)).
+
+    The JAX package recomputes ``trend.logistic`` per sample over the
+    history changepoints followed by one changepoint per step, placed at
+    ``t_clamped = max(t, 1 + 1e-6)`` (in-sample steps carry delta 0; the
+    clamp keeps the vector sorted).  The scan carries that recursion
+    (``trend._logistic_gamma``) along the steps: each sample row holds
+    the running sum of deltas (history first, then each step's draw),
+    k_prev, and the running sum of gammas.  A step at or past its own
+    clamped position (t >= 1 + 1e-6) sees every changepoint up to its own
+    and reads the state just after it: rate k + csum, offset m + gamma
+    sum.  Earlier steps see only the history changepoints they pass, as
+    the deterministic trend does.  Every sum is formed in the order of
+    ``_logistic_gamma`` and ``step_weighted_sum`` and the sigmoid runs on
+    (B, T) blocks as there, so the paths are the same bits as that
+    per-sample recompute on the CPU, where future times rise strictly
+    along each row and the history changepoints lie before them (a
+    forecast grid does).  The plain version of the interval kernel's
+    logistic branch (``csrc/bands.cu``)."""
+    t = data.t
+    b, t_len = t.shape
+    n_s = new_delta.shape[0]
+    ncp = data.s.shape[-1]
+    t_clamped = torch.clamp(t, min=1.0 + 1e-6)
+    # The deterministic trend's rate and offset at every step, and the
+    # recursion's state after the last history changepoint.
+    rate_det = p.k[:, None] + trend.step_weighted_sum(p.delta, t, data.s)
+    gamma = trend._logistic_gamma(p.k, p.m, p.delta, data.s)
+    off_det = p.m[:, None] + trend.step_weighted_sum(gamma, t, data.s)
+    csum = torch.zeros_like(p.k)
+    gamma_sum = torch.zeros_like(p.m)
+    for j in range(ncp):
+        csum = csum + p.delta[:, j]
+        gamma_sum = gamma_sum + gamma[:, j]
+    k_prev = p.k + csum if ncp else p.k
+    csum, gamma_sum, k_prev = (x.expand(n_s, b) for x in
+                               (csum, gamma_sum, k_prev))
+    read = t >= t_clamped
+    rate = torch.empty((n_s, b, t_len), dtype=t.dtype, device=t.device)
+    off = torch.empty_like(rate)
+    for c in range(t_len):
+        csum = csum + new_delta[:, :, c]
+        k_next = p.k + csum
+        gamma_c = (t_clamped[:, c] - p.m - gamma_sum) * (
+            1.0 - trend._safe_div(k_prev, k_next))
+        gamma_sum = gamma_sum + gamma_c
+        k_prev = k_next
+        rate[:, :, c] = torch.where(read[:, c], k_next, rate_det[:, c])
+        off[:, :, c] = torch.where(read[:, c], p.m + gamma_sum,
+                                   off_det[:, c])
+    return torch.stack([data.cap * torch.sigmoid(rate[i] * (t - off[i]))
+                        for i in range(n_s)])
 
 
 def forecast(
