@@ -59,7 +59,22 @@ the script exits non-zero without printing the final line:
    against the port's scipy oracle (``backends/cpu.py``), and the loss
    against that oracle and the port's own plain fit on the CPU, on
    average and per series (``loss_parity``).
-8. fit_logistic — logistic growth's path: eval config 4 at 8,192
+8. mcmc    — the full-posterior path on config 3's batch (phase fit's)
+   at full width: ``ProphetModel.fit_mcmc`` with ``McmcConfig()`` (the
+   MAP fit, then 300 warmup and 300 kept transitions of 24 leapfrog
+   steps, one chain a series, K3 under every step), then
+   ``predict_mcmc`` over all 1,941 days (K6, a launch per 512 rows).
+   Launch counts set to 0 just before, read just after; stage split,
+   wall a leapfrog, acceptance, divergences, split-R-hat and ESS, sMAPE
+   of the posterior mean, the band's holdout coverage, peak memory.
+   Then K3 and its plain version give a non-finite loss at the same
+   points far from the MAP; the sampler on 64 series against the same
+   sampler driven by the plain loss (other seeds; z rule, ``Z_LIMIT``);
+   K6 against its plain version on given draws (small shapes of linear,
+   flat and logistic growth; the path's first 512-row chunk) and its
+   rows bitwise invariant; eight full-width transitions under the
+   profiler (the card's idle share).
+9. fit_logistic — logistic growth's path: eval config 4 at 8,192
    series (``config4_wiki_logistic(scale=1024)``'s batch: 1,200 days,
    capacity, weekly multiplicative order 3, 15 changepoints,
    ``SolverConfig(max_iters=200)``) fitted on its first 1,080 days
@@ -69,7 +84,7 @@ the script exits non-zero without printing the final line:
    0 just before, read just after; stage split, status counts, sMAPE on
    train and holdout, bands ordered; loss parity on 64 series against
    the scipy oracle and the plain CPU fit (``LIMITS4``).
-9. kernels — each kernel at its main path's shapes, on the main path's
+10. kernels — each kernel at its main path's shapes, on the main path's
    inputs (K3 and K4 at 8192x1746 on config 3's first chunk; K3's
    logistic branch at 8192x1080 and on a 21 x 8192 trial stack, K1's and
    K2's (S=256) on the forecast's 512-row chunks of 1,200 steps and over
@@ -78,7 +93,12 @@ the script exits non-zero without printing the final line:
    one PyTorch call; K3 (both modes, both growths) and K4 give a row the
    same bits alone, permuted and in a trial stack; K1 (all three shapes) and
    K2 (its own Philox draws, each row keeping its Philox coordinate, both
-   growths) alone and permuted.
+   growths) alone and permuted; K6 from phase mcmc.
+
+The CPU parity fits of phases fit and fit_logistic (the scipy oracle and
+the port's plain fit on their subsets) run in two worker processes
+(``ParityFits``), started with the data before phase forward, beside the
+card's phases; each fit phase waits for its own.
 
 The last lines: the run's wall time, the kernels JSON object,
 ``nvidia-smi``'s ``name, power.limit`` line, and
@@ -1075,6 +1095,97 @@ def fit_subset() -> np.ndarray:
     return np.linspace(0, FULL_SERIES - 1, FIT_SUBSET).astype(np.int64)
 
 
+# The CPU parity fits (the scipy oracle and the port's plain fit on each
+# fit phase's subset) run in PARITY_WORKERS spawned processes of
+# PARITY_THREADS threads each, submitted with the data before the first
+# phase; the card's phases run meanwhile, and each fit phase collects its
+# own.  (One after another they take ~385 s of an 8-core host.)
+PARITY_WORKERS = 2
+PARITY_THREADS = 2
+_THREAD_ENV = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
+
+
+def parity_job(kind: str, config_no: int, ds_fit, y, sub: dict,
+               ds_full=None, regs_full=None) -> dict:
+    """One CPU parity fit of eval config ``config_no`` on a subset (``y``
+    and the ``sub`` keywords): ``kind`` "oracle" is the scipy per-series
+    fit (with its forecast's yhat over ``ds_full`` when given), "plain"
+    the port's plain fit.  Runs in a ``ParityFits`` worker."""
+    import torch
+
+    from tsspark_tpu_torch.backends.registry import get_backend
+    from tsspark_tpu_torch.eval import configs
+
+    torch.set_num_threads(PARITY_THREADS)
+    cfg, solver = {3: (configs.CONFIG3, configs.SOLVER3),
+                   4: (configs.CONFIG4, configs.SOLVER4)}[config_no]
+    t0 = time.perf_counter()
+    bk = (get_backend("cpu", cfg, solver) if kind == "oracle"
+          else get_backend("cuda", cfg, solver, device="cpu"))
+    state = bk.fit(ds_fit, y, **sub)
+    out = {"seconds": time.perf_counter() - t0,
+           "loss": np.asarray(state.loss),
+           "status": None if state.status is None
+           else np.asarray(state.status),
+           "n_iters": np.asarray(state.n_iters)}
+    if ds_full is not None:
+        out["yhat"] = np.asarray(bk.predict(state, ds_full,
+                                            regressors=regs_full,
+                                            num_samples=0)["yhat"])
+    return out
+
+
+class ParityFits:
+    """The four CPU parity fits of phases fit and fit_logistic, in a pool
+    of spawned processes beside the card's phases (see PARITY_WORKERS)."""
+
+    def __init__(self, batch3, batch4):
+        import multiprocessing as mp
+        import os
+
+        from tsspark_tpu_torch.eval import configs
+
+        saved = {k: os.environ.get(k) for k in _THREAD_ENV}
+        os.environ.update({k: str(PARITY_THREADS) for k in _THREAD_ENV})
+        try:
+            self.pool = mp.get_context("spawn").Pool(PARITY_WORKERS)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        split3 = configs.split_point(FULL_DAYS)
+        i3 = fit_subset()
+        fit3 = (batch3.ds[:split3], np.nan_to_num(batch3.y[i3, :split3]),
+                dict(mask=batch3.mask[i3, :split3],
+                     regressors=batch3.regressors[i3, :split3]))
+        split4 = configs.split_point(C4_DAYS)
+        i4 = fit4_subset()
+        fit4 = (batch4.ds[:split4], batch4.y[i4, :split4],
+                dict(mask=batch4.mask[i4, :split4],
+                     cap=batch4.cap[i4, :split4]))
+        run = self.pool.apply_async
+        self.jobs = {
+            ("plain", 3): run(parity_job, ("plain", 3) + fit3),
+            ("oracle", 3): run(parity_job, ("oracle", 3) + fit3
+                               + (batch3.ds, batch3.regressors[i3])),
+            ("plain", 4): run(parity_job, ("plain", 4) + fit4),
+            ("oracle", 4): run(parity_job, ("oracle", 4) + fit4),
+        }
+
+    def get(self, kind: str, config_no: int) -> dict:
+        return self.jobs[(kind, config_no)].get()
+
+    def close(self, finished: bool) -> None:
+        """Join the workers after a finished run, else stop them."""
+        if finished:
+            self.pool.close()
+        else:
+            self.pool.terminate()
+        self.pool.join()
+
+
 # Loss parity of a fit, per series, in nats.  Two correct float32
 # lockstep solvers part after a few iterations and stop at the noise
 # floor at different points: on the parity subset at 1,746 days, the JAX
@@ -1158,15 +1269,14 @@ def fit4_subset() -> np.ndarray:
 LIMITS4 = (0.5, 20.0, None, 40.0)
 
 
-def phase_fit(device) -> dict:
-    """Eval config 3 fitted at full width through ``CudaBackend.fit``,
-    scored, profiled, and held against the scipy oracle and the plain CPU
-    fit on a subset."""
+def phase_fit(device, batch, gen_s, parity) -> dict:
+    """Eval config 3 (``batch``, generated in ``gen_s``) fitted at full
+    width through ``CudaBackend.fit``, scored, profiled, and held against
+    the scipy oracle and the plain CPU fit on a subset (``parity``'s)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from tsspark_tpu_torch.backends.registry import get_backend
-    from tsspark_tpu_torch.data.datasets import m5_like
     from tsspark_tpu_torch.eval import configs
     from tsspark_tpu_torch.kernels import fan as fan_k
     from tsspark_tpu_torch.kernels import forward as fk
@@ -1180,9 +1290,6 @@ def phase_fit(device) -> dict:
     from tsspark_tpu_torch.ops import lbfgs
 
     cfg, solver = configs.CONFIG3, configs.SOLVER3
-    t0 = time.perf_counter()
-    batch = m5_like(FULL_SERIES, FULL_DAYS, seed=2)
-    gen_s = time.perf_counter() - t0
     split = configs.split_point(FULL_DAYS)
     ds_fit = batch.ds[:split]
     y_fit = np.nan_to_num(batch.y[:, :split])
@@ -1247,30 +1354,23 @@ def phase_fit(device) -> dict:
 
     # Parity on a subset spread over the batch.
     idx = fit_subset()
-    sub = dict(mask=m_fit[idx], regressors=r_fit[idx])
     t1 = time.perf_counter()
-    oracle = get_backend("cpu", cfg, solver)
-    o_state = oracle.fit(ds_fit, y_fit[idx], **sub)
-    oracle_s = time.perf_counter() - t1
-    o_fc = oracle.predict(o_state, batch.ds,
-                          regressors=batch.regressors[idx], num_samples=0)
+    oracle, plain = parity.get("oracle", 3), parity.get("plain", 3)
+    wait_s = time.perf_counter() - t1
     sub_batch = batch._replace(y=batch.y[idx], mask=batch.mask[idx],
                                regressors=batch.regressors[idx],
                                series_ids=batch.series_ids[idx])
-    o_sc = configs.score(sub_batch, o_fc)
-    t1 = time.perf_counter()
-    plain = get_backend("cuda", cfg, solver, device="cpu").fit(
-        ds_fit, y_fit[idx], **sub)
-    plain_s = time.perf_counter() - t1
+    o_sc = configs.score(sub_batch, {"yhat": oracle["yhat"]})
     d_train = sc["smape_train"][idx] - o_sc["smape_train"]
     d_hold = sc["smape_holdout"][idx] - o_sc["smape_holdout"]
-    loss_readings, loss_failed = loss_parity(state.loss[idx], plain.loss,
-                                             o_state.loss)
-    loss_gap = state.loss[idx] - plain.loss
+    loss_readings, loss_failed = loss_parity(state.loss[idx], plain["loss"],
+                                             oracle["loss"])
+    loss_gap = state.loss[idx] - plain["loss"]
     worst = np.argsort(-np.abs(loss_gap))[:5]
     parity = {
         "subset": FIT_SUBSET,
-        "oracle_s": oracle_s, "plain_cpu_fit_s": plain_s,
+        "oracle_s": oracle["seconds"], "plain_cpu_fit_s": plain["seconds"],
+        "parity_wait_s": wait_s,
         "smape_train_max_abs_delta": float(np.abs(d_train).max()),
         "smape_train_mean_delta": float(d_train.mean()),
         "smape_holdout_max_abs_delta": float(np.abs(d_hold).max()),
@@ -1279,8 +1379,9 @@ def phase_fit(device) -> dict:
         "loss_checks_failed": loss_failed,
         "worst_rows": [
             {"series": int(idx[w]), "gap": float(loss_gap[w]),
-             "status": [int(state.status[idx[w]]), int(plain.status[w])],
-             "n_iters": [int(state.n_iters[idx[w]]), int(plain.n_iters[w])]}
+             "status": [int(state.status[idx[w]]), int(plain["status"][w])],
+             "n_iters": [int(state.n_iters[idx[w]]),
+                         int(plain["n_iters"][w])]}
             for w in worst],
     }
     status = np.bincount(np.asarray(state.status), minlength=5)
@@ -1318,19 +1419,20 @@ def phase_fit(device) -> dict:
     d = -precond * fun(theta0)[1]
     return {"out": out, "inputs": {
         "data": data, "theta0": theta0, "direction": d.contiguous(),
-        "theta_fit": state.theta[:c].to(device).contiguous(), "cfg": cfg}}
+        "theta_fit": state.theta[:c].to(device).contiguous(), "cfg": cfg,
+        "batch": batch}}
 
 
-def phase_fit_logistic(device) -> dict:
+def phase_fit_logistic(device, batch, gen_s, parity) -> dict:
     """Eval config 4 at 8,192 series (``config4_wiki_logistic(scale=1024)``'s
-    batch) fitted on its first 1,080 days through ``CudaBackend.fit``, then
-    forecast with 256-sample bands over all 1,200 days through
-    ``predict``; scored, and held against the scipy oracle and the plain
-    CPU fit on a subset (``loss_parity`` at ``LIMITS4``)."""
+    batch, ``batch``, generated in ``gen_s``) fitted on its first 1,080
+    days through ``CudaBackend.fit``, then forecast with 256-sample bands
+    over all 1,200 days through ``predict``; scored, and held against the
+    scipy oracle and the plain CPU fit on a subset (``parity``'s;
+    ``loss_parity`` at ``LIMITS4``)."""
     import torch
 
     from tsspark_tpu_torch.backends.registry import get_backend
-    from tsspark_tpu_torch.data.datasets import wiki_logistic_like
     from tsspark_tpu_torch.eval import configs
     from tsspark_tpu_torch.kernels import bands as bands_k
     from tsspark_tpu_torch.kernels import fan as fan_k
@@ -1346,9 +1448,6 @@ def phase_fit_logistic(device) -> dict:
     from tsspark_tpu_torch.ops import lbfgs
 
     cfg, solver = configs.CONFIG4, configs.SOLVER4
-    t0 = time.perf_counter()
-    batch = wiki_logistic_like(C4_SERIES, C4_DAYS)
-    gen_s = time.perf_counter() - t0
     split = configs.split_point(C4_DAYS)
     ds_fit = batch.ds[:split]
     y_fit, m_fit = batch.y[:, :split], batch.mask[:, :split]
@@ -1394,27 +1493,24 @@ def phase_fit_logistic(device) -> dict:
 
     # Parity on a subset spread over the batch.
     idx = fit4_subset()
-    sub = dict(mask=m_fit[idx], cap=cap_fit[idx])
     t1 = time.perf_counter()
-    o_state = get_backend("cpu", cfg, solver).fit(ds_fit, y_fit[idx], **sub)
-    oracle_s = time.perf_counter() - t1
-    t1 = time.perf_counter()
-    plain = get_backend("cuda", cfg, solver, device="cpu").fit(
-        ds_fit, y_fit[idx], **sub)
-    plain_s = time.perf_counter() - t1
-    loss_readings, loss_failed = loss_parity(state.loss[idx], plain.loss,
-                                             o_state.loss, LIMITS4)
-    loss_gap = state.loss[idx] - plain.loss
+    oracle, plain = parity.get("oracle", 4), parity.get("plain", 4)
+    wait_s = time.perf_counter() - t1
+    loss_readings, loss_failed = loss_parity(state.loss[idx], plain["loss"],
+                                             oracle["loss"], LIMITS4)
+    loss_gap = state.loss[idx] - plain["loss"]
     worst = np.argsort(-np.abs(loss_gap))[:5]
     parity = {
         "subset": FIT4_SUBSET, "limits": LIMITS4,
-        "oracle_s": oracle_s, "plain_cpu_fit_s": plain_s,
+        "oracle_s": oracle["seconds"], "plain_cpu_fit_s": plain["seconds"],
+        "parity_wait_s": wait_s,
         **loss_readings,
         "loss_checks_failed": loss_failed,
         "worst_rows": [
             {"series": int(idx[w]), "gap": float(loss_gap[w]),
-             "status": [int(state.status[idx[w]]), int(plain.status[w])],
-             "n_iters": [int(state.n_iters[idx[w]]), int(plain.n_iters[w])]}
+             "status": [int(state.status[idx[w]]), int(plain["status"][w])],
+             "n_iters": [int(state.n_iters[idx[w]]),
+                         int(plain["n_iters"][w])]}
             for w in worst],
     }
     status = np.bincount(np.asarray(state.status), minlength=5)
@@ -1466,6 +1562,463 @@ def phase_fit_logistic(device) -> dict:
                                    device=device),
         "floor": torch.as_tensor(meta.floor, dtype=torch.float32,
                                  device=device)}}
+
+
+# The full-posterior path: config 3's batch through fit_mcmc with the
+# default sampler (300 warmup and 300 kept transitions of 24 leapfrog
+# steps), then predict_mcmc over every day.  Its sampler is held in
+# distribution against the same sampler driven by the plain loss on a
+# subset of MCMC_SUBSET series: per (series, parameter), z = |mean_1 -
+# mean_2| / sqrt(var_1/ESS_1 + var_2/ESS_2) from two chains of other
+# seeds is a standard normal's absolute value when both sample one
+# posterior, so more than Z_FRAC of z past Z_LIMIT (a standard normal puts
+# 6e-5 there) or a median past Z_MEDIAN (its median is 0.674) is a fault.
+MCMC_SUBSET = 64
+Z_LIMIT, Z_FRAC, Z_MEDIAN = 4.0, 0.01, 1.0
+DRAWS_TOL = 1e-5
+
+
+def z_scores(a, b) -> np.ndarray:
+    """Per (series, parameter) z of two (S, B, P) draw sets (see
+    MCMC_SUBSET), ESS from ``hmc.split_rhat_ess``."""
+    from tsspark_tpu_torch.ops import hmc
+
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    se2 = (a.var(0, ddof=1) / hmc.split_rhat_ess(a)[1]
+           + b.var(0, ddof=1) / hmc.split_rhat_ess(b)[1])
+    return np.abs(a.mean(0) - b.mean(0)) / np.sqrt(np.maximum(se2, 1e-30))
+
+
+def plain_logdensity(data, cfg, example):
+    """``model.mcmc_logdensity`` on K3's plain version (torch ops on the
+    card's tensors) for parameters shaped as ``example``, replayed from a
+    CUDA graph: its ~400 small launches a call captured once, so the
+    reference sampler's 14,401 calls take seconds, not minutes.  Each call
+    copies its argument into the graph's input and returns copies of its
+    outputs; the arithmetic is the plain version's own kernels."""
+    import torch
+
+    from tsspark_tpu_torch.kernels import loss as lk
+
+    def logdensity(th):
+        f, g = lk.loss_plain(th, data, cfg)
+        lp = -f + th[:, 2]
+        grad = -g
+        grad[:, 2] += 1.0
+        return lp, grad
+
+    static_in = example.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            logdensity(static_in)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static_out = logdensity(static_in)
+
+    def replay(th):
+        static_in.copy_(th)
+        graph.replay()
+        return tuple(o.clone() for o in static_out)
+
+    return replay
+
+
+def draws_bound_ms(b, t_len, s, config) -> dict:
+    """Least time for the posterior-draws function over (B, T) with S
+    draws: the draws, the per-row inputs and the eight (B, T) outputs
+    moved once; per sample-cell ~4F + 36 float32 operations (the feature
+    totals' two multiply-adds a feature, the trend, the deterministic
+    yhat, a simulated path step, the noise, the four means' adds and the
+    two selections' O(1) share; ~4F + 46 under logistic growth), one
+    Philox4x32-10 draw (40 integer multiplies) and four transcendentals
+    (six under logistic growth: two sigmoids).  The units run side by
+    side, so the least time is the largest of the four."""
+    ncp, fs, r = (config.n_changepoints, config.num_seasonal_features,
+                  config.num_regressors)
+    f = fs + r
+    logistic = config.growth == "logistic"
+    floats = (s * b * config.num_params + (1 + r + logistic) * b * t_len
+              + t_len * fs + b * ncp + b * (s + 3) + 8 * b * t_len)
+    cells = b * t_len * s
+    times = {
+        "bytes": 4 * floats / PEAK_BYTES_PER_S * 1e3,
+        "float32": cells * (4 * f + (46 if logistic else 36))
+        / PEAK_F32_PER_S * 1e3,
+        "integer_multiplies": cells * 40 / PEAK_INT32_MUL_PER_S * 1e3,
+        "transcendentals": cells * (6 if logistic else 4)
+        / PEAK_SFU_PER_S * 1e3,
+    }
+    by = max(times, key=times.get)
+    return {"bound_ms": times[by],
+            "bound_by": "bytes" if by == "bytes" else "operations",
+            "bound_parts_ms": times}
+
+
+def _draw_case(rng, growth, b, t_len, s, per_series, device):
+    """Small K6 inputs: a config of every feature kind, draws around a
+    fitted-like point, synthetic data with a future (t up to 1.2), data
+    scales and given variates."""
+    import torch
+
+    from tsspark_tpu_torch.config import (
+        ProphetConfig,
+        RegressorConfig,
+        SeasonalityConfig,
+    )
+    from tsspark_tpu_torch.kernels import bands as bk
+
+    cfg = ProphetConfig(
+        growth=growth, n_changepoints=10,
+        seasonalities=(SeasonalityConfig("yearly", 365.25, 3),
+                       SeasonalityConfig("weekly", 7.0, 3,
+                                         mode="multiplicative")),
+        regressors=(RegressorConfig("r0"),
+                    RegressorConfig("r1", mode="multiplicative")))
+    make = logistic_theta if growth == "logistic" else random_theta
+    base = make(rng, b, cfg)
+    samples = torch.from_numpy(
+        (base[None] + 0.02 * rng.normal(0.0, 1.0, (s,) + base.shape))
+        .astype(np.float32)).to(device)
+    data = synthetic_data(rng, cfg, b, t_len, per_series, device)
+    sc = torch.from_numpy(rng.uniform(1.0, 50.0, b).astype(np.float32))
+    fl = torch.from_numpy(rng.uniform(0.0, 5.0, b).astype(np.float32))
+    gen = torch.Generator(device=device).manual_seed(
+        int(rng.integers(1_000_000)))
+    variates = bk.sample_draws((s, b, t_len), gen, device)
+    return cfg, samples, data, sc.to(device), fl.to(device), variates
+
+
+def _draws_vs_plain(cfg, samples, data, sc, fl, variates) -> tuple:
+    """(max |k - p| / (y_scale + |p|), max |k - p|, plain seconds) of K6
+    against its plain version on the same given variates."""
+    import torch
+
+    from tsspark_tpu_torch.kernels import draws as dk
+
+    got = dk.draws(samples, data, sc, fl, cfg, variates=variates)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = dk.draws_plain(samples, data, sc, fl, cfg, variates)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    for k, v in got.items():
+        require(bool(torch.isfinite(v).all()), f"draws {k} finite")
+    return (_band_err(got, want, sc),
+            max(float((got[k] - want[k]).abs().max()) for k in want),
+            plain_s)
+
+
+def draws_row_invariance(samples, data, sc, fl, cfg, device) -> dict:
+    """K6 with its own Philox draws gives a row the same bits wherever it
+    sits, the row keeping its Philox coordinate: a slice launched alone,
+    and the batch permuted."""
+    import torch
+
+    from tsspark_tpu_torch.kernels import draws as dk
+
+    b = samples.shape[1]
+    full = dk.draws(samples, data, sc, fl, cfg, seed=31)
+    ids = torch.arange(b, dtype=torch.int32, device=device)
+    perm = torch.randperm(b, generator=torch.Generator().manual_seed(3))
+    perm = perm.to(device)
+    lo, hi = b // 8, b // 8 + max(1, b // 4)
+    for name, idx in (("slice", slice(lo, hi)), ("permuted", perm)):
+        got = dk.draws(samples[:, idx].contiguous(), _rows(data, idx),
+                       sc[idx].contiguous(), fl[idx].contiguous(), cfg,
+                       seed=31, rows=ids[idx].contiguous())
+        require(all(torch.equal(got[k], full[k][idx]) for k in full),
+                f"draws: a {name} batch differs")
+    torch.cuda.synchronize()
+    return {"bitwise": True, "rows": [lo, hi], "permuted": b}
+
+
+def nonfinite_agreement(theta, data, cfg) -> dict:
+    """K3 gives a non-finite loss exactly where its plain version does, at
+    points the sampler's trajectories can reach and the line search never
+    priced: log_sigma at +-60, k or a changepoint's delta at 1e20, m NaN;
+    each a stack of the batch's rows (a trial stack: row i on data row
+    i % B)."""
+    import torch
+
+    from tsspark_tpu_torch.kernels import loss as lk
+
+    b = theta.shape[0]
+    ncp = cfg.n_changepoints
+    parts = [theta.clone() for _ in range(6)]
+    parts[1][:, 2] = 60.0
+    parts[2][:, 2] = -60.0
+    parts[3][:, 0] = 1e20
+    parts[4][:, 1] = float("nan")
+    parts[5][:, 3 + ncp // 2] = 1e20
+    stack = torch.cat(parts).contiguous()
+    f_k, g_k = lk.loss(stack, data, cfg)
+    f_p, g_p = lk.loss_plain(stack, data, cfg)
+    fin_k, fin_p = torch.isfinite(f_k), torch.isfinite(f_p)
+    gfin_k = torch.isfinite(g_k).all(1)
+    gfin_p = torch.isfinite(g_p).all(1)
+    out = {"rows": int(stack.shape[0]),
+           "f_nonfinite": [int((~fin_k[i * b:(i + 1) * b]).sum())
+                           for i in range(6)],
+           "f_masks_equal": bool(torch.equal(fin_k, fin_p)),
+           "g_nonfinite_rows": [int((~gfin_k).sum()), int((~gfin_p).sum())],
+           "g_masks_equal": bool(torch.equal(gfin_k, gfin_p))}
+    require(out["f_masks_equal"],
+            f"K3 and its plain version disagree on where f is finite: {out}")
+    return out
+
+
+def phase_mcmc(fit, device) -> dict:
+    """Config 3's batch (``phase_fit``'s) through ``ProphetModel.fit_mcmc``
+    with ``McmcConfig()`` on its first 1,746 days, then ``predict_mcmc``
+    over all 1,941 through K6; the sampler held in distribution against
+    the plain loss's, K3 against its plain version where the loss is not
+    finite, K6 against its plain version on given draws (small shapes of
+    the three growths, and the path's first chunk) and for bitwise row
+    invariance; one short full-width sample under the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tsspark_tpu_torch.config import McmcConfig
+    from tsspark_tpu_torch.eval import configs
+    from tsspark_tpu_torch.kernels import bands as bands_k
+    from tsspark_tpu_torch.kernels import draws as dk
+    from tsspark_tpu_torch.kernels import fan as fan_k
+    from tsspark_tpu_torch.kernels import forward as fk
+    from tsspark_tpu_torch.kernels import loss as lk
+    from tsspark_tpu_torch.models.prophet import design
+    from tsspark_tpu_torch.models.prophet.model import (
+        ProphetModel,
+        mcmc_core,
+    )
+    from tsspark_tpu_torch.models.prophet.predict import prepare_predict_data
+    from tsspark_tpu_torch.ops import hmc
+
+    cfg, solver = configs.CONFIG3, configs.SOLVER3
+    batch = fit["inputs"]["batch"]
+    n_ser, n_days = batch.y.shape
+    split = configs.split_point(n_days)
+    ds_fit = batch.ds[:split]
+    y_fit = np.nan_to_num(batch.y[:, :split])
+    m_fit = batch.mask[:, :split]
+    r_fit = batch.regressors[:, :split]
+    mcfg = McmcConfig()
+    model = ProphetModel(cfg, solver, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hmc.timing.reset()
+    # The main path: counts to 0 just before, read just after.
+    lk.launches = lk.grad_launches = fan_k.launches = fk.launches = 0
+    bands_k.launches = dk.launches = 0
+    t0 = time.perf_counter()
+    state = model.fit_mcmc(ds_fit, y_fit, mask=m_fit, regressors=r_fit,
+                           mcmc_config=mcfg, seed=0)
+    fit_s = time.perf_counter() - t0
+    fit_stages = dict(model.stages.seconds)
+    model.stages.reset()
+    t0 = time.perf_counter()
+    fc = model.predict_mcmc(state, batch.ds, regressors=batch.regressors,
+                            seed=0)
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t0
+    launches = {"loss": lk.launches, "loss_grad": lk.grad_launches,
+                "loss_value": lk.launches - lk.grad_launches,
+                "fan": fan_k.launches, "forward": fk.launches,
+                "bands": bands_k.launches, "draws": dk.launches}
+    leapfrogs, host_s = hmc.timing.leapfrogs, hmc.timing.host_s
+    peak = torch.cuda.max_memory_allocated()
+
+    n_s = mcfg.num_samples
+    hmc_grad = 1 + (mcfg.num_warmup + n_s) * mcfg.num_leapfrog
+    require(launches["loss_grad"] >= hmc_grad and launches["fan"] > 0
+            and launches["draws"] == -(-n_ser // dk.CHUNK_ROWS),
+            f"kernels launched on the MCMC path: {launches}")
+    require(tuple(state.samples.shape) == (n_s, n_ser, cfg.num_params),
+            "draws shape")
+    require(bool(torch.isfinite(state.samples).all()), "draws finite")
+    require(state.rhat.shape == state.ess.shape == (n_ser, cfg.num_params)
+            and np.isfinite(state.rhat).all() and np.isfinite(state.ess).all(),
+            "split-R-hat and ESS finite, one a (series, parameter)")
+    for k in dk.OUTPUTS:
+        require(tuple(fc[k].shape) == (n_ser, n_days), f"forecast {k} shape")
+        require(bool(torch.isfinite(fc[k]).all()), f"forecast {k} finite")
+    require(ordered(fc["yhat_lower"], fc["yhat_upper"], False),
+            "yhat_lower <= yhat_upper")
+    require(ordered(fc["trend_lower"], fc["trend_upper"], True),
+            "trend_lower <= trend_upper")
+    fc_np = {k: v.cpu().numpy() for k, v in fc.items()}
+    sc = configs.score(batch, fc_np)
+    y_hold = batch.y[:, split:]
+    m_hold = batch.mask[:, split:] > 0
+    inside = ((y_hold >= fc_np["yhat_lower"][:, split:])
+              & (y_hold <= fc_np["yhat_upper"][:, split:]))
+    acc = state.accept_rate
+    out = {
+        "phase": "mcmc", "series": n_ser, "days_fit": split,
+        "days_forecast": n_days, "params": cfg.num_params,
+        "mcmc_config": {"num_warmup": mcfg.num_warmup, "num_samples": n_s,
+                        "num_leapfrog": mcfg.num_leapfrog},
+        "fit_mcmc_s": fit_s, "predict_mcmc_s": predict_s,
+        "stages_s": fit_stages,
+        "predict_stages_s": dict(model.stages.seconds),
+        "launches": launches, "loss_grad_in_hmc": hmc_grad,
+        "leapfrogs": leapfrogs,
+        "hmc_wall_ms_per_leapfrog": 1e3 * host_s / max(leapfrogs, 1),
+        "accept_rate": {"mean": float(acc.mean()), "min": float(acc.min()),
+                        "p01": float(np.quantile(acc, 0.01)),
+                        "median": float(np.median(acc))},
+        "divergences": {"total": int(state.divergences.sum()),
+                        "chains_with_any": int((state.divergences > 0).sum())},
+        "step_size_median": float(np.median(state.step_size)),
+        "rhat_max": float(state.rhat.max()),
+        "rhat_over_1.1_frac": float((state.rhat > 1.1).mean()),
+        "ess_min": float(state.ess.min()),
+        "ess_median": float(np.median(state.ess)),
+        "smape_train": float(sc["smape_train"].mean()),
+        "smape_holdout": float(sc["smape_holdout"].mean()),
+        "holdout_coverage_80": float(inside[m_hold].mean()),
+        "peak_device_bytes": peak,
+    }
+    emit(out)
+
+    # The sampler in distribution: K3's chains against the plain loss's on
+    # a subset, each from the MAP point with its own seed.
+    idx = np.linspace(0, n_ser - 1, MCMC_SUBSET).astype(np.int64)
+    data_np, _ = design.prepare_fit_data(ds_fit, y_fit[idx], cfg,
+                                         mask=m_fit[idx],
+                                         regressors=r_fit[idx])
+    sub = design.fitdata_to_device(data_np, device)
+    theta_map = state.map_state.theta[idx].to(device).contiguous()
+    nonfinite = nonfinite_agreement(theta_map, sub, cfg)
+    hmc.timing.reset()
+    t0 = time.perf_counter()
+    res_k = mcmc_core(sub, theta_map, torch.Generator(device=device)
+                      .manual_seed(1), cfg, mcfg)
+    torch.cuda.synchronize()
+    k3_s = time.perf_counter() - t0
+    sub_ms_leapfrog = 1e3 * hmc.timing.host_s / max(hmc.timing.leapfrogs, 1)
+    gen = torch.Generator(device=device).manual_seed(2)
+    theta0 = theta_map + mcfg.init_jitter * torch.randn(
+        theta_map.shape, generator=gen, device=device)
+    t0 = time.perf_counter()
+    res_p = hmc.sample(plain_logdensity(sub, cfg, theta0), theta0, gen, mcfg)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    draws_k = res_k.samples.cpu().numpy()
+    draws_p = res_p.samples.cpu().numpy()
+    z = z_scores(draws_k, draws_p)
+    rhat_k = hmc.split_rhat_ess(draws_k)[0]
+    rhat_p = hmc.split_rhat_ess(draws_p)[0]
+    over = z > Z_LIMIT
+    sampler = {
+        "subset": MCMC_SUBSET, "k3_s": k3_s, "plain_s": plain_s,
+        "host_ms_per_leapfrog_k3": sub_ms_leapfrog,
+        "z_median": float(np.median(z)), "z_max": float(z.max()),
+        "z_over_limit_frac": float((z > Z_LIMIT).mean()),
+        "limits": {"z": Z_LIMIT, "frac": Z_FRAC, "median": Z_MEDIAN},
+        # Where z passes its limit: the series (subset rows) and how many
+        # of their parameters, and the two chains' split-R-hat there.
+        "z_over_limit_rows": {int(r): int(n) for r, n in zip(
+            *np.unique(np.nonzero(over)[0], return_counts=True))},
+        "rhat_max_where_over": [float(rhat_k[over].max(initial=0.0)),
+                                float(rhat_p[over].max(initial=0.0))],
+        "rhat_over_1.1_frac": [float((rhat_k > 1.1).mean()),
+                               float((rhat_p > 1.1).mean())],
+        "accept_mean": [float(res_k.accept_rate.mean()),
+                        float(res_p.accept_rate.mean())],
+        "divergences": [int(res_k.divergences.sum()),
+                        int(res_p.divergences.sum())],
+        "k3_nonfinite": nonfinite,
+    }
+    emit({"phase": "mcmc_sampler", **sampler})
+    require(sampler["z_over_limit_frac"] <= Z_FRAC
+            and sampler["z_median"] < Z_MEDIAN,
+            f"K3's sampler against the plain loss's: {sampler}")
+    del res_k, res_p, sub
+
+    # K6 against its plain version on given draws: small shapes, then the
+    # path's first chunk of rows; its rows bitwise invariant.
+    rng = np.random.default_rng(17)
+    small = {}
+    for growth, s, per_series in (("linear", 128, False),
+                                  ("linear", 1024, True),
+                                  ("flat", 128, False),
+                                  ("logistic", 64, False)):
+        case = _draw_case(rng, growth, 48, 160, s, per_series, device)
+        err, abs_err, _ = _draws_vs_plain(*case)
+        small[f"{growth}_S{s}{'_per_series' if per_series else ''}"] = {
+            "max_rel_err": err, "max_abs_err": abs_err}
+        require(err <= DRAWS_TOL, f"draws {growth} S={s}: {err}")
+    rows = min(dk.CHUNK_ROWS, n_ser)
+    meta_c = state.meta._replace(**{
+        f: np.asarray(v)[:rows] for f, v in state.meta._asdict().items()})
+    pdata = prepare_predict_data(batch.ds, meta_c, cfg, device,
+                                 regressors=batch.regressors[:rows])
+    samples_c = state.samples[:, :rows].contiguous()
+    sc_c = torch.as_tensor(meta_c.y_scale, dtype=torch.float32,
+                           device=device)
+    fl_c = torch.as_tensor(meta_c.floor, dtype=torch.float32, device=device)
+    gen = torch.Generator(device=device).manual_seed(23)
+    variates = bands_k.sample_draws((n_s, rows, n_days), gen, device)
+    err, abs_err, plain_chunk_s = _draws_vs_plain(cfg, samples_c, pdata,
+                                                  sc_c, fl_c, variates)
+    require(err <= DRAWS_TOL, f"draws at the path's chunk: {err}")
+    del variates
+    k6 = {"name": "draws", "route": "cuda",
+          "source": "tsspark_tpu_torch/csrc/draws.cu",
+          "replaces": "tsspark_tpu/models/prophet/predict.py:209",
+          "launches": launches["draws"],
+          "max_abs_err": abs_err, "max_rel_err": err,
+          "tolerance": f"|k-p|/(y_scale+|p|) <= {DRAWS_TOL} (given draws)",
+          "ms": cuda_ms(lambda: dk.draws(samples_c, pdata, sc_c, fl_c, cfg,
+                                         seed=1), iters=10),
+          "plain_ms": 1e3 * plain_chunk_s,
+          "plain_ms_note": "the plain version on given draws, one call",
+          **draws_bound_ms(rows, n_days, n_s, cfg),
+          # No single PyTorch call computes the posterior predictive; the
+          # quantiles alone (torch.quantile) refuse the chunk's 3e8
+          # samples (past 2**24).
+          "library_ms": None, "shape": [rows, n_days, n_s],
+          "small_shapes": small,
+          "row_invariance": draws_row_invariance(samples_c, pdata, sc_c,
+                                                 fl_c, cfg, device),
+          "whole_batch": {"shape": [n_ser, n_days, n_s],
+                          **draws_bound_ms(n_ser, n_days, n_s, cfg)}}
+    del pdata, samples_c
+
+    # Where a full-width sampler's time goes: eight transitions from the
+    # MAP point under the profiler.
+    data_np, _ = design.prepare_fit_data(ds_fit, y_fit, cfg, mask=m_fit,
+                                         regressors=r_fit)
+    data = design.fitdata_to_device(data_np, device)
+    del data_np
+    theta_map = state.map_state.theta.to(device).contiguous()
+    short = McmcConfig(num_warmup=4, num_samples=4)
+    gen = torch.Generator(device=device).manual_seed(3)
+    torch.cuda.synchronize()
+    hmc.timing.reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        mcmc_core(data, theta_map, gen, cfg, short)
+        torch.cuda.synchronize()
+        traced = time.perf_counter() - t1
+    top = _device_events(prof)
+    busy_ms = sum(ms for _, ms in top)
+    profile_out = {
+        "phase": "mcmc_profile", "rows": n_ser,
+        "leapfrogs": hmc.timing.leapfrogs, "traced_wall_s": traced,
+        "device_busy_ms": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / 1e3 / traced,
+        "wall_ms_per_leapfrog": 1e3 * traced / max(hmc.timing.leapfrogs, 1),
+        "top_device_ms": [(k[:60], ms) for k, ms in top[:6]],
+    }
+    emit(profile_out)
+    k6["sampler"] = {"profile": profile_out, "subset": sampler}
+    return {"out": out, "kernel": k6}
 
 
 def _device_events(prof):
@@ -1708,7 +2261,7 @@ def logistic_kernels(fit4, device) -> list:
     return [k3, k1, k2]
 
 
-def phase_kernels(serve, fwd, bnd, fit, fit4, device) -> dict:
+def phase_kernels(serve, fwd, bnd, fit, fit4, mcmc, device) -> dict:
     """Each kernel at the main path's largest launch shapes, on the main
     path's inputs: held against its plain version, then timed."""
     import torch
@@ -1808,7 +2361,9 @@ def phase_kernels(serve, fwd, bnd, fit, fit4, device) -> dict:
                       "torch_quantile_ms": bnd["torch_quantile_ms"]}}
     k1["launches_fit"] = fit["out"]["launches"]["forward"]
     kernels = [k1, k2] + fit_kernels(fit, device) \
-        + logistic_kernels(fit4, device)
+        + logistic_kernels(fit4, device) + [mcmc["kernel"]]
+    # K3's gradient launches on the MCMC path (its MAP fit and sampler).
+    kernels[2]["launches_mcmc_path"] = mcmc["out"]["launches"]["loss_grad"]
     for k in kernels:
         k["max_err"] = k["max_abs_err"]
     return {"kernels": kernels}
@@ -2010,15 +2565,32 @@ def main(argv=None) -> int:
         phases_s[name] = time.perf_counter() - t0
         return out
 
-    fwd = timed("forward", phase_forward, rng, device)
-    bnd = timed("bands", phase_bands, rng, device)
-    timed("loss", phase_loss, rng, device)
-    timed("fan", phase_fan, rng, device)
-    serve = timed("serve", phase_serve, args, device)
-    fit = timed("fit", phase_fit, device)
-    fit4 = timed("fit_logistic", phase_fit_logistic, device)
-    kernels = timed("kernels", phase_kernels, serve, fwd, bnd, fit, fit4,
-                    device)
+    from tsspark_tpu_torch.data.datasets import m5_like, wiki_logistic_like
+
+    t0 = time.perf_counter()
+    batch3 = m5_like(FULL_SERIES, FULL_DAYS, seed=2)
+    gen3_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batch4 = wiki_logistic_like(C4_SERIES, C4_DAYS)
+    gen4_s = time.perf_counter() - t0
+    phases_s["data"] = gen3_s + gen4_s
+    parity = ParityFits(batch3, batch4)
+    finished = False
+    try:
+        fwd = timed("forward", phase_forward, rng, device)
+        bnd = timed("bands", phase_bands, rng, device)
+        timed("loss", phase_loss, rng, device)
+        timed("fan", phase_fan, rng, device)
+        serve = timed("serve", phase_serve, args, device)
+        fit = timed("fit", phase_fit, device, batch3, gen3_s, parity)
+        mcmc = timed("mcmc", phase_mcmc, fit, device)
+        fit4 = timed("fit_logistic", phase_fit_logistic, device, batch4,
+                     gen4_s, parity)
+        kernels = timed("kernels", phase_kernels, serve, fwd, bnd, fit,
+                        fit4, mcmc, device)
+        finished = True
+    finally:
+        parity.close(finished)
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start,
           "phases_s": phases_s})
     emit(kernels)

@@ -50,6 +50,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "tsspark_tpu_torch.kernels.bands",
                 "tsspark_tpu_torch.kernels.loss",
                 "tsspark_tpu_torch.kernels.fan",
+                "tsspark_tpu_torch.kernels.draws",
+                "tsspark_tpu_torch.ops.hmc",
                 "tsspark_tpu_torch.models.prophet.loss",
                 "tsspark_tpu_torch.models.prophet.init",
                 "tsspark_tpu_torch.ops.lbfgs",
@@ -147,6 +149,27 @@ def test_cpu_wrappers_count_no_launches():
         state, 18100.0 + np.arange(5.0), num_samples=16)
     assert out["yhat_lower"].shape == (b, 5)
     assert (fk.launches, bk.launches) == (f0, b0)
+
+
+def test_cpu_mcmc_counts_no_launches():
+    """fit_mcmc and predict_mcmc on the CPU run K3's and K6's plain
+    versions: no kernel launch is counted."""
+    from tsspark_tpu_torch.config import McmcConfig, ProphetConfig
+    from tsspark_tpu_torch.kernels import draws as dk
+    from tsspark_tpu_torch.kernels import loss as lk
+    from tsspark_tpu_torch.models.prophet.model import ProphetModel
+
+    cfg = ProphetConfig(seasonalities=(), n_changepoints=2)
+    rng = np.random.default_rng(1)
+    ds = np.arange(40.0)
+    y = 3.0 + 0.1 * ds + rng.normal(0, 0.2, (2, 40))
+    before = (lk.launches, dk.launches)
+    model = ProphetModel(cfg, device="cpu")
+    state = model.fit_mcmc(ds, y, mcmc_config=McmcConfig(
+        num_samples=4, num_warmup=4, num_leapfrog=2))
+    out = model.predict_mcmc(state, 40.0 + np.arange(5.0))
+    assert out["yhat_lower"].shape == (2, 5)
+    assert (lk.launches, dk.launches) == before
 
 
 def test_chip_smoke_alone_in_a_directory_fails(tmp_path):

@@ -166,20 +166,16 @@ __global__ void __launch_bounds__(kPipeThreads, kFs <= 24 ? 2 : 1)
       const float mf = in ? mm[f] : 0.0f;
       const float b0 = in ? r_th[3 + ncp + f] : 0.0f;
       const float bd = in ? r_dr[3 + ncp + f] : 0.0f;
-      r_ba0[f] = b0 * (1.0f - mf);
-      r_bm0[f] = b0 * mf;
-      r_bad[f] = bd * (1.0f - mf);
-      r_bmd[f] = bd * mf;
+      split_coefficient(b0, mf, r_ba0[f], r_bm0[f]);
+      split_coefficient(bd, mf, r_bad[f], r_bmd[f]);
     }
     for (int r = lane; r < R4; r += 32) {
       const bool in = r < R;
       const float mf = in ? mm[Fs + r] : 0.0f;
       const float b0 = in ? r_th[3 + ncp + Fs + r] : 0.0f;
       const float bd = in ? r_dr[3 + ncp + Fs + r] : 0.0f;
-      r_bar0[r] = b0 * (1.0f - mf);
-      r_bmr0[r] = b0 * mf;
-      r_bard[r] = bd * (1.0f - mf);
-      r_bmrd[r] = bd * mf;
+      split_coefficient(b0, mf, r_bar0[r], r_bmr0[r]);
+      split_coefficient(bd, mf, r_bard[r], r_bmrd[r]);
     }
     if (lane == 0) linear_prefix(r_s, r_th + 3, r_D0, r_E0, ncp);
     if (lane == 1) linear_prefix(r_s, r_dr + 3, r_Dd, r_Ed, ncp);

@@ -203,8 +203,7 @@ __global__ void __launch_bounds__(kThreads, C == 1 ? kMinBlocksOneCell
     for (int f = lane; f < F; f += 32) {
       const float be = th[3 + ncp + f];
       const float mf = mm[f];
-      r_ba[f] = be * (1.0f - mf);
-      r_bm[f] = be * mf;
+      split_coefficient(be, mf, r_ba[f], r_bm[f]);
     }
   }
   __syncthreads();

@@ -245,8 +245,7 @@ __global__ void __launch_bounds__(kPipeThreads, min_blocks(kGrad, kFs))
       const bool in = f < Fs;
       const float be = in ? th[3 + ncp + f] : 0.0f;
       const float mf = in ? mm[f] : 0.0f;
-      r_ba[f] = be * (1.0f - mf);
-      r_bm[f] = be * mf;
+      split_coefficient(be, mf, r_ba[f], r_bm[f]);
       r_om[f] = in ? 1.0f - mf : 0.0f;
       r_mm[f] = mf;
     }
@@ -254,8 +253,7 @@ __global__ void __launch_bounds__(kPipeThreads, min_blocks(kGrad, kFs))
       const bool in = r < R;
       const float be = in ? th[3 + ncp + Fs + r] : 0.0f;
       const float mf = in ? mm[Fs + r] : 0.0f;
-      r_bar[r] = be * (1.0f - mf);
-      r_bmr[r] = be * mf;
+      split_coefficient(be, mf, r_bar[r], r_bmr[r]);
       r_omr[r] = in ? 1.0f - mf : 0.0f;
       r_mmr[r] = mf;
     }

@@ -1,5 +1,6 @@
 // Device functions shared by the port's model kernels: K1 `forward`
-// (forward.cu), K3 `loss` (loss.cu) and K4 `fan` (fan.cu).
+// (forward.cu), K3 `loss` (loss.cu), K4 `fan` (fan.cu) and K6 `draws`
+// (draws.cu).
 //
 // One definition of the trend, the feature totals, the noise floor and the
 // priors, so the served forecast, the fit's objective and its line-search
@@ -13,7 +14,7 @@
 //   k t + m + sum_{j<n} delta_j (t - s_j) = (k + D_n) t + (m - E_n),
 //   D_n = delta_0 + ... + delta_{n-1},  E_n = delta_0 s_0 + ... ,
 // so a cell costs O(1) once n is known: K1, K3 and K4 carry it along each
-// lane's ascending walk over T.  D and E are summed in changepoint order.
+// lane's ascending walk over T, K6 a sample's D_n and E_n along its row.  D and E are summed in changepoint order.
 // The feature totals run in feature order, the order of the plain PyTorch
 // versions (design._component): the Fs seasonal columns, then the R
 // regressor columns, then the two added.
@@ -52,6 +53,13 @@ __device__ __forceinline__ float safe_div(float a, float b) {
 
 // D_n and E_n of the prefix form, n = 0..ncp (D, E hold ncp + 1 floats),
 // summed in changepoint order.  Sequential; one thread runs it.
+// One step of the prefix sums: (d, e) = (D_j, E_j) -> (D_{j+1}, E_{j+1}).
+__device__ __forceinline__ void linear_prefix_step(float& d, float& e,
+                                                   float delta_j, float s_j) {
+  d = d + delta_j;
+  e = e + delta_j * s_j;
+}
+
 __device__ __forceinline__ void linear_prefix(const float* s,
                                               const float* delta, float* D,
                                               float* E, int ncp) {
@@ -59,8 +67,7 @@ __device__ __forceinline__ void linear_prefix(const float* s,
   D[0] = 0.0f;
   E[0] = 0.0f;
   for (int j = 0; j < ncp; ++j) {
-    d = d + delta[j];
-    e = e + delta[j] * s[j];
+    linear_prefix_step(d, e, delta[j], s[j]);
     D[j + 1] = d;
     E[j + 1] = e;
   }
@@ -162,6 +169,15 @@ __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
+// The logistic trend from the active changepoints' sums of rate changes
+// (rate = D_n) and of offsets (off = G_n):
+// cap * sigmoid((k + rate) * (t - (m + off))).
+__device__ __forceinline__ float logistic_at(float tv, float capv, float k,
+                                             float m, float rate, float off) {
+  const float x = (k + rate) * (tv - (m + off));
+  return capv * sigmoid(x);
+}
+
 // cap * sigmoid((k + A delta) * (t - (m + A gamma))), A = 1[t >= s_j].
 __device__ __forceinline__ float logistic_trend(float tv, float capv, float k,
                                                 float m, const float* s,
@@ -174,8 +190,15 @@ __device__ __forceinline__ float logistic_trend(float tv, float capv, float k,
       off = off + gamma[j];
     }
   }
-  const float x = (k + rate) * (tv - (m + off));
-  return capv * sigmoid(x);
+  return logistic_at(tv, capv, k, m, rate, off);
+}
+
+// A feature's coefficient beta split by its multiplicative mask mf into the
+// additive and the multiplicative total's coefficients.
+__device__ __forceinline__ void split_coefficient(float beta, float mf,
+                                                  float& a, float& m) {
+  a = beta * (1.0f - mf);
+  m = beta * mf;
 }
 
 // Feature totals of C cells of one row at once, 32 steps apart (a lane's
@@ -233,6 +256,36 @@ __device__ __forceinline__ void feature_totals(const float* x0, int Fs,
     add[q] = add_s[q] + add_r[q];
     mult[q] = mult_s[q] + mult_r[q];
   }
+}
+
+// Feature totals of ONE cell with each feature's coefficients fetched as
+// it is summed (K6: every sample of a row its own coefficients):
+// coef(f, a, m) gives feature f's additive and multiplicative
+// coefficients, xs[f] and xr[r] are the cell's seasonal and regressor
+// values.  The order of feature_totals: the Fs seasonal columns, then the
+// R regressor columns, then the two added.
+template <class Coef>
+__device__ __forceinline__ void feature_totals_cell(const float* xs, int Fs,
+                                                    const float* xr, int R,
+                                                    Coef coef, float& add,
+                                                    float& mult) {
+  float add_s = 0.0f, mult_s = 0.0f, add_r = 0.0f, mult_r = 0.0f;
+  for (int f = 0; f < Fs; ++f) {
+    float a, m;
+    coef(f, a, m);
+    const float x = xs[f];
+    add_s = add_s + a * x;
+    mult_s = mult_s + m * x;
+  }
+  for (int r = 0; r < R; ++r) {
+    float a, m;
+    coef(Fs + r, a, m);
+    const float x = xr[r];
+    add_r = add_r + a * x;
+    mult_r = mult_r + m * x;
+  }
+  add = add_s + add_r;
+  mult = mult_s + mult_r;
 }
 
 __device__ __forceinline__ float sigma_of(float log_sigma) {

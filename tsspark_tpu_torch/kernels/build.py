@@ -78,6 +78,19 @@ SIGNATURES = {
         _i, _i, _i, _i, _i, _i,                    # B T P ncp S growth
         _c,                                        # stream
     ],
+    "tsspark_draws": [
+        _c,                                        # theta_t (B, P, S)
+        _c, _c, _c,                                # t s cap (or null)
+        _c, _ll, _c, _c,                           # xs xs_bstride xr mm
+        _c, _c, _c, _c,                            # cp lam y_scale floor
+        _c, _c, _c,                                # given draws (or null)
+        _c, _ll,                                   # Philox row ids, row0
+        _ull, _f, _f,                              # seed q_lo q_hi
+        _c, _c, _c, _c, _c, _c, _c, _c,            # outputs (B, T)
+        _c,                                        # samples (or null)
+        _i, _i, _i, _i, _i, _i, _i, _i,            # B T P ncp Fs R S growth
+        _c,                                        # stream
+    ],
 }
 
 _lock = threading.Lock()

@@ -271,9 +271,13 @@ def packed_to_device(packed: PackedFitData, device) -> PackedFitData:
 
 
 def fitdata_to_device(data: FitData, device) -> FitData:
-    """Copy a host numpy FitData batch to ``device`` as float32 tensors."""
+    """A FitData batch (host numpy leaves, or tensors) on ``device`` as
+    contiguous float32 tensors; tensors already there are kept as they
+    are."""
     return FitData(*(
-        torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+        a.to(device, torch.float32).contiguous()
+        if isinstance(a, torch.Tensor)
+        else torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
         for a in data
     ))
 

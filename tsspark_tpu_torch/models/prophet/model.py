@@ -6,7 +6,10 @@ in numpy, one copy of the packed batch to the device, then the ridge
 init, the curvature metric and the batched L-BFGS solve as torch ops on
 the device, whose objective and line-search fan are the K3 and K4
 kernels on the card.  ``predict`` and ``components`` run the K1/K2
-forecast path.  Everything runs on the card unless ``device="cpu"``.
+forecast path.  ``fit_mcmc`` follows the MAP fit with one HMC chain per
+series (``ops/hmc.py``, its log density K3's), ``predict_mcmc`` forecasts
+from the draws through K6.  Everything runs on the card unless
+``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from tsspark_tpu_torch.config import ProphetConfig, SolverConfig
+from tsspark_tpu_torch.config import McmcConfig, ProphetConfig, SolverConfig
 from tsspark_tpu_torch.device import resolve_device
 from tsspark_tpu_torch.models.prophet import predict as predict_mod
 from tsspark_tpu_torch.models.prophet.design import (
@@ -41,7 +44,7 @@ from tsspark_tpu_torch.models.prophet.loss import (
     value_and_grad_batch,
     value_batch,
 )
-from tsspark_tpu_torch.ops import lbfgs
+from tsspark_tpu_torch.ops import hmc, lbfgs
 from tsspark_tpu_torch.parallel.sharding import compacted_width
 from tsspark_tpu_torch.utils.spans import StageClock
 
@@ -313,6 +316,78 @@ def fitstate_from_packed(theta, stats, meta: ScalingMeta) -> "FitState":
     )
 
 
+class McmcState(NamedTuple):
+    """Full-posterior fit: (S, B, P) draws + scaling metadata + diagnostics.
+
+    ``samples`` is a float32 tensor on the model's device; ``map_state``
+    is the MAP fit the chains were initialized from (the point-estimate
+    surface for ``predict`` and ``components``); the diagnostics are host
+    numpy arrays: ``accept_rate`` (B,), ``step_size`` (B,),
+    ``divergences`` (B,) and per-(series, parameter) split-R-hat and bulk
+    ESS (``hmc.split_rhat_ess``), the convergence gate Stan users read off
+    its summary.
+    """
+
+    samples: torch.Tensor
+    meta: ScalingMeta
+    accept_rate: np.ndarray
+    step_size: np.ndarray
+    divergences: np.ndarray
+    map_state: FitState
+    rhat: Optional[np.ndarray] = None   # (B, P)
+    ess: Optional[np.ndarray] = None    # (B, P)
+
+
+def mcmc_logdensity(data: FitData, config: ProphetConfig):
+    """The posterior's log density and its gradient on (B, P) parameters:
+    the negative MAP loss (K3's gradient mode on the card) plus the
+    log-Jacobian of the sigma = exp(log_sigma) transform (+log_sigma,
+    d/dlog_sigma = 1), which sampling needs and MAP optimization omits
+    (Stan's optimize vs. sample make the same distinction)."""
+
+    def logdensity(th: torch.Tensor):
+        f, g = value_and_grad_batch(th, data, config)
+        lp = -f + th[:, 2]
+        grad = -g
+        grad[:, 2] += 1.0
+        return lp, grad
+
+    return logdensity
+
+
+def mcmc_core(
+    data: FitData,
+    theta0: torch.Tensor,
+    generator: torch.Generator,
+    config: ProphetConfig,
+    mcmc_config: McmcConfig,
+) -> hmc.HmcResult:
+    """The batched posterior sample: one HMC chain per series, from the
+    MAP point ``theta0`` jittered by ``init_jitter`` * N(0, 1) draws of
+    ``generator`` (on the data's device), which then drives the sampler.
+    """
+    theta0 = theta0.to(data.y.device, torch.float32)
+    jitter = mcmc_config.init_jitter * torch.randn(
+        theta0.shape, generator=generator, device=theta0.device)
+    return hmc.sample(mcmc_logdensity(data, config), theta0 + jitter,
+                      generator, mcmc_config)
+
+
+def thin_indices(n_draws: int, max_draws: int) -> np.ndarray:
+    """Indices of ``max_draws`` draws spread evenly over ``n_draws``, as
+    the JAX package takes them: ``linspace(0, n_draws - 1, max_draws)``
+    in float32 (i / (max_draws - 1) scaled by n_draws - 1, the last one
+    exactly n_draws - 1), truncated to integers.  Float64 could round an
+    index across a boundary the other way."""
+    if max_draws == 1:
+        return np.zeros(1, np.int64)
+    div = np.float32(max_draws - 1)
+    step = np.arange(max_draws - 1, dtype=np.float32) / div
+    pos = np.float32(n_draws - 1) * step
+    pos = np.concatenate([pos, np.float32([n_draws - 1])])
+    return pos.astype(np.int64)
+
+
 class ProphetModel:
     """Batched Prophet-style forecaster over fitted parameters.
 
@@ -467,6 +542,57 @@ class ProphetModel:
                 status=_host(res.status),
             )
 
+    def fit_mcmc(
+        self,
+        ds: np.ndarray,
+        y: np.ndarray,
+        mask: Optional[np.ndarray] = None,
+        cap: Optional[np.ndarray] = None,
+        floor: Optional[np.ndarray] = None,
+        regressors: Optional[np.ndarray] = None,
+        mcmc_config: McmcConfig = McmcConfig(),
+        seed: int = 0,
+        init=None,
+        conditions=None,
+    ) -> McmcState:
+        """Full-posterior fit: MAP solve, then one HMC chain per series.
+
+        The batched analog of upstream Prophet's ``mcmc_samples=N`` (Stan
+        NUTS): intervals from :meth:`predict_mcmc` carry seasonality and
+        regressor uncertainty, which the MAP path's trend-only simulation
+        cannot.  The whole batch is prepared, copied to the device once,
+        fitted (no rescue pass) and sampled there; ``seed`` keys the
+        chains' generator.  ``self.stages`` adds "mcmc" (the sampler, on
+        the device) and "rhat" (the split-R-hat / ESS summary, on the
+        host) to the fit's stages.
+        """
+        with self.stages.span("prep"):
+            data, meta = prepare_fit_data(
+                ds, y, self.config, mask=mask, cap=cap, floor=floor,
+                regressors=regressors, conditions=conditions,
+            )
+        with self.stages.span("to_device"):
+            data = fitdata_to_device(data, self.device)
+        map_state = self._fit_prepared(data, meta, init)
+        with self.stages.span("mcmc"):
+            gen = torch.Generator(device=self.device).manual_seed(int(seed))
+            res = mcmc_core(data, self._theta(map_state), gen, self.config,
+                            mcmc_config)
+            _sync(self.device)
+        del data
+        with self.stages.span("rhat"):
+            rhat, ess = hmc.split_rhat_ess(res.samples)
+        return McmcState(
+            samples=res.samples,
+            meta=meta,
+            accept_rate=_host(res.accept_rate),
+            step_size=_host(res.step_size),
+            divergences=_host(res.divergences),
+            map_state=map_state,
+            rhat=rhat,
+            ess=ess,
+        )
+
     def _theta(self, state: FitState) -> torch.Tensor:
         return torch.as_tensor(state.theta).to(self.device, torch.float32)
 
@@ -492,6 +618,37 @@ class ProphetModel:
             return predict_mod.forecast(
                 theta, data, state.meta, self.config, seed=seed,
                 num_samples=num_samples, return_samples=return_samples,
+            )
+
+    def predict_mcmc(
+        self,
+        state: McmcState,
+        ds: np.ndarray,
+        cap: Optional[np.ndarray] = None,
+        regressors: Optional[np.ndarray] = None,
+        seed: int = 0,
+        max_draws: Optional[int] = None,
+        conditions=None,
+        return_samples: bool = False,
+    ) -> Dict[str, torch.Tensor]:
+        """Posterior-predictive forecast from the MCMC draws
+        (``predict.forecast_from_draws``), at most ``max_draws`` of them
+        spread evenly over the chain (``thin_indices``)."""
+        with self.stages.span("prep"):
+            data = predict_mod.prepare_predict_data(
+                ds, state.meta, self.config, self.device, cap=cap,
+                regressors=regressors, conditions=conditions,
+            )
+            samples = torch.as_tensor(state.samples).to(self.device,
+                                                        torch.float32)
+            n_s = int(samples.shape[0])
+            if max_draws is not None and n_s > max_draws:
+                idx = torch.from_numpy(thin_indices(n_s, max_draws))
+                samples = samples[idx.to(self.device)]
+        with self.stages.span("forecast"):
+            return predict_mod.forecast_from_draws(
+                samples, data, state.meta, self.config, seed=seed,
+                return_samples=return_samples,
             )
 
     def components(self, state: FitState, ds, cap=None, regressors=None,

@@ -8,9 +8,11 @@ Gaussian observation noise, then taking quantiles over samples.
 
 On a CUDA tensor ``forecast`` is two kernel launches: the forward model
 (``kernels.forward``) and, when sampling, the interval kernel
-(``kernels.bands``), which never stores the (S, B, T) samples.  On a CPU
-tensor both run their plain PyTorch versions (``_simulate_trends`` below
-is the plain trend simulation).
+(``kernels.bands``), which never stores the (S, B, T) samples;
+``forecast_from_draws`` (the posterior predictive of MCMC draws) is the
+posterior-draws kernel (``kernels.draws``).  On a CPU tensor each runs
+its plain PyTorch version (``_simulate_trends`` below is the plain trend
+simulation).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 
 from tsspark_tpu_torch.config import ProphetConfig
 from tsspark_tpu_torch.kernels import bands as bands_kernel
+from tsspark_tpu_torch.kernels import draws as draws_kernel
 from tsspark_tpu_torch.kernels import forward as forward_kernel
 from tsspark_tpu_torch.models.prophet import seasonality, trend
 from tsspark_tpu_torch.models.prophet.design import (
@@ -139,29 +142,43 @@ def component_breakdown(theta: torch.Tensor, data: FitData,
     return out
 
 
-def sample_rates(p, data: FitData, config: ProphetConfig
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(B,) changepoint probability of a future grid step (the mean
-    spacing of the row's future steps times n_cp, clipped to [0, 1]: the
-    history's changepoint frequency) and (B,) Laplace scale of its delta
-    (the mean |delta| of the fit, Prophet's lambda, floored at 1e-8)."""
+def step_cp_prob(data: FitData, config: ProphetConfig) -> torch.Tensor:
+    """(B,) changepoint probability of a future grid step: the mean
+    spacing of the row's future steps times n_cp, clipped to [0, 1] (the
+    history's changepoint frequency)."""
     future = (data.t > 1.0).to(data.t.dtype)  # (B, T)
     dt = torch.diff(data.t, dim=-1, prepend=data.t[..., :1])
     mean_dt = (dt * future).sum(-1) / torch.clamp(future.sum(-1), min=1.0)
-    cp_prob = torch.clamp(config.n_changepoints * mean_dt, 0.0, 1.0)
+    return torch.clamp(config.n_changepoints * mean_dt, 0.0, 1.0)
+
+
+def laplace_scale(delta: torch.Tensor, config: ProphetConfig
+                  ) -> torch.Tensor:
+    """(...,) Laplace scale of a simulated delta from fitted deltas
+    (..., n_cp): their mean |delta| (Prophet's lambda), floored at 1e-8."""
     if config.n_changepoints:
-        lam = p.delta.abs().mean(-1)
+        lam = delta.abs().mean(-1)
     else:
-        lam = torch.zeros_like(data.t[:, 0])
-    return cp_prob, torch.clamp(lam, min=1e-8)
+        lam = delta.new_zeros(delta.shape[:-1])
+    return torch.clamp(lam, min=1e-8)
+
+
+def sample_rates(p, data: FitData, config: ProphetConfig
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B,) changepoint probability of a future grid step
+    (``step_cp_prob``) and (B,) Laplace scale of its delta
+    (``laplace_scale`` of the fit's deltas)."""
+    return step_cp_prob(data, config), laplace_scale(p.delta, config)
 
 
 def sampled_deltas(p, data: FitData, config: ProphetConfig,
-                   u: torch.Tensor, lap: torch.Tensor) -> torch.Tensor:
+                   u: torch.Tensor, lap: torch.Tensor,
+                   rates=None) -> torch.Tensor:
     """(S, B, T) rate changes of the simulated future changepoints, one
     possible at every future grid step, from the (S, B, T) uniform and
-    standard-Laplace draws."""
-    cp_prob, lam = sample_rates(p, data, config)
+    standard-Laplace draws; ``rates``: (cp_prob, lam) in place of
+    ``sample_rates``'."""
+    cp_prob, lam = sample_rates(p, data, config) if rates is None else rates
     future = (data.t > 1.0).to(data.t.dtype)
     ind = (u < cp_prob[None, :, None]).to(data.t.dtype) * future[None]
     return ind * (lap * lam[None, :, None])
@@ -170,14 +187,16 @@ def sampled_deltas(p, data: FitData, config: ProphetConfig,
 def _simulate_trends(theta: torch.Tensor, data: FitData,
                      config: ProphetConfig, u: torch.Tensor,
                      lap: torch.Tensor,
-                     det: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     det: Optional[torch.Tensor] = None,
+                     rates=None) -> torch.Tensor:
     """(S, B, T) scaled trend sample paths with simulated future
     changepoints, from the given (S, B, T) uniform and standard-Laplace
-    draws (the plain version of the interval kernel's simulation)."""
+    draws (the plain version of the interval kernels' simulation);
+    ``rates`` as ``sampled_deltas`` takes them."""
     p = unpack(theta, config)
     num_samples = u.shape[0]
     b, t_len = data.t.shape
-    new_delta = sampled_deltas(p, data, config, u, lap)
+    new_delta = sampled_deltas(p, data, config, u, lap, rates)
 
     if det is None:
         det = trend_fn(p, data, config)  # (B, T) deterministic trend
@@ -248,6 +267,41 @@ def _logistic_paths(p, data: FitData, new_delta: torch.Tensor
                                    off_det[:, c])
     return torch.stack([data.cap * torch.sigmoid(rate[i] * (t - off[i]))
                         for i in range(n_s)])
+
+
+def forecast_from_draws(
+    samples: torch.Tensor,
+    data: FitData,
+    meta: ScalingMeta,
+    config: ProphetConfig,
+    seed: int = 0,
+    return_samples: bool = False,
+    variates=None,
+) -> Dict[str, torch.Tensor]:
+    """Posterior-predictive forecast from (S, B, P) MCMC draws.
+
+    Unlike the MAP path (:func:`forecast`), every component (trend,
+    seasonality, regressors, observation noise) carries posterior
+    uncertainty: each draw contributes one full trajectory (with its own
+    simulated future changepoints), and intervals are quantiles across
+    draws.  ``yhat``, ``trend``, ``additive`` and ``multiplicative`` are
+    the means over draws of each draw's deterministic values; the bands
+    are quantiles of the sampled yhat and trend.  All (B, T) in data
+    units, plus "yhat_samples" (S, B, T) with ``return_samples``.
+
+    On a CUDA tensor one launch of the posterior-draws kernel
+    (``kernels.draws``) a chunk of rows, which never stores the (S, B, T)
+    trajectories; on a CPU tensor its plain version.  ``seed`` keys the
+    variates unless ``variates`` gives them: (u, laplace, normal), each
+    (S, B, T).
+    """
+    dev = samples.device
+    scale = torch.as_tensor(meta.y_scale, dtype=torch.float32, device=dev)
+    floor = torch.as_tensor(meta.floor, dtype=torch.float32, device=dev)
+    return draws_kernel.draws(
+        samples.contiguous(), data, scale, floor, config, seed=seed,
+        variates=variates, return_samples=return_samples,
+    )
 
 
 def forecast(
