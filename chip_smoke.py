@@ -32,7 +32,10 @@ the script exits non-zero without printing the final line:
    and logistic growth (rates clear of 0, ``logistic_theta``, and on
    config 4 also near 0, ``rates_near_zero``), additive and
    multiplicative features, shared and per-series seasonal matrices,
-   with and without regressors, a stack of trial points.
+   with and without regressors, a stack of trial points, and a 21-trial
+   stack (the trial-stack layout) whose every trial holds the bits of
+   its launch alone; near 0 also K3's and the plain float32 gradient's
+   distances from the plain version in float64.
 5. fan     — kernel K4 against its plain version on the same cases
    (linear growth, a 20-rung ladder).
 6. serve   — the serving path at full width: ``m5_like(30490, 1941)``
@@ -71,22 +74,26 @@ the script exits non-zero without printing the final line:
    points far from the MAP; the sampler on 64 series against the same
    sampler driven by the plain loss (other seeds; z rule, ``Z_LIMIT``);
    K6 against its plain version on given draws (small shapes of linear,
-   flat and logistic growth; the path's first 512-row chunk) and its
-   rows bitwise invariant; eight full-width transitions under the
+   flat and logistic growth, both thread caps, one draw, no feature and
+   more than 32; the path's first 512-row chunk) and its rows bitwise
+   invariant; eight full-width transitions under the
    profiler (the card's idle share).
 9. fit_logistic — logistic growth's path: eval config 4 at 8,192
    series (``config4_wiki_logistic(scale=1024)``'s batch: 1,200 days,
    capacity, weekly multiplicative order 3, 15 changepoints,
    ``SolverConfig(max_iters=200)``) fitted on its first 1,080 days
    through ``CudaBackend.fit`` (K3's logistic branch, its line search a
-   stacked value pass), then ``predict(..., cap=, num_samples=256)``
+   stacked value pass through K3's trial-stack layout, whose own launch
+   count must be non-zero), then ``predict(..., cap=, num_samples=256)``
    over all 1,200 days (K1, K2's logistic branch).  Launch counts set to
    0 just before, read just after; stage split, status counts, sMAPE on
    train and holdout, bands ordered; loss parity on 64 series against
    the scipy oracle and the plain CPU fit (``LIMITS4``).
 10. kernels — each kernel at its main path's shapes, on the main path's
    inputs (K3 and K4 at 8192x1746 on config 3's first chunk; K3's
-   logistic branch at 8192x1080 and on a 21 x 8192 trial stack, K1's and
+   logistic branch at 8192x1080; K3's trial-stack layout on config 4's
+   21 x 8192 line-search stack and on one of flat growth over config 3's
+   chunk, each trial the bits of its launch alone; K1's and
    K2's (S=256) on the forecast's 512-row chunks of 1,200 steps and over
    all 8,192 rows, on config 4's), held against its plain version, and
    its time against its bound, its plain version and (where one exists)
@@ -881,8 +888,30 @@ def _model_cases(growths):
     return out
 
 
+def f64_distance(theta, data, cfg, grads) -> dict:
+    """Per row, max |g - g64| / (1 + max |g64|) of each named float32
+    gradient in ``grads``, g64 the plain version's in float64: the median
+    and the worst row."""
+    import torch
+
+    from tsspark_tpu_torch.kernels import loss as lk
+
+    data64 = data._replace(**{f: getattr(data, f).double()
+                              for f in data._fields})
+    g64 = lk.loss_plain(theta.double(), data64, cfg)[1]
+    scale = 1.0 + g64.abs().amax(-1)
+    out = {}
+    for name, g in grads.items():
+        d = ((g.double() - g64).abs().amax(-1) / scale).cpu()
+        out[name] = {"median": float(d.median()), "max": float(d.max()),
+                     "max_abs": float((g.double() - g64).abs().max())}
+    torch.cuda.synchronize()
+    return out
+
+
 def phase_loss(rng, device) -> dict:
-    """K3 against its plain version on synthetic fit data."""
+    """K3 against its plain version on synthetic fit data; at rates near
+    0, both against the plain version in float64 (ROADMAP Queue 3)."""
     import torch
 
     from tsspark_tpu_torch.eval.configs import CONFIG4
@@ -902,10 +931,20 @@ def phase_loss(rng, device) -> dict:
         f_k, g_k = lk.loss(theta, data, cfg)
         f_p, g_p = lk.loss_plain(theta, data, cfg)
         v_k, _ = lk.loss(theta, data, cfg, grad=False)
-        # A stack of 3 trial points on the same data rows.
+        # A stack of 3 trial points on the same data rows, and one of 21
+        # (the line search's) whose every trial holds its row-layout bits.
         stack = torch.cat([theta, theta * 1.01, theta * 0.99]).contiguous()
         s_k, _ = lk.loss(stack, data, cfg, grad=False)
         s_p, _ = lk.loss_plain(stack, data, cfg, grad=False)
+        trials = [theta * (1.0 + 0.005 * n) for n in range(21)]
+        s21, _ = lk.loss(torch.cat(trials).contiguous(), data, cfg,
+                         grad=False)
+        require(all(torch.equal(s21[n * b:(n + 1) * b],
+                                lk.loss(p.contiguous(), data, cfg,
+                                        grad=False)[0])
+                    for n, p in enumerate(trials)),
+                f"loss {name}: a 21-trial stack differs from its trials "
+                f"launched alone")
         torch.cuda.synchronize()
         gaps = {
             "f": _gap(f_k, f_p, f_scale, t_len),
@@ -919,7 +958,12 @@ def phase_loss(rng, device) -> dict:
         require(max(gaps.values()) <= GAP_TOL, f"loss {name}: {gaps}")
         results.append({"case": name, "gap": gaps,
                         "max_abs_err_f": float((f_k - f_p).abs().max()),
-                        "max_abs_err_g": float((g_k - g_p).abs().max())})
+                        "max_abs_err_g": float((g_k - g_p).abs().max()),
+                        "stack21_bitwise": True})
+        if theta_fn is rates_near_zero:
+            # Which float32 gradient is nearer the float64 one.
+            results[-1]["f64_distance"] = f64_distance(
+                theta, data, cfg, {"k3": g_k, "plain_f32": g_p})
     out = {"phase": "loss", "shape": [b, t_len],
            "tolerance": GAP_RULE,
            "cases": results}
@@ -1439,11 +1483,7 @@ def phase_fit_logistic(device, batch, gen_s, parity) -> dict:
     from tsspark_tpu_torch.kernels import forward as fk
     from tsspark_tpu_torch.kernels import loss as lk
     from tsspark_tpu_torch.models.prophet import design
-    from tsspark_tpu_torch.models.prophet.init import (
-        curvature_diag,
-        initial_theta,
-    )
-    from tsspark_tpu_torch.models.prophet.model import _objective
+    from tsspark_tpu_torch.models.prophet.init import initial_theta
     from tsspark_tpu_torch.models.prophet.predict import prepare_predict_data
     from tsspark_tpu_torch.ops import lbfgs
 
@@ -1457,8 +1497,8 @@ def phase_fit_logistic(device, batch, gen_s, parity) -> dict:
     torch.cuda.reset_peak_memory_stats()
     lbfgs.timing.reset()
     # The main path: counts to 0 just before, read just after.
-    lk.launches = lk.grad_launches = fan_k.launches = fk.launches = 0
-    bands_k.launches = 0
+    lk.launches = lk.grad_launches = lk.stack_launches = fan_k.launches = 0
+    fk.launches = bands_k.launches = 0
     t0 = time.perf_counter()
     state = bk.fit(ds_fit, y_fit, mask=m_fit, cap=cap_fit)
     fit_s = time.perf_counter() - t0
@@ -1469,12 +1509,15 @@ def phase_fit_logistic(device, batch, gen_s, parity) -> dict:
     predict_s = time.perf_counter() - t0
     launches = {"loss": lk.launches, "loss_grad": lk.grad_launches,
                 "loss_value": lk.launches - lk.grad_launches,
+                "loss_stack": lk.stack_launches,
                 "fan": fan_k.launches, "forward": fk.launches,
                 "bands": bands_k.launches}
     peak = torch.cuda.max_memory_allocated()
     iters, body_s = lbfgs.timing.iters, lbfgs.timing.body_s
 
+    # The line search's trial stacks went through the trial-stack layout.
     require(launches["loss_grad"] > 0 and launches["loss_value"] > 0
+            and launches["loss_stack"] > 0
             and launches["forward"] > 0 and launches["bands"] > 0,
             f"kernels launched on the config-4 path: {launches}")
     require(tuple(state.theta.shape) == (C4_SERIES, cfg.num_params),
@@ -1546,12 +1589,7 @@ def phase_fit_logistic(device, batch, gen_s, parity) -> dict:
     packed, _ = design.pack_fit_data(data_np, meta, ds_fit)
     data = design.unpack_fit_data(design.packed_to_device(packed, device))
     theta0 = initial_theta(data, cfg, solver)
-    precond = curvature_diag(data, cfg, theta0)
-    fun, _, _ = _objective(data, cfg)
-    d = (-precond * fun(theta0)[1]).contiguous()
-    steps = 0.5 ** torch.arange(20, dtype=torch.float32, device=device)
-    trials = torch.cat([(theta0[None] + steps[:, None, None] * d[None])
-                        .reshape(-1, cfg.num_params), theta0]).contiguous()
+    trials = line_search_stack(data, cfg, solver, device)
     theta_fit = state.theta.to(device).contiguous()
     pdata = prepare_predict_data(batch.ds, meta, cfg, device, cap=batch.cap)
     return {"out": out, "inputs": {
@@ -1658,9 +1696,12 @@ def draws_bound_ms(b, t_len, s, config) -> dict:
             "bound_parts_ms": times}
 
 
-def _draw_case(rng, growth, b, t_len, s, per_series, device):
-    """Small K6 inputs: a config of every feature kind, draws around a
-    fitted-like point, synthetic data with a future (t up to 1.2), data
+def _draw_case(rng, growth, b, t_len, s, per_series, device,
+               features="mixed"):
+    """Small K6 inputs: a config of every feature kind (``features``
+    "mixed": 12 seasonal columns and 2 regressors; "none": no feature;
+    "wide": 36 seasonal columns and 2 regressors, past 32), draws around
+    a fitted-like point, synthetic data with a future (t up to 1.2), data
     scales and given variates."""
     import torch
 
@@ -1671,13 +1712,16 @@ def _draw_case(rng, growth, b, t_len, s, per_series, device):
     )
     from tsspark_tpu_torch.kernels import bands as bk
 
-    cfg = ProphetConfig(
-        growth=growth, n_changepoints=10,
-        seasonalities=(SeasonalityConfig("yearly", 365.25, 3),
-                       SeasonalityConfig("weekly", 7.0, 3,
-                                         mode="multiplicative")),
-        regressors=(RegressorConfig("r0"),
-                    RegressorConfig("r1", mode="multiplicative")))
+    weekly = SeasonalityConfig("weekly", 7.0, 3, mode="multiplicative")
+    regs = (RegressorConfig("r0"),
+            RegressorConfig("r1", mode="multiplicative"))
+    seas, regs = {
+        "mixed": ((SeasonalityConfig("yearly", 365.25, 3), weekly), regs),
+        "none": ((), ()),
+        "wide": ((SeasonalityConfig("yearly", 365.25, 15), weekly), regs),
+    }[features]
+    cfg = ProphetConfig(growth=growth, n_changepoints=10,
+                        seasonalities=seas, regressors=regs)
     make = logistic_theta if growth == "logistic" else random_theta
     base = make(rng, b, cfg)
     samples = torch.from_numpy(
@@ -1710,6 +1754,33 @@ def _draws_vs_plain(cfg, samples, data, sc, fl, variates) -> tuple:
     return (_band_err(got, want, sc),
             max(float((got[k] - want[k]).abs().max()) for k in want),
             plain_s)
+
+
+# K6's small shapes: (growth, S, per-series features, feature set).
+DRAW_CASES = (("linear", 128, False, "mixed"), ("linear", 1024, True, "mixed"),
+              ("flat", 128, False, "mixed"), ("logistic", 64, False, "mixed"),
+              ("linear", 300, False, "mixed"), ("logistic", 300, True, "mixed"),
+              ("linear", 1, False, "mixed"), ("linear", 128, False, "none"),
+              ("linear", 300, False, "wide"), ("linear", 1024, False, "wide"))
+
+
+def draws_small_cases(device) -> dict:
+    """K6 against its plain version on given draws at ``DRAW_CASES``, and
+    each case's rows bitwise invariant on its own Philox draws."""
+    rng = np.random.default_rng(17)
+    small = {}
+    for growth, s, per_series, features in DRAW_CASES:
+        cfg, samples, data, sc, fl, variates = _draw_case(
+            rng, growth, 48, 160, s, per_series, device, features)
+        err, abs_err, _ = _draws_vs_plain(cfg, samples, data, sc, fl,
+                                          variates)
+        name = (f"{growth}_S{s}{'_per_series' if per_series else ''}"
+                f"_F{cfg.num_features}")
+        small[name] = {"max_rel_err": err, "max_abs_err": abs_err,
+                       "rows_bitwise": draws_row_invariance(
+                           samples, data, sc, fl, cfg, device)["bitwise"]}
+        require(err <= DRAWS_TOL, f"draws {name}: {err}")
+    return small
 
 
 def draws_row_invariance(samples, data, sc, fl, cfg, device) -> dict:
@@ -1939,19 +2010,11 @@ def phase_mcmc(fit, device) -> dict:
             f"K3's sampler against the plain loss's: {sampler}")
     del res_k, res_p, sub
 
-    # K6 against its plain version on given draws: small shapes, then the
-    # path's first chunk of rows; its rows bitwise invariant.
-    rng = np.random.default_rng(17)
-    small = {}
-    for growth, s, per_series in (("linear", 128, False),
-                                  ("linear", 1024, True),
-                                  ("flat", 128, False),
-                                  ("logistic", 64, False)):
-        case = _draw_case(rng, growth, 48, 160, s, per_series, device)
-        err, abs_err, _ = _draws_vs_plain(*case)
-        small[f"{growth}_S{s}{'_per_series' if per_series else ''}"] = {
-            "max_rel_err": err, "max_abs_err": abs_err}
-        require(err <= DRAWS_TOL, f"draws {growth} S={s}: {err}")
+    # K6 against its plain version on given draws: small shapes (both
+    # thread caps, one draw, no feature and more than 32, a coefficient
+    # table too large for shared memory at S = 1,024), then the path's
+    # first chunk of rows; its rows bitwise invariant.
+    small = draws_small_cases(device)
     rows = min(dk.CHUNK_ROWS, n_ser)
     meta_c = state.meta._replace(**{
         f: np.asarray(v)[:rows] for f, v in state.meta._asdict().items()})
@@ -2090,16 +2153,20 @@ def _forward_err(got, want, scale) -> float:
                for g, w, u in zip(got, want, units))
 
 
-def logistic_kernels(fit4, device) -> list:
+def logistic_kernels(fit4, fit, device) -> list:
     """K3's, K1's and K2's logistic branches at the config-4 path's
     shapes, on its inputs: K3 (gradient and value modes) at 8192x1080 at
-    the ridge init and at the fitted parameters, and in value mode on a
-    line search's 21 x 8192 trial stack; K1 and K2 on the forecast of the
-    fitted batch over 1,200 days, at the forecast's chunk of rows (K2
+    the ridge init and at the fitted parameters; K3's trial-stack layout
+    on a line search's 21 x 8192 trial stack (and on one of flat growth
+    over config 3's first chunk, ``fit``'s); K1 and K2 on the forecast of
+    the fitted batch over 1,200 days, at the forecast's chunk of rows (K2
     with 256 samples) and over the whole batch.  Each against its plain
     version, timed, its rows bitwise invariant."""
+    import dataclasses
+
     import torch
 
+    from tsspark_tpu_torch.eval.configs import SOLVER3
     from tsspark_tpu_torch.kernels import bands as bk
     from tsspark_tpu_torch.kernels import forward as fk
     from tsspark_tpu_torch.kernels import loss as lk
@@ -2123,16 +2190,7 @@ def logistic_kernels(fit4, device) -> list:
                       float((g_k - g_p).abs().max()))
         require(max(gaps[where].values()) <= GAP_TOL,
                 f"logistic loss at {b}x{t_len} ({where}): {gaps[where]}")
-    trials = inp["trials"]
-    n_trials = trials.shape[0] // b
-    s_k, _ = lk.loss(trials, data, cfg, grad=False)
-    s_p, _ = lk.loss_plain(trials, data, cfg, grad=False)
-    f_scale = torch.cat([loss_scales(trials[i * b:(i + 1) * b], data, cfg)[0]
-                         for i in range(n_trials)])
-    gaps["trial_stack"] = _gap(s_k, s_p, f_scale, t_len)
-    require(gaps["trial_stack"] <= GAP_TOL,
-            f"logistic loss on the {n_trials}x{b} trial stack: "
-            f"{gaps['trial_stack']}")
+    stack = {"config4": trial_stack(inp["trials"], data, cfg)}
     theta = inp["theta0"]
     k3 = {"name": "loss_logistic", "route": "cuda",
           "source": "tsspark_tpu_torch/csrc/loss.cu",
@@ -2140,7 +2198,7 @@ def logistic_kernels(fit4, device) -> list:
           "launches": launches["loss"],
           "launches_grad": launches["loss_grad"],
           "launches_value": launches["loss_value"],
-          "max_abs_err": max(abs_err, float((s_k - s_p).abs().max())),
+          "max_abs_err": abs_err,
           "gap": gaps, "tolerance": GAP_RULE,
           "ms": cuda_ms(lambda: lk.loss(theta, data, cfg)),
           "plain_ms": cuda_ms(lambda: lk.loss_plain(theta, data, cfg),
@@ -2153,15 +2211,23 @@ def logistic_kernels(fit4, device) -> list:
                                                         grad=False),
                                   iters=3, warmup=1),
               **loss_bound_ms(b, b, t_len, cfg, False)},
-          "trial_stack": {
-              "rows": n_trials * b,
-              "ms": cuda_ms(lambda: lk.loss(trials, data, cfg, grad=False)),
-              "plain_ms": cuda_ms(lambda: lk.loss_plain(trials, data, cfg,
-                                                        grad=False),
-                                  iters=2, warmup=1),
-              **loss_bound_ms(n_trials * b, b, t_len, cfg, False)},
           "row_invariance": loss_row_invariance(data, cfg, theta, device)}
-    del s_k, s_p
+    # Flat growth's stack: config 3's first chunk, the same line search
+    # around its ridge init under flat growth.
+    finp = fit["inputs"]
+    fcfg = dataclasses.replace(finp["cfg"], growth="flat")
+    stack["flat_config3"] = trial_stack(
+        line_search_stack(finp["data"], fcfg, SOLVER3, device),
+        finp["data"], fcfg)
+    k3s = {"name": "loss_stack", "route": "cuda",
+           "source": "tsspark_tpu_torch/csrc/loss.cu",
+           "replaces": "tsspark_tpu/models/prophet/loss.py:88",
+           "launches": launches["loss_stack"],
+           "max_abs_err": max(v["max_abs_err"] for v in stack.values()),
+           "tolerance": GAP_RULE + "; each trial the row layout's bits",
+           **{k: stack["config4"][k] for k in (
+               "ms", "plain_ms", "bound_ms", "bound_by", "shape")},
+           "library_ms": None, "cases": stack}
     # K1 on the forecast of the fitted batch: at the launch shape of the
     # path (``predict`` takes rows in chunks whose (S, rows, T) samples
     # stay under 2**28; a sampled forecast takes K1's outputs in scaled
@@ -2258,7 +2324,66 @@ def logistic_kernels(fit4, device) -> list:
               **bands_bound_ms(pb, pt, s, cfg),
               **bands_variates_bound_ms(pb, pt, s, cfg)},
           "row_invariance": band_row_invariance(kargs, cfg, s, device)}
-    return [k3, k1, k2]
+    return [k3, k3s, k1, k2]
+
+
+def line_search_stack(data, cfg, solver, device, k_steps=20):
+    """The line search's (K + 1) B trial stack at the ridge init: K rungs
+    along the preconditioned steepest-descent direction and the fallback
+    row (``ops.lbfgs``'s first iteration, without the closed-form fan)."""
+    import torch
+
+    from tsspark_tpu_torch.models.prophet.init import (
+        curvature_diag,
+        initial_theta,
+    )
+    from tsspark_tpu_torch.models.prophet.model import _objective
+
+    theta0 = initial_theta(data, cfg, solver)
+    precond = curvature_diag(data, cfg, theta0)
+    fun, _, _ = _objective(data, cfg)
+    d = (-precond * fun(theta0)[1]).contiguous()
+    steps = 0.5 ** torch.arange(k_steps, dtype=torch.float32, device=device)
+    return torch.cat([(theta0[None] + steps[:, None, None] * d[None])
+                      .reshape(-1, cfg.num_params), theta0]).contiguous()
+
+
+def trial_stack(trials, data, cfg) -> dict:
+    """K3's trial-stack layout on an (n B, P) stack: within ``GAP_TOL``
+    of its plain version, each trial's values the same bits as the row
+    layout's launch of that trial alone, timed beside its bound."""
+    import torch
+
+    from tsspark_tpu_torch.kernels import loss as lk
+
+    b, t_len = data.t.shape
+    n = trials.shape[0] // b
+    s_k, _ = lk.loss(trials, data, cfg, grad=False)
+    s_p, _ = lk.loss_plain(trials, data, cfg, grad=False)
+    f_scale = torch.cat([loss_scales(trials[i * b:(i + 1) * b], data, cfg)[0]
+                         for i in range(n)])
+    gap = _gap(s_k, s_p, f_scale, t_len)
+    require(gap <= GAP_TOL, f"loss on the {n}x{b} trial stack ({cfg.growth})"
+            f": gap {gap}")
+    require(bool(torch.isfinite(s_k).all()), "trial stack finite")
+    for i in range(n):
+        rows = slice(i * b, (i + 1) * b)
+        alone, _ = lk.loss(trials[rows].contiguous(), data, cfg, grad=False)
+        require(torch.equal(s_k[rows], alone),
+                f"trial {i} of the {n}x{b} stack ({cfg.growth}) differs from "
+                f"its row-layout launch")
+    out = {"shape": [n * b, t_len, cfg.num_params], "gap": gap,
+           "max_abs_err": float((s_k - s_p).abs().max()),
+           "trials_bitwise": True,
+           "ms": cuda_ms(lambda: lk.loss(trials, data, cfg, grad=False)),
+           "one_trial_ms": cuda_ms(lambda: lk.loss(trials[:b].contiguous(),
+                                                   data, cfg, grad=False)),
+           "plain_ms": cuda_ms(lambda: lk.loss_plain(trials, data, cfg,
+                                                     grad=False),
+                               iters=2, warmup=1),
+           **loss_bound_ms(n * b, b, t_len, cfg, False)}
+    del s_k, s_p
+    return out
 
 
 def phase_kernels(serve, fwd, bnd, fit, fit4, mcmc, device) -> dict:
@@ -2361,7 +2486,7 @@ def phase_kernels(serve, fwd, bnd, fit, fit4, mcmc, device) -> dict:
                       "torch_quantile_ms": bnd["torch_quantile_ms"]}}
     k1["launches_fit"] = fit["out"]["launches"]["forward"]
     kernels = [k1, k2] + fit_kernels(fit, device) \
-        + logistic_kernels(fit4, device) + [mcmc["kernel"]]
+        + logistic_kernels(fit4, fit, device) + [mcmc["kernel"]]
     # K3's gradient launches on the MCMC path (its MAP fit and sampler).
     kernels[2]["launches_mcmc_path"] = mcmc["out"]["launches"]["loss_grad"]
     for k in kernels:

@@ -21,7 +21,16 @@ the solver's ridge init and first preconditioned direction — and:
   ``forward`` at the in-sample + 28-day chunk (8192 x 1969, shared
   seasonal matrix) and at the engine's 32-step chunk (8192 x 32,
   per-series matrix), both mapped to data units, and K2 ``bands`` at
-  8192 x 32 x 256 with its own Philox draws, each beside its bound.
+  8192 x 32 x 256 with its own Philox draws, each beside its bound;
+* times K3's logistic branch at eval config 4's chunk (8,192 series of
+  ``wiki_logistic_like(8192, 1200)`` over the first 1,080 days) in both
+  modes, and in value mode on the line search's first trial stack there
+  (21 x 8192 rows: 20 rungs and the fallback row around the ridge init)
+  and on one of flat growth over config 3's chunk (keys ``k3_stack_*``);
+* times K6 ``draws`` at the MCMC path's chunk (512 series of
+  ``m5_like(512, 1941, seed=2)`` under config 3, S = 300 draws around
+  random parameters from a fixed seed) with its own Philox draws and on
+  given draws (keys ``k6_*``).
 
 Give the checkouts as A B B A to see the spread.  Each child prints one
 JSON line; the outputs of K1-K4 go to ``--out`` (a temporary directory,
@@ -120,13 +129,18 @@ def child(out_dir: str, tag: str) -> dict:
     busy = sum(ms for _, ms in top)
     iters = lbfgs.timing.iters
     serve, serve_out = serve_kernels(batch, device)
+    stack, stack_out = stack_kernels(data, device)
+    draws, draws_out = draws_kernel(device)
     saved = torch.load(os.path.join(out_dir, f"{tag}.pt"))
     saved.update(serve_out)
+    saved.update(stack_out)
+    saved.update(draws_out)
     torch.save(saved, os.path.join(out_dir, f"{tag}.pt"))
     return {
         "tag": tag, "tree": os.getcwd(), "build_s": build_s,
         "shape": [b, t_len, cfg.num_params], "kernels": kernels,
-        "serve_kernels": serve,
+        "serve_kernels": serve, "stack_kernels": stack,
+        "draws_kernel": draws,
         "chunk_solve": {
             "iterations": int(res.n_iters.max()), "traced_wall_s": traced,
             "device_busy_ms": busy,
@@ -153,6 +167,136 @@ def device_ms(fn, iters: int = 20) -> float:
             fn()
         torch.cuda.synchronize()
     return sum(ms for _, ms in cs._device_events(prof)) / iters
+
+
+def _trial_stack(data, cfg, solver, device, k_steps=20):
+    """The ridge init and the line search's (K + 1) B trial stack there
+    (``chip_smoke.line_search_stack``, which older checkouts' chip_smoke
+    lacks)."""
+    import torch
+
+    from tsspark_tpu_torch.models.prophet.init import (
+        curvature_diag,
+        initial_theta,
+    )
+    from tsspark_tpu_torch.models.prophet.model import _objective
+
+    theta0 = initial_theta(data, cfg, solver)
+    precond = curvature_diag(data, cfg, theta0)
+    fun, _, _ = _objective(data, cfg)
+    d = (-precond * fun(theta0)[1]).contiguous()
+    steps = 0.5 ** torch.arange(k_steps, dtype=torch.float32, device=device)
+    return theta0, torch.cat([
+        (theta0[None] + steps[:, None, None] * d[None])
+        .reshape(-1, cfg.num_params), theta0]).contiguous()
+
+
+def stack_kernels(data3, device):
+    """K3's logistic branch at config 4's chunk (both modes) and its value
+    mode on the line search's trial stacks of config 4 and of flat growth
+    over config 3's chunk ``data3``: times beside bounds, and outputs."""
+    import dataclasses
+
+    import chip_smoke as cs
+    from tsspark_tpu_torch.data.datasets import wiki_logistic_like
+    from tsspark_tpu_torch.eval import configs
+    from tsspark_tpu_torch.kernels import loss as lk
+    from tsspark_tpu_torch.models.prophet import design
+
+    batch = wiki_logistic_like(CHUNK, 1200, seed=3)
+    cfg, solver = configs.CONFIG4, configs.SOLVER4
+    split = configs.split_point(1200)
+    data_np, meta = design.prepare_fit_data(
+        batch.ds[:split], batch.y[:, :split], cfg,
+        mask=batch.mask[:, :split], cap=batch.cap[:, :split])
+    packed, _ = design.pack_fit_data(data_np, meta, batch.ds[:split])
+    data = design.unpack_fit_data(design.packed_to_device(packed, device))
+    theta0, trials = _trial_stack(data, cfg, solver, device)
+    fcfg = dataclasses.replace(configs.CONFIG3, growth="flat")
+    _, ftrials = _trial_stack(data3, fcfg, configs.SOLVER3, device)
+    b, t_len = data.t.shape
+    b3, t3 = data3.t.shape
+    f, g = lk.loss(theta0, data, cfg)
+    out = {"k3_logistic_f": f.cpu(), "k3_logistic_g": g.cpu(),
+           "k3_logistic_v": lk.loss(theta0, data, cfg, grad=False)[0].cpu(),
+           "k3_stack_logistic": lk.loss(trials, data, cfg,
+                                        grad=False)[0].cpu(),
+           "k3_stack_flat": lk.loss(ftrials, data3, fcfg,
+                                    grad=False)[0].cpu()}
+    times = {
+        "k3_logistic_grad": {
+            "ms": cs.cuda_ms(lambda: lk.loss(theta0, data, cfg)),
+            **cs.loss_bound_ms(b, b, t_len, cfg, True)},
+        "k3_logistic_value": {
+            "ms": cs.cuda_ms(lambda: lk.loss(theta0, data, cfg,
+                                             grad=False)),
+            **cs.loss_bound_ms(b, b, t_len, cfg, False)},
+        "k3_stack_logistic": {
+            "shape": list(trials.shape) + [t_len],
+            "ms": cs.cuda_ms(lambda: lk.loss(trials, data, cfg, grad=False)),
+            "device_ms": device_ms(lambda: lk.loss(trials, data, cfg,
+                                                   grad=False)),
+            **cs.loss_bound_ms(trials.shape[0], b, t_len, cfg, False)},
+        "k3_stack_flat": {
+            "shape": list(ftrials.shape) + [t3],
+            "ms": cs.cuda_ms(lambda: lk.loss(ftrials, data3, fcfg,
+                                             grad=False)),
+            **cs.loss_bound_ms(ftrials.shape[0], b3, t3, fcfg, False)},
+    }
+    for k in times.values():
+        k["share_of_bound"] = k["bound_ms"] / k["ms"]
+    return times, out
+
+
+def draws_kernel(device):
+    """K6 at the MCMC path's chunk, on its own Philox draws and on given
+    draws: times beside its bound, and outputs."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from tsspark_tpu_torch.data.datasets import m5_like
+    from tsspark_tpu_torch.eval import configs
+    from tsspark_tpu_torch.kernels import bands as bk
+    from tsspark_tpu_torch.kernels import draws as dk
+    from tsspark_tpu_torch.models.prophet import design
+    from tsspark_tpu_torch.models.prophet.predict import prepare_predict_data
+
+    cfg = configs.CONFIG3
+    b, s = 512, 300
+    batch = m5_like(b, FULL_DAYS, seed=2)
+    split = configs.split_point(FULL_DAYS)
+    _, meta = design.prepare_fit_data(
+        batch.ds[:split], np.nan_to_num(batch.y[:, :split]), cfg,
+        mask=batch.mask[:, :split], regressors=batch.regressors[:, :split])
+    rng = np.random.default_rng(0)
+    base = cs.random_theta(rng, b, cfg)
+    samples = torch.from_numpy((base[None] + 0.02 * rng.normal(
+        0.0, 1.0, (s,) + base.shape)).astype(np.float32)).to(device)
+    pdata = prepare_predict_data(batch.ds, meta, cfg, device,
+                                 regressors=batch.regressors)
+    sc = torch.as_tensor(meta.y_scale, dtype=torch.float32, device=device)
+    fl = torch.as_tensor(meta.floor, dtype=torch.float32, device=device)
+    variates = bk.sample_draws((s, b, FULL_DAYS), torch.Generator(
+        device=device).manual_seed(23), device)
+    out = {}
+    for name, kw in (("k6_philox", {"seed": 1}),
+                     ("k6_given", {"variates": variates})):
+        got = dk.draws(samples, pdata, sc, fl, cfg, **kw)
+        out.update({f"{name}_{k}": v.cpu() for k, v in got.items()})
+    times = {
+        "k6_philox": {
+            "shape": [b, FULL_DAYS, s],
+            "ms": cs.cuda_ms(lambda: dk.draws(samples, pdata, sc, fl, cfg,
+                                              seed=1), iters=10),
+            **cs.draws_bound_ms(b, FULL_DAYS, s, cfg)},
+        "k6_given": {
+            "ms": cs.cuda_ms(lambda: dk.draws(samples, pdata, sc, fl, cfg,
+                                              variates=variates), iters=10)},
+    }
+    times["k6_philox"]["share_of_bound"] = \
+        times["k6_philox"]["bound_ms"] / times["k6_philox"]["ms"]
+    return times, out
 
 
 def serve_kernels(batch, device):

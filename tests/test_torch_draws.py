@@ -14,6 +14,7 @@ in different orders."""
 
 import dataclasses
 
+import chip_smoke
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -257,6 +258,29 @@ def test_draws_kernel_rows_are_invariant_on_the_card(card):
                        seed=4, rows=rows.contiguous())
         for k in KEYS:
             assert torch.equal(got[k], full[k][idx]), k
+
+
+@pytest.mark.parametrize("growth,n_s,per_series,features", [
+    ("linear", 300, False, "mixed"), ("logistic", 300, True, "mixed"),
+    ("linear", 1024, False, "mixed"), ("flat", 1, False, "mixed"),
+    ("linear", 1, True, "mixed"), ("linear", 128, False, "none"),
+    ("logistic", 300, False, "wide"), ("linear", 1024, False, "wide"),
+])
+def test_draws_kernel_thread_caps_and_feature_counts(card, growth, n_s,
+                                                     per_series, features):
+    """Both thread caps (S = 300 under 384, S = 1,024), one draw, no
+    feature and more than 32 (at S = 1,024 the coefficient table outgrows
+    shared memory and its last features are split at each cell): within
+    ``chip_smoke.DRAWS_TOL`` of the plain version on given draws, and each
+    row the same bits alone and permuted on the kernel's own draws."""
+    rng = np.random.default_rng(5)
+    cfg, samples, data, sc, fl, variates = chip_smoke._draw_case(
+        rng, growth, 24, 96, n_s, per_series, card, features)
+    err, _, _ = chip_smoke._draws_vs_plain(cfg, samples, data, sc, fl,
+                                           variates)
+    assert err <= chip_smoke.DRAWS_TOL
+    assert chip_smoke.draws_row_invariance(samples, data, sc, fl, cfg,
+                                           card)["bitwise"]
 
 
 def test_draws_kernel_refuses_past_its_sample_limit(card):

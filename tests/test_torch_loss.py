@@ -138,6 +138,43 @@ def test_stacked_trials_reuse_the_data_rows():
                                data_t, tc)
 
 
+@pytest.mark.parametrize("n_rows,b,grad,stack", [
+    (21 * 8, 8, False, True), (2 * 8, 8, False, True), (8, 8, False, False),
+    (21 * 8, 8, True, False), (8, 8, True, False),
+])
+def test_stack_layout_dispatch_rule(n_rows, b, grad, stack):
+    """The wrapper launches the trial-stack layout for value mode on a
+    stack of more than one copy of the batch, the row layout otherwise."""
+    assert loss_kernel.uses_stack_layout(n_rows, b, grad) is stack
+
+
+@pytest.mark.parametrize("n_trials,b", [
+    (2, 8), (3, 10), (21, 13), (21, 8192), (7, 5), (1, 9), (9, 1),
+])
+def test_stack_layout_covers_every_trial_row_once(n_trials, b):
+    """The trial-stack layout's block plan: every (trial, series) row in
+    exactly one warp of one block, each block's rows of one series (one
+    data row a stage), a warp's trials consecutive and at most
+    TRIALS_PER_WARP, the blocks of a series adjacent in launch order,
+    ceil(n / (ROWS * TRIALS_PER_WARP)) of them."""
+    per_warp = loss_kernel.TRIALS_PER_WARP
+    plan = loss_kernel.stack_block_rows(n_trials, b)
+    groups = -(-n_trials // (loss_kernel.ROWS * per_warp))
+    assert len(plan) == b * groups
+    rows = [r for block in plan for warp in block for r in warp]
+    assert sorted(rows) == list(range(n_trials * b))
+    for x, block in enumerate(plan):
+        assert len(block) == loss_kernel.ROWS
+        flat = [r for warp in block for r in warp]
+        assert {r % b for r in flat} == {x // groups}
+        trials = [r // b for r in flat]
+        assert trials == list(range(trials[0], trials[0] + len(flat)))
+        assert all(len(warp) <= per_warp for warp in block)
+        # Live warps come first: a warp past the last trial holds none.
+        sizes = [len(warp) for warp in block]
+        assert sizes == sorted(sizes, reverse=True)
+
+
 def _ladder(b, k=20, seed=0):
     rng = np.random.default_rng(seed)
     step0 = rng.uniform(0.1, 1.0, b).astype(np.float32)
@@ -207,13 +244,18 @@ def test_fan_clamps_a_cancelled_sum_of_squares():
 def test_fan_needs_linear_growth_on_the_card_and_wrappers_refuse_others():
     _, tc, _, data_t, theta = _case("linear", "additive", False, 0)
     meta = lambda a: a.to("meta")  # noqa: E731
-    before = (loss_kernel.launches, fan_kernel.launches)
+    before = (loss_kernel.launches, loss_kernel.stack_launches,
+              fan_kernel.launches)
     with pytest.raises(ValueError, match="unsupported device"):
         loss_kernel.loss(meta(T(theta)), data_t, tc)
     with pytest.raises(ValueError, match="unsupported device"):
+        loss_kernel.loss(meta(T(np.concatenate([theta, theta]))), data_t, tc,
+                         grad=False)
+    with pytest.raises(ValueError, match="unsupported device"):
         fan_kernel.fan(meta(T(theta)), meta(T(theta)),
                        meta(T(_ladder(theta.shape[0]))), data_t, tc)
-    assert (loss_kernel.launches, fan_kernel.launches) == before
+    assert (loss_kernel.launches, loss_kernel.stack_launches,
+            fan_kernel.launches) == before
     assert tloss.has_closed_form_fan(tc)
     assert not tloss.has_closed_form_fan(
         dataclasses.replace(tc, growth="flat"))
@@ -290,6 +332,22 @@ def test_kernel_limit_is_the_shared_memory_plan():
                 loss_kernel.smem_bytes(kernel, cfg, False)
 
 
+@pytest.mark.parametrize("growth", ["logistic", "flat"])
+@pytest.mark.parametrize("per_series", [False, True])
+def test_stack_layout_fits_three_blocks_a_multiprocessor(growth,
+                                                         per_series):
+    """The trial-stack layout's plan (21 slots, one row a stage) leaves
+    room for the three blocks a multiprocessor it runs at the line
+    search's configs: config 4 (logistic) and config 3 under flat
+    growth (the card's 228 KB less 1 KB a block)."""
+    from tsspark_tpu_torch.eval.configs import CONFIG3, CONFIG4
+
+    cfg = CONFIG4 if growth == "logistic" else dataclasses.replace(
+        CONFIG3, growth="flat")
+    assert 3 * (loss_kernel.smem_bytes("loss", cfg, per_series, False, True)
+                + 1024) <= 228 * 1024
+
+
 @pytest.mark.parametrize("per_series", [False, True])
 def test_fit_data_rises_along_t_and_s(per_series):
     """K3 and K4 carry each row's changepoint segment along its ascending
@@ -302,7 +360,9 @@ def test_fit_data_rises_along_t_and_s(per_series):
 
 def test_kernels_give_a_row_the_same_bits_anywhere(card):
     """K3 (both modes) and K4: a row's results are the same bits in a batch
-    of its own, in a permuted batch and (K3) in a trial stack of 3B rows."""
+    of its own, in a permuted batch and (K3) in a trial stack of 3B rows;
+    in value mode a 21-trial stack (the trial-stack layout) gives each
+    trial the row layout's bits."""
     _, tc, _, data_t, theta = _case("linear", "multiplicative", False, 3,
                                     b=40, t_len=300)
     on = tdesign.FitData(*(a.to(card) for a in data_t))
@@ -333,6 +393,13 @@ def test_kernels_give_a_row_the_same_bits_anywhere(card):
             block = slice(n * th.shape[0], (n + 1) * th.shape[0])
             assert torch.equal(fs[block], fn)
             assert gn is None or torch.equal(gs[block], gn)
+    trials = [th * (1.0 + 0.01 * n) for n in range(21)]
+    before = loss_kernel.stack_launches
+    fs, _ = loss_kernel.loss(torch.cat(trials).contiguous(), on, tc, False)
+    assert loss_kernel.stack_launches == before + 1
+    for n, part in enumerate(trials):
+        fn, _ = loss_kernel.loss(part.contiguous(), on, tc, False)
+        assert torch.equal(fs[n * th.shape[0]:(n + 1) * th.shape[0]], fn)
     out = fan_kernel.fan(th, d, lad, on, tc)
     for idx in (sl, perm):
         got = fan_kernel.fan(th[idx].contiguous(), d[idx].contiguous(),

@@ -182,7 +182,7 @@ __global__ void __launch_bounds__(kPipeThreads, kFs <= 24 ? 2 : 1)
   }
   for (int j = tid; j < kStages * pl.sl.size; j += kPipeThreads)
     stages[j] = 0.0f;
-  pipeline_init(bars, nlive, per_series);
+  pipeline_init(bars, nlive, per_series, nlive);
   const bool has_mult = any_multiplicative(mm, F);
   fence_async_shared();
   __syncthreads();

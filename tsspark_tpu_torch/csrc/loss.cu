@@ -75,6 +75,26 @@
 // snapshot at each boundary, so the suffix sums past s_j are A - A_j and
 // C - C_j; after the walk one lane runs the recursion's pull-back, last
 // changepoint first, in _logistic_pullback's arithmetic.
+//   Trial-stack layout (stack_kernel, value mode, N = n B rows with
+// n >= 1; the line search's trials of logistic and flat growth): a
+// block's row warps take trials of ONE series, kTrialsPerWarp = 3 a warp,
+// so a block holds kStackTrials = 21 of them (config 4's line search: all
+// of a series' trials in one block).  Series b takes G = ceil(n / 21)
+// consecutive blocks, warp w of block x = b G + g the trials 21g + 3w ..
+// 21g + 3w + 2 (rows j B + b), so the producer stages one data row a stage
+// (lane 0; the shared seasonal slice as in the row layout) for all of
+// them, and a launch reads the data from device memory G times (once at
+// config 4), where the row layout read it n times.  A lane loads a cell's
+// data once and scores its warp's three trials on it: three independent
+// chains where the row layout's lane waits on one.  The pass is bound by
+// latency, not by bytes (on the H100 a layout of seven trial warps a block
+// that read the data three times took as long as the row layout, a ring
+// of 4 or 8 stages bought nothing, and one block more a multiprocessor
+// cut either by a quarter), so the kernel runs three blocks a
+// multiprocessor where its registers allow (kFs <= 24).  Each trial keeps
+// its own slot (parameters, prefix sums, split coefficients) and the row
+// layout's arithmetic, cell order and shuffle tree, so a row's value is
+// the same bits in either layout.
 //   Reduction order: each lane adds its cells in ascending order; the
 // slots are added over the 32 lanes in lane order, the register sums by a
 // fixed shuffle tree; nothing is atomic.  The order depends only on T,
@@ -106,14 +126,18 @@ using namespace tsspark;
 // prior scales.  Per stage: each row's t, y, mask and regressor cells and
 // the seasonal slice(s), each with 8 floats of room for the 16-byte
 // pieces around them (and each row's capacity cells for logistic growth).
-// Gradient mode: each lane's regressor sums.
+// Gradient mode: each lane's regressor sums.  The trial-stack layout
+// (stack) holds kStackTrials slots and stages one row a stage.
+constexpr int kTrialsPerWarp = 3;
+constexpr int kStackTrials = kRowWarps * kTrialsPerWarp;
+
 struct Plan {
   StageLayout sl;
   int R4, th, s, D, E, ba, bm, om, mm, bar, bmr, omr, mmr, snu, snv, res,
       ps, row, rows0, racc, total;
   __host__ __device__ Plan(bool grad, int kFs, int P, int ncp, int Fs, int R,
-                           bool per_series, bool logistic)
-      : sl(kFs, Fs, R, per_series, logistic) {
+                           bool per_series, bool logistic, bool stack = false)
+      : sl(kFs, Fs, R, per_series, logistic, stack ? 1 : kRowWarps) {
     R4 = round4(R);
     th = 0;
     s = th + round4(P);
@@ -132,9 +156,10 @@ struct Plan {
     res = snv + round4(ncp);
     ps = res + round4(R + kFs + 2);
     row = ps + round4(Fs + R);
-    rows0 = 4 * kStages;
     racc = grad ? R4 * kPipeThreads : 0;
-    total = rows0 + kRowWarps * row + kStages * sl.size + racc;
+    rows0 = 4 * kStages;
+    total = rows0 + (stack ? kStackTrials : kRowWarps) * row +
+            kStages * sl.size + racc;
   }
 };
 
@@ -181,6 +206,123 @@ __device__ __forceinline__ void logistic_pullback(
   g[1] = m / (m_scale * m_scale) + (C + gm_rec);
 }
 
+// A row's slot rp, each lane its share: its parameters th, the series'
+// changepoints, the prior scales and the split coefficients (seasonal to
+// kFs and regressors to a multiple of 4, zero past Fs and R; 1 - mm and
+// mm for the gradient).
+template <int kFs>
+__device__ __forceinline__ void fill_slot(float* rp, const Plan& pl,
+                                          const float* th, const float* s_row,
+                                          const float* ps, const float* mm,
+                                          int P, int ncp, int Fs, int R,
+                                          int lane) {
+  const int F = Fs + R;
+  for (int j = lane; j < P; j += 32) rp[pl.th + j] = th[j];
+  for (int j = lane; j < ncp; j += 32) rp[pl.s + j] = s_row[j];
+  for (int f = lane; f < F; f += 32) rp[pl.ps + f] = ps[f];
+  for (int f = lane; f < kFs; f += 32) {
+    const bool in = f < Fs;
+    const float be = in ? th[3 + ncp + f] : 0.0f;
+    const float mf = in ? mm[f] : 0.0f;
+    split_coefficient(be, mf, rp[pl.ba + f], rp[pl.bm + f]);
+    rp[pl.om + f] = in ? 1.0f - mf : 0.0f;
+    rp[pl.mm + f] = mf;
+  }
+  for (int r = lane; r < pl.R4; r += 32) {
+    const bool in = r < R;
+    const float be = in ? th[3 + ncp + Fs + r] : 0.0f;
+    const float mf = in ? mm[Fs + r] : 0.0f;
+    split_coefficient(be, mf, rp[pl.bar + r], rp[pl.bmr + r]);
+    rp[pl.omr + r] = in ? 1.0f - mf : 0.0f;
+    rp[pl.mmr + r] = mf;
+  }
+}
+
+// A cell's kFs seasonal values from its staged row, two at a time.
+template <int kFs>
+__device__ __forceinline__ void load_cell_x(const float* xrow, float* xv) {
+#pragma unroll
+  for (int f = 0; f < kFs; f += 2) {
+    const float2 v = *reinterpret_cast<const float2*>(xrow + f);
+    xv[f] = v.x;
+    xv[f + 1] = v.y;
+  }
+}
+
+// Feature totals of one cell for the row in slot rp: the seasonal columns
+// in order, then the regressors four at a time (columns past R have zero
+// coefficients and read the staged cells' finite neighbours), then the two
+// added.  kVolatile: the additive seasonal coefficients are read from
+// shared memory at each cell (gradient mode keeps its registers for the
+// column sums).
+template <int kFs, bool kVolatile>
+__device__ __forceinline__ void cell_totals(const float* xv, const float* xq,
+                                            int R, const float* rp,
+                                            const Plan& pl, bool has_mult,
+                                            float& add, float& mult) {
+  const float* r_ba = rp + pl.ba;
+  const float* r_bm = rp + pl.bm;
+  float add_s = 0.0f, mult_s = 0.0f;
+#pragma unroll
+  for (int f = 0; f < kFs; f += 4) {
+    const float4 c = kVolatile ? lds4_volatile(r_ba + f)
+                               : *reinterpret_cast<const float4*>(r_ba + f);
+    add_s = add_s + c.x * xv[f];
+    add_s = add_s + c.y * xv[f + 1];
+    add_s = add_s + c.z * xv[f + 2];
+    add_s = add_s + c.w * xv[f + 3];
+  }
+  if (has_mult) {
+#pragma unroll
+    for (int f = 0; f < kFs; f += 4) {
+      const float4 c = lds4_volatile(r_bm + f);
+      mult_s = mult_s + c.x * xv[f];
+      mult_s = mult_s + c.y * xv[f + 1];
+      mult_s = mult_s + c.z * xv[f + 2];
+      mult_s = mult_s + c.w * xv[f + 3];
+    }
+  }
+  float add_r = 0.0f, mult_r = 0.0f;
+  for (int r = 0; r < R; r += 4) {
+    const float4 c = lds4_volatile(rp + pl.bar + r);
+    const float x0 = xq[r], x1 = xq[r + 1], x2 = xq[r + 2], x3 = xq[r + 3];
+    add_r = add_r + c.x * x0;
+    add_r = add_r + c.y * x1;
+    add_r = add_r + c.z * x2;
+    add_r = add_r + c.w * x3;
+    if (has_mult) {
+      const float4 e = lds4_volatile(rp + pl.bmr + r);
+      mult_r = mult_r + e.x * x0;
+      mult_r = mult_r + e.y * x1;
+      mult_r = mult_r + e.z * x2;
+      mult_r = mult_r + e.w * x3;
+    }
+  }
+  add = add_s + add_r;
+  mult = mult_s + mult_r;
+}
+
+// A row's objective from its walk's warp sums ssr and n_obs: the negative
+// log likelihood and the priors, for its parameters r_th and prior scales
+// r_ps.
+__device__ __forceinline__ float row_objective(
+    const float* r_th, const float* r_ps, float ssr, float nobs, int ncp,
+    int F, float k_scale, float m_scale, float sigma_scale, float cp_scale) {
+  const float k = r_th[0], m = r_th[1];
+  const float sigma = sigma_of(r_th[2]);
+  float prior = 0.5f * sq(k / k_scale);
+  prior = prior + 0.5f * sq(m / m_scale);
+  prior = prior + 0.5f * sq(sigma / sigma_scale);
+  float lap = 0.0f;
+  for (int j = 0; j < ncp; ++j) lap = lap + smooth_abs(r_th[3 + j]) / cp_scale;
+  prior = prior + lap;
+  float quad = 0.0f;
+  for (int f = 0; f < F; ++f) quad = quad + sq(r_th[3 + ncp + f] / r_ps[f]);
+  prior = prior + 0.5f * quad;
+  const float nll = 0.5f * ssr / (sigma * sigma) + nobs * logf(sigma);
+  return nll + prior;
+}
+
 template <bool kGrad, int kFs, bool kLogistic>
 __global__ void __launch_bounds__(kPipeThreads, min_blocks(kGrad, kFs))
     loss_kernel(
@@ -205,14 +347,13 @@ __global__ void __launch_bounds__(kPipeThreads, min_blocks(kGrad, kFs))
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const long long i = static_cast<long long>(blockIdx.x) * kRowWarps + warp;
   const long long row0 = static_cast<long long>(blockIdx.x) * kRowWarps;
   const int nlive =
       static_cast<int>(min(static_cast<long long>(kRowWarps), N - row0));
-  const bool live = warp < kRowWarps && i < N;
+  const long long i = row0 + warp;
+  const bool live = warp < nlive;
   const long long b = live ? i % B : 0;
   const int F = Fs + R;
-  const int R4 = pl.R4;
   const bool linear = !kLogistic && growth == kLinear;
 
   unsigned long long* bars = reinterpret_cast<unsigned long long*>(sh);
@@ -221,12 +362,8 @@ __global__ void __launch_bounds__(kPipeThreads, min_blocks(kGrad, kFs))
   float* r_s = rp + pl.s;
   float* r_D = rp + pl.D;
   float* r_E = rp + pl.E;
-  float* r_ba = rp + pl.ba;
-  float* r_bm = rp + pl.bm;
   float* r_om = rp + pl.om;
   float* r_mm = rp + pl.mm;
-  float* r_bar = rp + pl.bar;
-  float* r_bmr = rp + pl.bmr;
   float* r_omr = rp + pl.omr;
   float* r_mmr = rp + pl.mmr;
   float* r_snu = rp + pl.snu;
@@ -234,54 +371,37 @@ __global__ void __launch_bounds__(kPipeThreads, min_blocks(kGrad, kFs))
   float* r_res = rp + pl.res;
   float* r_ps = rp + pl.ps;
   float* stages = sh + pl.rows0 + kRowWarps * pl.row;
-  float4* racc = reinterpret_cast<float4*>(stages + kStages * pl.sl.size) + tid;
+  float4* racc =
+      reinterpret_cast<float4*>(stages + kStages * pl.sl.size) + tid;
 
-  if (live) {
-    const float* th = theta + i * P;
-    for (int j = lane; j < P; j += 32) r_th[j] = th[j];
-    for (int j = lane; j < ncp; j += 32) r_s[j] = s[b * ncp + j];
-    for (int f = lane; f < F; f += 32) r_ps[f] = ps[f];
-    for (int f = lane; f < kFs; f += 32) {
-      const bool in = f < Fs;
-      const float be = in ? th[3 + ncp + f] : 0.0f;
-      const float mf = in ? mm[f] : 0.0f;
-      split_coefficient(be, mf, r_ba[f], r_bm[f]);
-      r_om[f] = in ? 1.0f - mf : 0.0f;
-      r_mm[f] = mf;
-    }
-    for (int r = lane; r < R4; r += 32) {
-      const bool in = r < R;
-      const float be = in ? th[3 + ncp + Fs + r] : 0.0f;
-      const float mf = in ? mm[Fs + r] : 0.0f;
-      split_coefficient(be, mf, r_bar[r], r_bmr[r]);
-      r_omr[r] = in ? 1.0f - mf : 0.0f;
-      r_mmr[r] = mf;
-    }
-  }
   // Zero the stages (the pads past a staged slice must hold finite
-  // values) and the regressor sums.
+  // values) and the regressor sums; the barriers.  The producer starts
+  // its copies at once; the row warps fill their slots meanwhile.
   for (int j = tid; j < kStages * pl.sl.size + pl.racc; j += kPipeThreads)
     stages[j] = 0.0f;
-  pipeline_init(bars, nlive, per_series);
-  const bool has_mult = any_multiplicative(mm, F);
-  __syncwarp();
-  if constexpr (kLogistic) {
-    if (live && lane == 0)
-      logistic_prefix(r_th[0], r_th[1], r_s, r_th + 3, r_D, r_E, ncp);
-  } else {
-    if (live && linear && lane == 0)
-      linear_prefix(r_s, r_th + 3, r_D, r_E, ncp);
-  }
+  pipeline_init(bars, nlive, per_series, nlive);
   fence_async_shared();
   __syncthreads();
+  const bool has_mult = any_multiplicative(mm, F);
 
   const int ntiles = (T + pl.sl.tile - 1) / pl.sl.tile;
   if (warp == kRowWarps) {
-    produce_tiles<kLogistic>(stages, pl.sl, bars, nlive, row0, B, T, R, Fs, t,
-                             y, mask, xr, xs, xs_bstride, cap);
+    produce_tiles<kLogistic>(stages, pl.sl, bars, nlive, row0, B, T, R, Fs,
+                             t, y, mask, xr, xs, xs_bstride, cap);
     return;
   }
   if (!live) return;
+
+  fill_slot<kFs>(rp, pl, theta + i * P, s + b * ncp, ps, mm, P, ncp, Fs, R,
+                 lane);
+  __syncwarp();
+  if constexpr (kLogistic) {
+    if (lane == 0)
+      logistic_prefix(r_th[0], r_th[1], r_s, r_th + 3, r_D, r_E, ncp);
+  } else {
+    if (linear && lane == 0) linear_prefix(r_s, r_th + 3, r_D, r_E, ncp);
+  }
+  __syncwarp();
 
   // k, m and sigma are read again after the walk: the walk keeps only
   // 1 / sigma^2 and the lane's segment line in registers.
@@ -351,55 +471,10 @@ __global__ void __launch_bounds__(kPipeThreads, min_blocks(kGrad, kFs))
         // Feature totals: seasonal columns in order, then regressors.
         float xv[kFs];
         const float* xrow = xp + cl * Fs;
-#pragma unroll
-        for (int f = 0; f < kFs; f += 2) {
-          const float2 v = *reinterpret_cast<const float2*>(xrow + f);
-          xv[f] = v.x;
-          xv[f + 1] = v.y;
-        }
-        float add_s = 0.0f, mult_s = 0.0f;
-#pragma unroll
-        for (int f = 0; f < kFs; f += 4) {
-          // Gradient mode keeps its registers for the column sums.
-          const float4 c = kGrad ? lds4_volatile(r_ba + f)
-                                 : *reinterpret_cast<const float4*>(r_ba + f);
-          add_s = add_s + c.x * xv[f];
-          add_s = add_s + c.y * xv[f + 1];
-          add_s = add_s + c.z * xv[f + 2];
-          add_s = add_s + c.w * xv[f + 3];
-        }
-        if (has_mult) {
-#pragma unroll
-          for (int f = 0; f < kFs; f += 4) {
-            const float4 c = lds4_volatile(r_bm + f);
-            mult_s = mult_s + c.x * xv[f];
-            mult_s = mult_s + c.y * xv[f + 1];
-            mult_s = mult_s + c.z * xv[f + 2];
-            mult_s = mult_s + c.w * xv[f + 3];
-          }
-        }
-        // Regressors four at a time; columns past R have zero
-        // coefficients and read the staged cells' finite neighbours.
+        load_cell_x<kFs>(xrow, xv);
         const float* xq = rxp + cl * R;
-        float add_r = 0.0f, mult_r = 0.0f;
-        for (int r = 0; r < R; r += 4) {
-          const float4 c = lds4_volatile(r_bar + r);
-          const float x0 = xq[r], x1 = xq[r + 1], x2 = xq[r + 2],
-                      x3 = xq[r + 3];
-          add_r = add_r + c.x * x0;
-          add_r = add_r + c.y * x1;
-          add_r = add_r + c.z * x2;
-          add_r = add_r + c.w * x3;
-          if (has_mult) {
-            const float4 e = lds4_volatile(r_bmr + r);
-            mult_r = mult_r + e.x * x0;
-            mult_r = mult_r + e.y * x1;
-            mult_r = mult_r + e.z * x2;
-            mult_r = mult_r + e.w * x3;
-          }
-        }
-        const float add = add_s + add_r;
-        const float mult = mult_s + mult_r;
+        float add, mult;
+        cell_totals<kFs, kGrad>(xv, xq, R, rp, pl, has_mult, add, mult);
         const float yhat = g * (1.0f + mult) + add;
         const float mk = mp[cl];
         const float res = (yp[cl] - yhat) * mk;
@@ -536,34 +611,196 @@ __global__ void __launch_bounds__(kPipeThreads, min_blocks(kGrad, kFs))
                   sigma / (sigma_scale * sigma_scale));
     }
   }
-  if (lane == 0) {
-    float prior = 0.5f * sq(k / k_scale);
-    prior = prior + 0.5f * sq(m / m_scale);
-    prior = prior + 0.5f * sq(sigma / sigma_scale);
-    float lap = 0.0f;
-    for (int j = 0; j < ncp; ++j) lap = lap + smooth_abs(r_th[3 + j]) / cp_scale;
-    prior = prior + lap;
-    float quad = 0.0f;
-    for (int f = 0; f < F; ++f) quad = quad + sq(r_th[3 + ncp + f] / r_ps[f]);
-    prior = prior + 0.5f * quad;
-    const float nll = 0.5f * ssr / (sigma * sigma) + nobs * logf(sigma);
-    f_out[i] = nll + prior;
+  if (lane == 0)
+    f_out[i] = row_objective(r_th, r_ps, ssr, nobs, ncp, F, k_scale, m_scale,
+                             sigma_scale, cp_scale);
+}
+
+// The trial-stack layout's kernel (value mode; see the header): warp w
+// of block x scores trials j0 .. j0 + 2 of series b, j0 = 21 g + 3 w, on
+// the one data row its block stages.
+template <int kFs, bool kLogistic>
+__global__ void __launch_bounds__(kPipeThreads,
+                                  kFs <= 24 ? 3 : min_blocks(false, kFs))
+    stack_kernel(const float* __restrict__ theta, const float* __restrict__ t,
+                 const float* __restrict__ y, const float* __restrict__ mask,
+                 const float* __restrict__ cap, const float* __restrict__ s,
+                 const float* __restrict__ xs, long long xs_bstride,
+                 const float* __restrict__ xr, const float* __restrict__ ps,
+                 const float* __restrict__ mm, float* __restrict__ f_out,
+                 int N, int B, int T, int P, int ncp, int Fs, int R,
+                 int growth, float k_scale, float m_scale, float sigma_scale,
+                 float cp_scale) {
+  constexpr int kTW = kTrialsPerWarp;
+  extern __shared__ __align__(16) float sh[];
+  const bool per_series = xs_bstride != 0;
+  const Plan pl(false, kFs, P, ncp, Fs, R, per_series, kLogistic, true);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int n = N / B;
+  const int groups = (n + kStackTrials - 1) / kStackTrials;
+  const long long b = blockIdx.x / groups;
+  const int g0 = static_cast<int>(blockIdx.x % groups) * kStackTrials;
+  const int j0 = g0 + warp * kTW;      // this warp's first trial
+  const int ntr = min(kTW, n - j0);    // its trials
+  const int nlive = (min(kStackTrials, n - g0) + kTW - 1) / kTW;
+  const bool live = warp < nlive;
+  const int F = Fs + R;
+  const bool linear = !kLogistic && growth == kLinear;
+
+  unsigned long long* bars = reinterpret_cast<unsigned long long*>(sh);
+  float* slots = sh + pl.rows0 + warp * kTW * pl.row;  // trial k: + k row
+  float* stages = sh + pl.rows0 + kStackTrials * pl.row;
+
+  for (int j = tid; j < kStages * pl.sl.size; j += kPipeThreads)
+    stages[j] = 0.0f;
+  pipeline_init(bars, nlive, per_series, 1);
+  fence_async_shared();
+  __syncthreads();
+  const bool has_mult = any_multiplicative(mm, F);
+
+  const int ntiles = (T + pl.sl.tile - 1) / pl.sl.tile;
+  if (warp == kRowWarps) {
+    produce_tiles<kLogistic>(stages, pl.sl, bars, 1, b, B, T, R, Fs, t, y,
+                             mask, xr, xs, xs_bstride, cap);
+    return;
+  }
+  if (!live) return;
+
+  // Each trial's slot (a warp with fewer trials repeats its last one, its
+  // value not written), then each trial's prefix sums, lane k trial k's.
+#pragma unroll
+  for (int k = 0; k < kTW; ++k) {
+    const long long i = static_cast<long long>(j0 + min(k, ntr - 1)) * B + b;
+    fill_slot<kFs>(slots + k * pl.row, pl, theta + i * P, s + b * ncp, ps,
+                   mm, P, ncp, Fs, R, lane);
+  }
+  __syncwarp();
+  if (lane < kTW) {
+    float* rp = slots + lane * pl.row;
+    if constexpr (kLogistic) {
+      logistic_prefix(rp[pl.th], rp[pl.th + 1], rp + pl.s, rp + pl.th + 3,
+                      rp + pl.D, rp + pl.E, ncp);
+    } else {
+      if (linear) linear_prefix(rp + pl.s, rp + pl.th + 3, rp + pl.D,
+                                rp + pl.E, ncp);
+    }
+  }
+  __syncwarp();
+
+  // The row layout's walk, its trend and sums kept for each trial; the
+  // changepoint segment is the series', so all trials share it.
+  const float* r_s = slots + pl.s;
+  const float inf = __int_as_float(0x7f800000);
+  float ssr[kTW], rate[kTW], off[kTW];
+  Line line[kTW];
+  float nobs = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kTW; ++k) {
+    const float* r_th = slots + k * pl.row + pl.th;
+    ssr[k] = 0.0f;
+    line[k] = segment_line(r_th[0], r_th[1], 0.0f, 0.0f);
+    rate[k] = off[k] = 0.0f;
+    if constexpr (kLogistic) {
+      rate[k] = r_th[0] + slots[k * pl.row + pl.D];
+      off[k] = r_th[1] + slots[k * pl.row + pl.E];
+    }
+  }
+  int nl = 0;
+  float s_lo = -inf;
+  float s_hi = ncp > 0 ? r_s[0] : inf;
+
+  for (int it = 0; it < ntiles; ++it) {
+    mbar_wait(bars + it % kStages, (it / kStages) & 1);
+    const int t0 = it * pl.sl.tile;
+    const int nc = min(pl.sl.tile, T - t0);
+    const long long c0 = b * T + t0;
+    const float* st = stages + (it % kStages) * pl.sl.size;
+    const float* tp = st + pl.sl.t + (c0 & 3);
+    const float* yp = st + pl.sl.y + (c0 & 3);
+    const float* mp = st + pl.sl.m + (c0 & 3);
+    const float* cp = st + pl.sl.c + (c0 & 3);
+    const float* rxp = st + pl.sl.r + ((c0 * R) & 3);
+    const float* xp = st + pl.sl.x0 +
+                      ((b * xs_bstride + static_cast<long long>(t0) * Fs) & 3);
+    for (int step = 0; step < nc; step += 32) {
+      const int cl = step + lane;
+      if (cl < nc) {
+        const float tv = tp[cl];
+        if constexpr (kLogistic) {
+          if (!(tv >= s_lo && tv < s_hi)) {
+            nl = active_changepoints_at(tv, r_s, ncp, nl);
+            s_lo = nl > 0 ? r_s[nl - 1] : -inf;
+            s_hi = nl < ncp ? r_s[nl] : inf;
+#pragma unroll
+            for (int k = 0; k < kTW; ++k) {
+              const float* rp = slots + k * pl.row;
+              rate[k] = rp[pl.th] + rp[pl.D + nl];
+              off[k] = rp[pl.th + 1] + rp[pl.E + nl];
+            }
+          }
+        } else if (linear) {
+          if (!(tv > s_lo) || tv > s_hi) {
+            nl = active_changepoints(tv, r_s, ncp, nl);
+            s_lo = nl > 0 ? r_s[nl - 1] : -inf;
+            s_hi = nl < ncp ? r_s[nl] : inf;
+#pragma unroll
+            for (int k = 0; k < kTW; ++k) {
+              const float* rp = slots + k * pl.row;
+              line[k] = segment_line(rp[pl.th], rp[pl.th + 1], rp[pl.D + nl],
+                                     rp[pl.E + nl]);
+            }
+          }
+        }
+        const float capv = kLogistic ? cp[cl] : 0.0f;
+        float xv[kFs];
+        load_cell_x<kFs>(xp + cl * Fs, xv);
+        const float* xq = rxp + cl * R;
+        const float mk = mp[cl];
+        const float yv = yp[cl];
+#pragma unroll
+        for (int k = 0; k < kTW; ++k) {
+          const float* rp = slots + k * pl.row;
+          float g = rp[pl.th + 1];
+          if constexpr (kLogistic) {
+            g = capv * sigmoid(rate[k] * (tv - off[k]));
+          } else if (linear) {
+            g = linear_trend(tv, line[k]);
+          }
+          float add, mult;
+          cell_totals<kFs, false>(xv, xq, R, rp, pl, has_mult, add, mult);
+          const float yhat = g * (1.0f + mult) + add;
+          const float res = (yv - yhat) * mk;
+          ssr[k] = ssr[k] + res * res;
+        }
+        nobs = nobs + mk;
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bars + kStages + it % kStages);
+  }
+
+  nobs = warp_sum(nobs);
+#pragma unroll
+  for (int k = 0; k < kTW; ++k) {
+    const float v = warp_sum(ssr[k]);
+    if (lane == 0 && k < ntr) {
+      const float* rp = slots + k * pl.row;
+      f_out[static_cast<long long>(j0 + k) * B + b] =
+          row_objective(rp + pl.th, rp + pl.ps, v, nobs, ncp, F, k_scale,
+                        m_scale, sigma_scale, cp_scale);
+    }
   }
 }
 
-template <bool kGrad, int kFs, bool kLogistic>
-int launch(const float* theta, const float* t, const float* y,
-           const float* mask, const float* cap, const float* s,
-           const float* xs, long long xs_bstride, const float* xr,
-           const float* ps,
-           const float* mm, float* f_out, float* g_out, int N, int B, int T,
-           int P, int ncp, int Fs, int R, int growth, float k_scale,
-           float m_scale, float sigma_scale, float cp_scale,
-           cudaStream_t st) {
-  const Plan pl(kGrad, kFs, P, ncp, Fs, R, xs_bstride != 0, kLogistic);
-  const size_t bytes = sizeof(float) * static_cast<size_t>(pl.total);
-  if (bytes > kMaxSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = loss_kernel<kGrad, kFs, kLogistic>;
+// Set a kernel's dynamic shared memory (past 48 KB) and carve-out, then
+// launch it on `grid` blocks.
+template <class Kernel, class... Args>
+int launch_kernel(Kernel kernel, long long grid, size_t bytes,
+                  cudaStream_t st, Args... args) {
+  if (bytes > kMaxSmemBytes || grid > 0x7fffffffll)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -573,26 +810,54 @@ int launch(const float* theta, const float* t, const float* y,
   // Room for two blocks a multiprocessor where they fit.
   cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                        cudaSharedmemCarveoutMaxShared);
-  const int grid = (N + kRowWarps - 1) / kRowWarps;
-  kernel<<<grid, kPipeThreads, bytes, st>>>(
-      theta, t, y, mask, cap, s, xs, xs_bstride, xr, ps, mm, f_out, g_out, N,
-      B, T, P, ncp, Fs, R, growth, k_scale, m_scale, sigma_scale, cp_scale);
+  kernel<<<static_cast<unsigned>(grid), kPipeThreads, bytes, st>>>(args...);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch of one instantiation: the row layout (7 rows a block) or, in
+// value mode with `stack`, the trial-stack layout (ceil(n / 21) blocks a
+// series).
+template <bool kGrad, int kFs, bool kLogistic>
+int launch(const float* theta, const float* t, const float* y,
+           const float* mask, const float* cap, const float* s,
+           const float* xs, long long xs_bstride, const float* xr,
+           const float* ps, const float* mm, float* f_out, float* g_out,
+           int N, int B, int T, int P, int ncp, int Fs, int R, int growth,
+           float k_scale, float m_scale, float sigma_scale, float cp_scale,
+           bool stack, cudaStream_t st) {
+  const Plan pl(kGrad, kFs, P, ncp, Fs, R, xs_bstride != 0, kLogistic,
+                stack);
+  const size_t bytes = sizeof(float) * static_cast<size_t>(pl.total);
+  if constexpr (!kGrad) {
+    if (stack)
+      return launch_kernel(
+          stack_kernel<kFs, kLogistic>,
+          static_cast<long long>(B) * ((N / B + kStackTrials - 1) /
+                                       kStackTrials),
+          bytes, st, theta, t, y, mask, cap, s, xs, xs_bstride, xr, ps, mm,
+          f_out, N, B, T, P, ncp, Fs, R, growth, k_scale, m_scale,
+          sigma_scale, cp_scale);
+  }
+  return launch_kernel(loss_kernel<kGrad, kFs, kLogistic>,
+                       (N + kRowWarps - 1) / kRowWarps, bytes, st, theta, t,
+                       y, mask, cap, s, xs, xs_bstride, xr, ps, mm, f_out,
+                       g_out, N, B, T, P, ncp, Fs, R, growth, k_scale,
+                       m_scale, sigma_scale, cp_scale);
 }
 
 template <bool kGrad, bool kLogistic>
 int dispatch(const float* theta, const float* t, const float* y,
              const float* mask, const float* cap, const float* s,
              const float* xs, long long xs_bstride, const float* xr,
-             const float* ps,
-             const float* mm, float* f_out, float* g_out, int N, int B,
-             int T, int P, int ncp, int Fs, int R, int growth, float k_scale,
-             float m_scale, float sigma_scale, float cp_scale,
-             cudaStream_t st) {
+             const float* ps, const float* mm, float* f_out, float* g_out,
+             int N, int B, int T, int P, int ncp, int Fs, int R, int growth,
+             float k_scale, float m_scale, float sigma_scale, float cp_scale,
+             bool stack, cudaStream_t st) {
 #define TSSPARK_LOSS(KF)                                                     \
   return launch<kGrad, KF, kLogistic>(                                       \
       theta, t, y, mask, cap, s, xs, xs_bstride, xr, ps, mm, f_out, g_out, N, \
-      B, T, P, ncp, Fs, R, growth, k_scale, m_scale, sigma_scale, cp_scale, st)
+      B, T, P, ncp, Fs, R, growth, k_scale, m_scale, sigma_scale, cp_scale,  \
+      stack, st)
   if (Fs <= 8) TSSPARK_LOSS(8);
   if (Fs <= 16) TSSPARK_LOSS(16);
   if (Fs <= 24) TSSPARK_LOSS(24);
@@ -605,14 +870,19 @@ int dispatch(const float* theta, const float* t, const float* y,
 }  // namespace
 
 // cap: (B, T) capacities for logistic growth, null for linear and flat.
+// stack: 1 for the trial-stack layout (value mode, N a multiple of B),
+// 0 for the row layout.
 extern "C" int tsspark_loss(
     const float* theta, const float* t, const float* y, const float* mask,
     const float* cap, const float* s, const float* xs, long long xs_bstride,
     const float* xr, const float* ps, const float* mm, float* f_out,
     float* g_out, int N,
     int B, int T, int P, int ncp, int Fs, int R, int growth, float k_scale,
-    float m_scale, float sigma_scale, float cp_scale, void* stream) {
+    float m_scale, float sigma_scale, float cp_scale, int stack,
+    void* stream) {
   if (N == 0) return 0;
+  if (stack && (g_out != nullptr || B <= 0 || N % B != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   const bool logistic = growth == kLogistic;
   const unsigned long long align = reinterpret_cast<unsigned long long>(t) |
       reinterpret_cast<unsigned long long>(y) |
@@ -628,7 +898,7 @@ extern "C" int tsspark_loss(
   return dispatch<GRAD, LOGI>(theta, t, y, mask, cap, s, xs, xs_bstride, xr, \
                               ps, mm, f_out, G, N, B, T, P, ncp, Fs, R,      \
                               growth, k_scale, m_scale, sigma_scale,         \
-                              cp_scale, st)
+                              cp_scale, stack != 0, st)
   if (logistic) {
     if (g_out != nullptr) TSSPARK_DISPATCH(true, true, g_out);
     TSSPARK_DISPATCH(false, true, nullptr);

@@ -258,34 +258,61 @@ __device__ __forceinline__ void feature_totals(const float* x0, int Fs,
   }
 }
 
-// Feature totals of ONE cell with each feature's coefficients fetched as
-// it is summed (K6: every sample of a row its own coefficients):
-// coef(f, a, m) gives feature f's additive and multiplicative
-// coefficients, xs[f] and xr[r] are the cell's seasonal and regressor
-// values.  The order of feature_totals: the Fs seasonal columns, then the
-// R regressor columns, then the two added.
-template <class Coef>
-__device__ __forceinline__ void feature_totals_cell(const float* xs, int Fs,
-                                                    const float* xr, int R,
-                                                    Coef coef, float& add,
-                                                    float& mult) {
-  float add_s = 0.0f, mult_s = 0.0f, add_r = 0.0f, mult_r = 0.0f;
+// Feature totals of C consecutive cells of one row with its own
+// coefficients (K6: every sample of a row has its own; C = 4, or 1 for a
+// tile's last steps): coef(f, a, m) gives feature f's additive and
+// multiplicative coefficients, fetched once for the C cells; xs and xr
+// hold the cells' seasonal and regressor values transposed, feature f's
+// C at xs + f ld (for C = 4 one 16-byte-aligned load: xs and ld multiples
+// of 4 floats) and regressor r's at xr + r ld.  Per cell, the order of
+// feature_totals: the Fs seasonal columns, then the R regressor columns,
+// then the two added.
+template <int C, class Coef>
+__device__ __forceinline__ void feature_totals_steps(const float* xs, int Fs,
+                                                     const float* xr, int R,
+                                                     int ld, Coef coef,
+                                                     float* add, float* mult) {
+  static_assert(C == 1 || C == 4, "one cell or four");
+  float add_s[C], mult_s[C], add_r[C], mult_r[C];
+#pragma unroll
+  for (int q = 0; q < C; ++q)
+    add_s[q] = mult_s[q] = add_r[q] = mult_r[q] = 0.0f;
+  const auto cells = [&](const float* p, float* x) {
+    if constexpr (C == 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p);
+      x[0] = v.x;
+      x[1] = v.y;
+      x[2] = v.z;
+      x[3] = v.w;
+    } else {
+      x[0] = p[0];
+    }
+  };
   for (int f = 0; f < Fs; ++f) {
-    float a, m;
+    float a, m, x[C];
     coef(f, a, m);
-    const float x = xs[f];
-    add_s = add_s + a * x;
-    mult_s = mult_s + m * x;
+    cells(xs + f * ld, x);
+#pragma unroll
+    for (int q = 0; q < C; ++q) {
+      add_s[q] = add_s[q] + a * x[q];
+      mult_s[q] = mult_s[q] + m * x[q];
+    }
   }
   for (int r = 0; r < R; ++r) {
-    float a, m;
+    float a, m, x[C];
     coef(Fs + r, a, m);
-    const float x = xr[r];
-    add_r = add_r + a * x;
-    mult_r = mult_r + m * x;
+    cells(xr + r * ld, x);
+#pragma unroll
+    for (int q = 0; q < C; ++q) {
+      add_r[q] = add_r[q] + a * x[q];
+      mult_r[q] = mult_r[q] + m * x[q];
+    }
   }
-  add = add_s + add_r;
-  mult = mult_s + mult_r;
+#pragma unroll
+  for (int q = 0; q < C; ++q) {
+    add[q] = add_s[q] + add_r[q];
+    mult[q] = mult_s[q] + mult_r[q];
+  }
 }
 
 __device__ __forceinline__ float sigma_of(float log_sigma) {
@@ -460,14 +487,16 @@ constexpr int kMaxSmemBytes = 232448;  // a block's shared memory, sm_90
 
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 
-// One stage, in floats: each row's slot (t, y, mask, the capacity where
-// the trend is logistic, and regressor cells, 8 floats of room each for
-// the 16-byte pieces around them), then the seasonal slice(s) with kFs
-// floats of room past the last cell's columns.
+// One stage, in floats: each staged row's slot (t, y, mask, the capacity
+// where the trend is logistic, and regressor cells, 8 floats of room each
+// for the 16-byte pieces around them), then the seasonal slice(s) with kFs
+// floats of room past the last cell's columns.  `rows` staged rows: one a
+// row warp, or one for the whole block where its row warps share a data
+// row (K3's trial-stack layout).
 struct StageLayout {
   int tile, t, y, m, c, r, row, x0, x1, size;
   __host__ __device__ StageLayout(int kFs, int Fs, int R, bool per_series,
-                                  bool cap = false) {
+                                  bool cap = false, int rows = kRowWarps) {
     tile = per_series ? kSeriesTile : kSharedTile;
     t = 0;
     y = t + tile + 8;
@@ -475,16 +504,19 @@ struct StageLayout {
     c = m + tile + 8;
     r = cap ? c + tile + 8 : c;
     row = r + round4(tile * R) + 8;
-    x0 = kRowWarps * row;
+    x0 = rows * row;
     x1 = round4(tile * Fs) + 8 + kFs;
-    size = x0 + (per_series ? kRowWarps : 1) * x1;
+    size = x0 + (per_series ? rows : 1) * x1;
   }
 };
 
+// full[s] expects the producer lanes of `nstaged` staged rows (and the
+// shared seasonal slice's lane), empty[s] the `nlive` row warps.
 __device__ __forceinline__ void pipeline_init(unsigned long long* bars,
-                                              int nlive, bool per_series) {
+                                              int nlive, bool per_series,
+                                              int nstaged) {
   for (int s = threadIdx.x; s < kStages; s += blockDim.x) {
-    mbar_init(bars + s, per_series ? 2 * nlive : nlive + 1);
+    mbar_init(bars + s, per_series ? 2 * nstaged : nstaged + 1);
     mbar_init(bars + kStages + s, nlive);
   }
 }
@@ -502,18 +534,18 @@ __device__ __forceinline__ void stage_arrive(float* dst, const float* base,
   stage_bulk(dst, base, p, full);
 }
 
-// The producer warp's whole walk over T for the rows row0 .. row0 + nlive
-// (data row (row0 + w) % B), every tile once its stage is empty; with
-// kCap, each row's capacity cells too.
+// The producer warp's whole walk over T for the nrows staged rows row0 ..
+// row0 + nrows - 1 (slot w: data row (row0 + w) % B), every tile once its
+// stage is empty; with kCap, each row's capacity cells too.
 template <bool kCap = false>
 __device__ __forceinline__ void produce_tiles(
-    float* stages, const StageLayout& sl, unsigned long long* bars, int nlive,
+    float* stages, const StageLayout& sl, unsigned long long* bars, int nrows,
     long long row0, int B, int T, int R, int Fs, const float* t,
     const float* y, const float* mask, const float* xr, const float* xs,
     long long xs_bstride, const float* cap = nullptr) {
   const int lane = threadIdx.x & 31;
   const bool per_series = xs_bstride != 0;
-  const bool row_lane = lane < nlive;
+  const bool row_lane = lane < nrows;
   const long long b = row_lane ? (row0 + lane) % B : 0;
   const bool x_lane = per_series ? row_lane : lane == 31;
   const long long cells = static_cast<long long>(B) * T;

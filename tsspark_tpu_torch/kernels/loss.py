@@ -7,13 +7,17 @@ sums the kernel takes (``csrc/loss.cu``), with logistic growth's pull
 back through the offset recursion on top (the kernel's logistic branch
 takes the same pull-back).  On a CUDA tensor it launches the kernel or
 raises.  ``launches`` counts kernel launches, ``grad_launches`` those in
-gradient mode among them.
+gradient mode among them, ``stack_launches`` those in the trial-stack
+layout.
 
 ``theta`` may hold N stacked copies of the batch, (N * B, P) for a (B, T)
 ``data``: row i is scored on data row i % B (the stacked line-search
-trials of logistic and flat growth, and the fallback row).  The kernel
-needs ``t`` rising along each row and ascending changepoints, as
-``prepare_fit_data`` builds them (K4 too).
+trials of logistic and flat growth, and the fallback row).  In value mode
+such a stack (N > 1) goes through the kernel's trial-stack layout, which
+stages each data row once for 21 trials, three a warp
+(``stack_block_rows``); a row's value is the same bits in either layout.  The kernel needs ``t``
+rising along each row and ascending changepoints, as ``prepare_fit_data``
+builds them (K4 too).
 """
 
 from __future__ import annotations
@@ -30,17 +34,21 @@ from tsspark_tpu_torch.kernels.forward import (
     aligned16,
 )
 
-#: Kernel launches since the count was last set to 0, and those of them
-#: in gradient mode.
+#: Kernel launches since the count was last set to 0, those of them in
+#: gradient mode, and those in the trial-stack layout.
 launches = 0
 grad_launches = 0
+stack_launches = 0
 
 # The K3 / K4 kernels' shared-memory plan (csrc/loss.cu, csrc/fan.cu
 # ``Plan``): a block of ROWS row warps, one row each, and one producer
 # warp walks T in tiles through a STAGES-deep pipeline; seasonal columns
-# are unrolled to the next of _FS_BUCKETS.
+# are unrolled to the next of _FS_BUCKETS.  K3's trial-stack layout gives
+# each row warp TRIALS_PER_WARP trials of one series and stages one row a
+# stage.
 ROWS = 7
 STAGES = 2
+TRIALS_PER_WARP = 3
 _FS_BUCKETS = (8, 16, 24, 32, 48, 64)
 _MAX_SMEM_BYTES = 232448
 
@@ -49,12 +57,40 @@ def _r4(n: int) -> int:
     return (n + 3) & ~3
 
 
+def uses_stack_layout(n_rows: int, b: int, grad: bool) -> bool:
+    """Whether ``loss`` launches the trial-stack layout: value mode on a
+    stack of more than one copy of the batch."""
+    return not grad and n_rows > b
+
+
+def stack_block_rows(n_trials: int, b: int) -> list:
+    """The trial-stack layout's block plan (``csrc/loss.cu``,
+    ``stack_kernel``): for each block in launch order, the rows of each of
+    its row warps.  Series s takes ceil(n_trials / (ROWS *
+    TRIALS_PER_WARP)) consecutive blocks; warp w of block g of them holds
+    trials j = ROWS TRIALS_PER_WARP g + TRIALS_PER_WARP w + k, k <
+    TRIALS_PER_WARP (those below n_trials), trial j's row being j b + s;
+    warps past the last trial hold none."""
+    per_block = ROWS * TRIALS_PER_WARP
+    groups = -(-n_trials // per_block)
+    plan = []
+    for x in range(b * groups):
+        series, g0 = x // groups, (x % groups) * per_block
+        warps = []
+        for w in range(ROWS):
+            j0 = g0 + w * TRIALS_PER_WARP
+            warps.append([j * b + series for j in range(
+                j0, min(j0 + TRIALS_PER_WARP, n_trials))])
+        plan.append(warps)
+    return plan
+
+
 def smem_bytes(kernel: str, config: ProphetConfig, per_series: bool,
-               grad: bool = True) -> int:
+               grad: bool = True, stack: bool = False) -> int:
     """Bytes of shared memory one block of the ``"loss"`` or ``"fan"``
     kernel takes for ``config`` (the loss kernel stages each row's
-    capacity too under logistic growth); ValueError past the kernels'
-    limits."""
+    capacity too under logistic growth; ``stack``: its trial-stack
+    layout); ValueError past the kernels' limits."""
     ncp = config.n_changepoints
     fs = config.num_seasonal_features
     r = config.num_regressors
@@ -73,10 +109,15 @@ def smem_bytes(kernel: str, config: ProphetConfig, per_series: bool,
                + 4 * _r4(r) + 16 + _r4(fs + r))
     streams = 4 if kernel == "loss" and config.growth == "logistic" else 3
     st_row = streams * (tile + 8) + _r4(tile * r) + 8
-    st_x = (_r4(tile * fs) + 8 + kfs) * (ROWS if per_series else 1)
-    racc = _r4(r) * 32 * (ROWS + 1) if kernel == "loss" and grad else 0
-    total = 4 * (4 * STAGES + ROWS * row + STAGES * (ROWS * st_row + st_x)
-                 + racc)
+    st_x = _r4(tile * fs) + 8 + kfs
+    if stack:
+        total = 4 * (4 * STAGES + ROWS * TRIALS_PER_WARP * row
+                     + STAGES * (st_row + st_x))
+    else:
+        st_x *= ROWS if per_series else 1
+        racc = _r4(r) * 32 * (ROWS + 1) if kernel == "loss" and grad else 0
+        total = 4 * (4 * STAGES + ROWS * row
+                     + STAGES * (ROWS * st_row + st_x) + racc)
     if total > _MAX_SMEM_BYTES:
         raise ValueError(
             f"{kernel} kernel: {ncp} changepoints, {fs} seasonal and {r} "
@@ -259,7 +300,7 @@ def loss(theta: torch.Tensor, data, config: ProphetConfig,
          grad: bool = True
          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The objective (and its gradient); see ``loss_plain``."""
-    global launches, grad_launches
+    global launches, grad_launches, stack_launches
     dev = theta.device
     if dev.type == "cpu":
         return loss_plain(theta, data, config, grad)
@@ -273,7 +314,8 @@ def loss(theta: torch.Tensor, data, config: ProphetConfig,
     f_all = fs + r
     if b == 0 or n % b:
         raise ValueError(f"loss: {n} parameter rows for {b} data rows")
-    smem_bytes("loss", config, data.X_season.ndim == 3, grad)
+    stack = uses_stack_layout(n, b, grad)
+    smem_bytes("loss", config, data.X_season.ndim == 3, grad, stack)
     _require("theta", theta, (n, config.num_params), dev)
     logistic = config.growth == "logistic"
     for name in ("t", "y", "mask") + (("cap",) if logistic else ()):
@@ -307,9 +349,10 @@ def loss(theta: torch.Tensor, data, config: ProphetConfig,
             n, b, t_len, config.num_params, ncp, fs, r,
             GROWTH_CODES[config.growth], config.k_prior_scale,
             config.m_prior_scale, config.sigma_prior_scale,
-            config.changepoint_prior_scale, stream,
+            config.changepoint_prior_scale, int(stack), stream,
         )
     build.check(err, "loss")
     launches += 1
     grad_launches += bool(grad)
+    stack_launches += stack
     return f, g
