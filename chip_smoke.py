@@ -256,6 +256,19 @@ def synthetic_data(rng, config, b: int, t_len: int, per_series: bool,
     )
 
 
+def trend_ops(config) -> tuple:
+    """Float32 operations of the trend, (a cell, a row).  t rises along a
+    row, so a cell takes its segment's line (linear: one multiply-add) or
+    its rate and offset (logistic: rate (t - off), the sigmoid's
+    exponential, add and reciprocal, the capacity) in O(1); the prefix
+    sums over the changepoints (linear) or the offset recursion
+    (logistic, ~8 a step) are taken once a row.  Flat growth's trend is
+    m: none."""
+    ncp = config.n_changepoints
+    return {"flat": (0, 0), "linear": (2, 3 * ncp),
+            "logistic": (6, 8 * ncp)}[config.growth]
+
+
 def forward_bound_ms(b, t_len, config, per_series, rescale) -> dict:
     """Least time for one forward launch: each input read once, each
     output written once, against the float32 operation count."""
@@ -269,11 +282,10 @@ def forward_bound_ms(b, t_len, config, per_series, rescale) -> dict:
         floats += b * t_len
     if rescale:
         floats += 2 * b
-    ops_cell = 4 * f + 3 + (5 if rescale else 0) + {
-        "linear": 2 + 3 * ncp, "logistic": 10 + 3 * ncp, "flat": 0,
-    }[config.growth]
+    trend_cell, trend_row = trend_ops(config)
+    ops_cell = 4 * f + 3 + (5 if rescale else 0) + trend_cell
     t_bytes = 4 * floats / PEAK_BYTES_PER_S * 1e3
-    t_ops = b * t_len * ops_cell / PEAK_F32_PER_S * 1e3
+    t_ops = b * (t_len * ops_cell + trend_row) / PEAK_F32_PER_S * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -327,22 +339,28 @@ def loss_bound_ms(n_rows, b, t_len, config, grad) -> dict:
     """Least time for one K3 launch: t, y, mask (and cap under logistic
     growth) and the regressor columns of every cell, the shared seasonal
     matrix, changepoints and parameters read once, f (and g) written once;
-    against the float32 operations of the loss (trend, features,
-    residual, sums) and, in gradient mode, of the 2 + n_cp + F gradient
-    sums.  A stack of trial rows (n_rows = N * b) reads the data once."""
+    against the float32 operations of the loss (``trend_ops``, features,
+    residual, sums; the priors once a row) and, in gradient mode, of the
+    2 + n_cp + F gradient sums: the changepoints' as suffix sums of the
+    trend's own (linear: sum u, sum u t; logistic: the sigmoid's slope
+    and two sums a cell), taken once a row at the boundaries (logistic:
+    then the recursion's pull-back).  A stack of trial rows (n_rows =
+    N * b) reads the data once."""
     ncp, fs, r = (config.n_changepoints, config.num_seasonal_features,
                   config.num_regressors)
     f, p = fs + r, config.num_params
     logistic = config.growth == "logistic"
     floats = (3 + r + logistic) * b * t_len + t_len * fs + b * ncp + 2 * f \
         + n_rows * p + n_rows * (1 + (p if grad else 0))
-    # The trend: hinge sums (linear), or two step sums and a sigmoid.
-    trend = 4 * ncp + 7 if logistic else 2 + 3 * ncp
-    ops_cell = trend + 4 * f + 3 + 4
+    trend_cell, trend_row = trend_ops(config)
+    ops_cell = trend_cell + 4 * f + 3 + 4
+    ops_row = trend_row + 5 * ncp + 3 * f
     if grad:
-        ops_cell += 5 + 3 + (4 * ncp + 8 if logistic else 3 * ncp) + 5 * f
+        ops_cell += 5 + 3 + 5 * f + (8 if logistic else 0)
+        ops_row += {"flat": 0, "linear": 3, "logistic": 15}[
+            config.growth] * ncp
     t_bytes = 4 * floats / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_rows * t_len * ops_cell / PEAK_F32_PER_S * 1e3
+    t_ops = n_rows * (t_len * ops_cell + ops_row) / PEAK_F32_PER_S * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -350,15 +368,17 @@ def loss_bound_ms(n_rows, b, t_len, config, grad) -> dict:
 def fan_bound_ms(b, t_len, k_steps, config) -> dict:
     """Least time for one K4 launch: the row data as K3 reads it, theta,
     the direction and the (K, B) ladder read once, (K, B) written once;
-    against the float32 operations of two forward passes and the six
-    sums per cell, and O(n_cp) per rung."""
+    against the float32 operations of two forward passes (``trend_ops``)
+    and the six sums per cell, and O(n_cp) per rung."""
     ncp, fs, r = (config.n_changepoints, config.num_seasonal_features,
                   config.num_regressors)
     f, p = fs + r, config.num_params
     floats = (3 + r) * b * t_len + t_len * fs + b * ncp + 2 * f \
         + 2 * b * p + 2 * k_steps * b
-    ops_cell = 2 * (2 + 3 * ncp) + 2 * 4 * f + 26
-    ops = b * t_len * ops_cell + k_steps * b * (30 + 4 * ncp)
+    trend_cell, trend_row = trend_ops(config)
+    ops_cell = 2 * trend_cell + 2 * 4 * f + 26
+    ops = b * (t_len * ops_cell + 2 * trend_row) \
+        + k_steps * b * (30 + 4 * ncp)
     t_bytes = 4 * floats / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_PER_S * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
@@ -909,6 +929,42 @@ def f64_distance(theta, data, cfg, grads) -> dict:
     return out
 
 
+def stack_past_its_plan(device, b=64, t_len=400) -> dict:
+    """A 21-trial value stack whose trial-stack plan passes the card's
+    shared memory (logistic, 300 changepoints, 64 seasonal columns) goes
+    through K3's row layout: no stack launch, every trial its own
+    launch's bits, within ``GAP_TOL`` of the plain version."""
+    import torch
+
+    from tsspark_tpu_torch.config import ProphetConfig, SeasonalityConfig
+    from tsspark_tpu_torch.kernels import loss as lk
+
+    rng = np.random.default_rng(7)
+    cfg = ProphetConfig(growth="logistic", n_changepoints=300, seasonalities=(
+        SeasonalityConfig("yearly", 365.25, 32),))
+    data = synthetic_fit_data(rng, cfg, b, t_len, False, device)
+    theta = logistic_theta(rng, b, cfg)
+    # 300 steps: keep every rate clear of 0.
+    theta[:, 3:3 + cfg.n_changepoints] *= 0.1
+    theta = torch.from_numpy(theta).to(device)
+    trials = [theta * (1.0 + 0.005 * n) for n in range(21)]
+    stack = torch.cat(trials).contiguous()
+    before = lk.stack_launches
+    s_k, _ = lk.loss(stack, data, cfg, grad=False)
+    require(lk.stack_launches == before,
+            "loss: a stack past the trial-stack plan launched that layout")
+    require(all(torch.equal(s_k[n * b:(n + 1) * b],
+                            lk.loss(p.contiguous(), data, cfg, grad=False)[0])
+                for n, p in enumerate(trials)),
+            "loss: a stack past its plan differs from its trials alone")
+    s_p, _ = lk.loss_plain(stack, data, cfg, grad=False)
+    f_scale, _ = loss_scales(theta, data, cfg)
+    gap = _gap(s_k, s_p, f_scale.repeat(21), t_len)
+    require(gap <= GAP_TOL, f"loss: a stack past its plan, gap {gap}")
+    return {"case": "logistic/ncp-300/fs-64/stack21-row-layout",
+            "gap": {"stack": gap}, "stack21_bitwise": True}
+
+
 def phase_loss(rng, device) -> dict:
     """K3 against its plain version on synthetic fit data; at rates near
     0, both against the plain version in float64 (ROADMAP Queue 3)."""
@@ -964,6 +1020,7 @@ def phase_loss(rng, device) -> dict:
             # Which float32 gradient is nearer the float64 one.
             results[-1]["f64_distance"] = f64_distance(
                 theta, data, cfg, {"k3": g_k, "plain_f32": g_p})
+    results.append(stack_past_its_plan(device))
     out = {"phase": "loss", "shape": [b, t_len],
            "tolerance": GAP_RULE,
            "cases": results}

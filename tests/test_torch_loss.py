@@ -142,10 +142,35 @@ def test_stacked_trials_reuse_the_data_rows():
     (21 * 8, 8, False, True), (2 * 8, 8, False, True), (8, 8, False, False),
     (21 * 8, 8, True, False), (8, 8, True, False),
 ])
-def test_stack_layout_dispatch_rule(n_rows, b, grad, stack):
+@pytest.mark.parametrize("per_series", [False, True])
+def test_stack_layout_dispatch_rule(n_rows, b, grad, stack, per_series):
     """The wrapper launches the trial-stack layout for value mode on a
-    stack of more than one copy of the batch, the row layout otherwise."""
-    assert loss_kernel.uses_stack_layout(n_rows, b, grad) is stack
+    stack of more than one copy of the batch, the row layout otherwise
+    (config 4: the layout's plan fits)."""
+    from tsspark_tpu_torch.eval.configs import CONFIG4
+
+    assert loss_kernel.uses_stack_layout(n_rows, b, grad, CONFIG4,
+                                         per_series) is stack
+
+
+@pytest.mark.parametrize("growth", ["logistic", "flat"])
+@pytest.mark.parametrize("ncp,order,regs", [(300, 32, 0), (400, 10, 0)])
+def test_stack_layout_gives_way_where_its_plan_does_not_fit(growth, ncp,
+                                                            order, regs):
+    """Where the trial-stack layout's 21 slots pass the card's shared
+    memory (many changepoints or columns) while the row layout's 7 still
+    fit, a value-mode stack goes through the row layout: the kernel, not
+    a refusal."""
+    cfg = tcfg.ProphetConfig(
+        growth=growth, n_changepoints=ncp,
+        seasonalities=(tcfg.SeasonalityConfig("yearly", 365.25, order),),
+        regressors=tuple(tcfg.RegressorConfig(f"r{i}")
+                         for i in range(regs)))
+    with pytest.raises(ValueError, match="shared memory"):
+        loss_kernel.smem_bytes("loss", cfg, False, False, True)
+    assert loss_kernel.smem_bytes("loss", cfg, False, False, False) \
+        <= 232448
+    assert not loss_kernel.uses_stack_layout(21 * 8, 8, False, cfg, False)
 
 
 @pytest.mark.parametrize("n_trials,b", [
@@ -356,6 +381,35 @@ def test_fit_data_rises_along_t_and_s(per_series):
     _, tc, _, data_t, _ = _case("linear", "additive", per_series, 3)
     assert bool((torch.diff(data_t.t, dim=-1) > 0).all())
     assert bool((torch.diff(data_t.s, dim=-1) >= 0).all())
+
+
+def test_stack_past_its_plan_runs_the_row_layout(card):
+    """A 21-trial value stack whose trial-stack plan passes the card's
+    shared memory (logistic, 300 changepoints, 64 seasonal columns) goes
+    through K3's row layout: no stack launch, every trial its own
+    launch's bits."""
+    cfg = tcfg.ProphetConfig(
+        growth="logistic", n_changepoints=300,
+        seasonalities=(tcfg.SeasonalityConfig("yearly", 365.25, 32),))
+    rng = np.random.default_rng(3)
+    b, t_len = 16, 400
+    ds = 18000.0 + np.arange(t_len, dtype=np.float64)
+    y = 10 + np.sin(ds / 7.0) + rng.normal(0, 0.3, (b, t_len))
+    data, _ = tdesign.prepare_fit_data(ds, y, cfg,
+                                       cap=np.full((b, t_len), 20.0))
+    on = tdesign.FitData(*(T(np.ascontiguousarray(a)).to(card)
+                           for a in data))
+    theta = rng.normal(0, 0.005, (b, cfg.num_params)).astype(np.float32)
+    theta[:, 0] = rng.uniform(1.0, 2.0, b)
+    theta[:, 1] = rng.uniform(0.2, 0.6, b)
+    th = T(theta).to(card)
+    trials = [th * (1.0 + 0.01 * n) for n in range(21)]
+    before = loss_kernel.stack_launches
+    fs, _ = loss_kernel.loss(torch.cat(trials).contiguous(), on, cfg, False)
+    assert loss_kernel.stack_launches == before
+    for n, part in enumerate(trials):
+        fn, _ = loss_kernel.loss(part.contiguous(), on, cfg, False)
+        assert torch.equal(fs[n * b:(n + 1) * b], fn)
 
 
 def test_kernels_give_a_row_the_same_bits_anywhere(card):

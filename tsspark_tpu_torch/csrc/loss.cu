@@ -814,9 +814,11 @@ int launch_kernel(Kernel kernel, long long grid, size_t bytes,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The launch of one instantiation: the row layout (7 rows a block) or, in
-// value mode with `stack`, the trial-stack layout (ceil(n / 21) blocks a
-// series).
+// The launch of one instantiation: in value mode on a stack of n > 1
+// copies of the batch (N > B), the trial-stack layout (ceil(n / 21) blocks
+// a series) where its plan fits the card's shared memory; else the row
+// layout (7 rows a block).  kernels/loss.py uses_stack_layout makes the
+// same choice to count it.
 template <bool kGrad, int kFs, bool kLogistic>
 int launch(const float* theta, const float* t, const float* y,
            const float* mask, const float* cap, const float* s,
@@ -824,12 +826,12 @@ int launch(const float* theta, const float* t, const float* y,
            const float* ps, const float* mm, float* f_out, float* g_out,
            int N, int B, int T, int P, int ncp, int Fs, int R, int growth,
            float k_scale, float m_scale, float sigma_scale, float cp_scale,
-           bool stack, cudaStream_t st) {
-  const Plan pl(kGrad, kFs, P, ncp, Fs, R, xs_bstride != 0, kLogistic,
-                stack);
-  const size_t bytes = sizeof(float) * static_cast<size_t>(pl.total);
+           cudaStream_t st) {
+  const bool per_series = xs_bstride != 0;
   if constexpr (!kGrad) {
-    if (stack)
+    const Plan sp(false, kFs, P, ncp, Fs, R, per_series, kLogistic, true);
+    const size_t bytes = sizeof(float) * static_cast<size_t>(sp.total);
+    if (N > B && bytes <= kMaxSmemBytes)
       return launch_kernel(
           stack_kernel<kFs, kLogistic>,
           static_cast<long long>(B) * ((N / B + kStackTrials - 1) /
@@ -838,6 +840,8 @@ int launch(const float* theta, const float* t, const float* y,
           f_out, N, B, T, P, ncp, Fs, R, growth, k_scale, m_scale,
           sigma_scale, cp_scale);
   }
+  const Plan pl(kGrad, kFs, P, ncp, Fs, R, per_series, kLogistic);
+  const size_t bytes = sizeof(float) * static_cast<size_t>(pl.total);
   return launch_kernel(loss_kernel<kGrad, kFs, kLogistic>,
                        (N + kRowWarps - 1) / kRowWarps, bytes, st, theta, t,
                        y, mask, cap, s, xs, xs_bstride, xr, ps, mm, f_out,
@@ -852,12 +856,11 @@ int dispatch(const float* theta, const float* t, const float* y,
              const float* ps, const float* mm, float* f_out, float* g_out,
              int N, int B, int T, int P, int ncp, int Fs, int R, int growth,
              float k_scale, float m_scale, float sigma_scale, float cp_scale,
-             bool stack, cudaStream_t st) {
+             cudaStream_t st) {
 #define TSSPARK_LOSS(KF)                                                     \
   return launch<kGrad, KF, kLogistic>(                                       \
       theta, t, y, mask, cap, s, xs, xs_bstride, xr, ps, mm, f_out, g_out, N, \
-      B, T, P, ncp, Fs, R, growth, k_scale, m_scale, sigma_scale, cp_scale,  \
-      stack, st)
+      B, T, P, ncp, Fs, R, growth, k_scale, m_scale, sigma_scale, cp_scale, st)
   if (Fs <= 8) TSSPARK_LOSS(8);
   if (Fs <= 16) TSSPARK_LOSS(16);
   if (Fs <= 24) TSSPARK_LOSS(24);
@@ -870,19 +873,16 @@ int dispatch(const float* theta, const float* t, const float* y,
 }  // namespace
 
 // cap: (B, T) capacities for logistic growth, null for linear and flat.
-// stack: 1 for the trial-stack layout (value mode, N a multiple of B),
-// 0 for the row layout.
+// N: a multiple of B (a stack of N / B copies of the batch).
 extern "C" int tsspark_loss(
     const float* theta, const float* t, const float* y, const float* mask,
     const float* cap, const float* s, const float* xs, long long xs_bstride,
     const float* xr, const float* ps, const float* mm, float* f_out,
     float* g_out, int N,
     int B, int T, int P, int ncp, int Fs, int R, int growth, float k_scale,
-    float m_scale, float sigma_scale, float cp_scale, int stack,
-    void* stream) {
+    float m_scale, float sigma_scale, float cp_scale, void* stream) {
   if (N == 0) return 0;
-  if (stack && (g_out != nullptr || B <= 0 || N % B != 0))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0 || N % B != 0) return static_cast<int>(cudaErrorInvalidValue);
   const bool logistic = growth == kLogistic;
   const unsigned long long align = reinterpret_cast<unsigned long long>(t) |
       reinterpret_cast<unsigned long long>(y) |
@@ -898,7 +898,7 @@ extern "C" int tsspark_loss(
   return dispatch<GRAD, LOGI>(theta, t, y, mask, cap, s, xs, xs_bstride, xr, \
                               ps, mm, f_out, G, N, B, T, P, ncp, Fs, R,      \
                               growth, k_scale, m_scale, sigma_scale,         \
-                              cp_scale, stack != 0, st)
+                              cp_scale, st)
   if (logistic) {
     if (g_out != nullptr) TSSPARK_DISPATCH(true, true, g_out);
     TSSPARK_DISPATCH(false, true, nullptr);

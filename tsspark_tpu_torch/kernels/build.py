@@ -58,7 +58,6 @@ SIGNATURES = {
         _c, _c,                                    # f_out, g_out (or null)
         _i, _i, _i, _i, _i, _i, _i, _i,            # N B T P ncp Fs R growth
         _f, _f, _f, _f,                            # k m sigma cp prior scales
-        _i,                                        # stack: trial-stack layout
         _c,                                        # stream
     ],
     "tsspark_fan": [

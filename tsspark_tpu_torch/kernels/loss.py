@@ -15,9 +15,10 @@ layout.
 trials of logistic and flat growth, and the fallback row).  In value mode
 such a stack (N > 1) goes through the kernel's trial-stack layout, which
 stages each data row once for 21 trials, three a warp
-(``stack_block_rows``); a row's value is the same bits in either layout.  The kernel needs ``t``
-rising along each row and ascending changepoints, as ``prepare_fit_data``
-builds them (K4 too).
+(``stack_block_rows``), where that layout's shared-memory plan fits the
+card (``uses_stack_layout``); a row's value is the same bits in either
+layout.  The kernel needs ``t`` rising along each row and ascending
+changepoints, as ``prepare_fit_data`` builds them (K4 too).
 """
 
 from __future__ import annotations
@@ -57,10 +58,16 @@ def _r4(n: int) -> int:
     return (n + 3) & ~3
 
 
-def uses_stack_layout(n_rows: int, b: int, grad: bool) -> bool:
+def uses_stack_layout(n_rows: int, b: int, grad: bool,
+                      config: ProphetConfig, per_series: bool) -> bool:
     """Whether ``loss`` launches the trial-stack layout: value mode on a
-    stack of more than one copy of the batch."""
-    return not grad and n_rows > b
+    stack of more than one copy of the batch, where the layout's 21 slots
+    fit the card's shared memory (past that, many changepoints or
+    columns, the row layout: the same bits).  ``csrc/loss.cu``
+    ``launch`` makes the same choice from the same plan."""
+    return (not grad and n_rows > b
+            and _plan_bytes("loss", config, per_series, False, True)
+            <= _MAX_SMEM_BYTES)
 
 
 def stack_block_rows(n_trials: int, b: int) -> list:
@@ -70,7 +77,9 @@ def stack_block_rows(n_trials: int, b: int) -> list:
     TRIALS_PER_WARP)) consecutive blocks; warp w of block g of them holds
     trials j = ROWS TRIALS_PER_WARP g + TRIALS_PER_WARP w + k, k <
     TRIALS_PER_WARP (those below n_trials), trial j's row being j b + s;
-    warps past the last trial hold none."""
+    warps past the last trial hold none.  This is the plan written out
+    for the CPU tests; what checks the kernel itself is the card's
+    bitwise tests (every trial against its row-layout launch alone)."""
     per_block = ROWS * TRIALS_PER_WARP
     groups = -(-n_trials // per_block)
     plan = []
@@ -85,12 +94,9 @@ def stack_block_rows(n_trials: int, b: int) -> list:
     return plan
 
 
-def smem_bytes(kernel: str, config: ProphetConfig, per_series: bool,
-               grad: bool = True, stack: bool = False) -> int:
-    """Bytes of shared memory one block of the ``"loss"`` or ``"fan"``
-    kernel takes for ``config`` (the loss kernel stages each row's
-    capacity too under logistic growth; ``stack``: its trial-stack
-    layout); ValueError past the kernels' limits."""
+def _plan_bytes(kernel: str, config: ProphetConfig, per_series: bool,
+                grad: bool, stack: bool) -> int:
+    """Bytes of ``smem_bytes``'s plan, past the card's limit or not."""
     ncp = config.n_changepoints
     fs = config.num_seasonal_features
     r = config.num_regressors
@@ -111,19 +117,29 @@ def smem_bytes(kernel: str, config: ProphetConfig, per_series: bool,
     st_row = streams * (tile + 8) + _r4(tile * r) + 8
     st_x = _r4(tile * fs) + 8 + kfs
     if stack:
-        total = 4 * (4 * STAGES + ROWS * TRIALS_PER_WARP * row
-                     + STAGES * (st_row + st_x))
-    else:
-        st_x *= ROWS if per_series else 1
-        racc = _r4(r) * 32 * (ROWS + 1) if kernel == "loss" and grad else 0
-        total = 4 * (4 * STAGES + ROWS * row
-                     + STAGES * (ROWS * st_row + st_x) + racc)
+        return 4 * (4 * STAGES + ROWS * TRIALS_PER_WARP * row
+                    + STAGES * (st_row + st_x))
+    st_x *= ROWS if per_series else 1
+    racc = _r4(r) * 32 * (ROWS + 1) if kernel == "loss" and grad else 0
+    return 4 * (4 * STAGES + ROWS * row
+                + STAGES * (ROWS * st_row + st_x) + racc)
+
+
+def smem_bytes(kernel: str, config: ProphetConfig, per_series: bool,
+               grad: bool = True, stack: bool = False) -> int:
+    """Bytes of shared memory one block of the ``"loss"`` or ``"fan"``
+    kernel takes for ``config`` (the loss kernel stages each row's
+    capacity too under logistic growth; ``stack``: its trial-stack
+    layout); ValueError past the kernels' limits."""
+    total = _plan_bytes(kernel, config, per_series, grad, stack)
     if total > _MAX_SMEM_BYTES:
         raise ValueError(
-            f"{kernel} kernel: {ncp} changepoints, {fs} seasonal and {r} "
-            f"regressor columns need {total} bytes of shared memory a "
-            f"block, past the card's {_MAX_SMEM_BYTES}")
+            f"{kernel} kernel: {config.n_changepoints} changepoints, "
+            f"{config.num_seasonal_features} seasonal and "
+            f"{config.num_regressors} regressor columns need {total} bytes "
+            f"of shared memory a block, past the card's {_MAX_SMEM_BYTES}")
     return total
+
 
 # models/prophet/loss.py's constants (the kernel's copies live in
 # csrc/prophet_model.cuh).
@@ -314,8 +330,9 @@ def loss(theta: torch.Tensor, data, config: ProphetConfig,
     f_all = fs + r
     if b == 0 or n % b:
         raise ValueError(f"loss: {n} parameter rows for {b} data rows")
-    stack = uses_stack_layout(n, b, grad)
-    smem_bytes("loss", config, data.X_season.ndim == 3, grad, stack)
+    per_series = data.X_season.ndim == 3
+    stack = uses_stack_layout(n, b, grad, config, per_series)
+    smem_bytes("loss", config, per_series, grad, stack)
     _require("theta", theta, (n, config.num_params), dev)
     logistic = config.growth == "logistic"
     for name in ("t", "y", "mask") + (("cap",) if logistic else ()):
@@ -349,7 +366,7 @@ def loss(theta: torch.Tensor, data, config: ProphetConfig,
             n, b, t_len, config.num_params, ncp, fs, r,
             GROWTH_CODES[config.growth], config.k_prior_scale,
             config.m_prior_scale, config.sigma_prior_scale,
-            config.changepoint_prior_scale, int(stack), stream,
+            config.changepoint_prior_scale, stream,
         )
     build.check(err, "loss")
     launches += 1
