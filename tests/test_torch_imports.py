@@ -60,7 +60,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "tsspark_tpu_torch.backends.cpu",
                 "tsspark_tpu_torch.eval.metrics",
                 "tsspark_tpu_torch.eval.configs",
-                "tsspark_tpu_torch.carry"):
+                "tsspark_tpu_torch.carry",
+                "tsspark_tpu_torch.native",
+                "tsspark_tpu_torch.frame",
+                "tsspark_tpu_torch.resilience.policy",
+                "tsspark_tpu_torch.resilience.faults",
+                "tsspark_tpu_torch.obs.context",
+                "tsspark_tpu_torch.obs.metrics",
+                "tsspark_tpu_torch.perf.autotune",
+                "tsspark_tpu_torch.streaming.warmstart",
+                "tsspark_tpu_torch.streaming.state",
+                "tsspark_tpu_torch.streaming.source",
+                "tsspark_tpu_torch.streaming.driver"):
         assert mod in out["modules"]
 
 
@@ -81,6 +92,16 @@ def test_chip_smoke_without_a_card_fails_and_prints_no_result():
     )
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_streaming_entry_point_raises_without_a_card(monkeypatch):
+    """The streaming driver runs on the card unless asked for the CPU."""
+    from tsspark_tpu_torch.streaming.driver import StreamingForecaster
+
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StreamingForecaster()
+    assert StreamingForecaster(device="cpu").device.type == "cpu"
 
 
 def _no_card(monkeypatch):

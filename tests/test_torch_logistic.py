@@ -220,7 +220,7 @@ def test_config4_short_fit_matches_jax():
 
 
 def test_config4_cli_runs_on_the_cpu(monkeypatch, capsys):
-    """``python -m tsspark_tpu_torch.eval.configs --config 4`` fits and
+    """``python -m tsspark_tpu_torch.eval.configs 4`` fits and
     scores eval config 4 end to end (2 series at scale 0.25, the solver
     cut to 3 iterations here; the full fit is the slow test's)."""
     import json
@@ -230,7 +230,7 @@ def test_config4_cli_runs_on_the_cpu(monkeypatch, capsys):
     assert configs.SOLVER4.max_iters == 200
     monkeypatch.setattr(configs, "SOLVER4",
                         dataclasses.replace(configs.SOLVER4, max_iters=3))
-    monkeypatch.setattr(sys, "argv", ["configs", "--config", "4", "--scale",
+    monkeypatch.setattr(sys, "argv", ["configs", "4", "--scale",
                                       "0.25", "--device", "cpu"])
     configs.main()
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])

@@ -25,6 +25,7 @@ import numpy.testing as npt
 import pytest
 import torch
 
+import chip_smoke
 from tsspark_tpu import config as jcfg
 from tsspark_tpu.models.prophet import design as jdesign
 from tsspark_tpu.models.prophet import loss as jloss
@@ -316,8 +317,10 @@ def test_loss_and_fan_kernels_match_their_plain_versions(card, growth, mode,
 def test_logistic_loss_on_the_card_raises(card):
     """Logistic growth, once refused on the card (the name is that
     check's), now runs K3's logistic branch: on every logistic case, the
-    loss and gradient and a trial stack against the plain version, at
-    the tolerances of the linear and flat cases above."""
+    loss and a trial stack against the plain version by
+    ``chip_smoke.GAP_RULE`` (a float32 sum's bound a row: a trial row's
+    loss of large cancelling terms is no relative-tolerance case), the
+    gradient at the linear and flat cases' tolerance."""
     for growth, mode, per_series, regs in CASES:
         if growth != "logistic":
             continue
@@ -325,12 +328,40 @@ def test_logistic_loss_on_the_card_raises(card):
         on = tdesign.FitData(*(a.to(card) for a in data_t))
         f_k, g_k = loss_kernel.loss(T(theta).to(card), on, tc)
         f_p, g_p = loss_kernel.loss_plain(T(theta), data_t, tc)
-        npt.assert_allclose(f_k.cpu().numpy(), f_p.numpy(), rtol=2e-5)
         _grad_close(g_k.cpu().numpy(), g_p.numpy())
         stack = T(np.concatenate([theta, theta * 1.01]))
         s_k, _ = loss_kernel.loss(stack.to(card), on, tc, grad=False)
         s_p, _ = loss_kernel.loss_plain(stack, data_t, tc, grad=False)
-        npt.assert_allclose(s_k.cpu().numpy(), s_p.numpy(), rtol=2e-5)
+        gaps = chip_smoke.loss_gaps(T(theta), data_t, tc, {
+            "f": (f_k.cpu(), f_p), "stack": (s_k.cpu(), s_p)})
+        assert chip_smoke.within_gap_rule(gaps), gaps
+
+
+@pytest.mark.parametrize("growth", ["linear", "logistic"])
+def test_gap_rule_fails_a_planted_wrong_loss(growth):
+    """The rule K3 is held to on the card fails a wrong loss: the plain
+    loss of each row with one observed cell dropped (a kernel that skips
+    a cell), and one row's loss moved by twice its bound; the sound
+    plain loss against itself passes."""
+    _, tc, _, data_t, theta = _case(growth, "additive", False, 3)
+    th = T(theta)
+    f_p, _ = loss_kernel.loss_plain(th, data_t, tc, grad=False)
+    assert chip_smoke.within_gap_rule(
+        chip_smoke.loss_gaps(th, data_t, tc, {"f": (f_p, f_p)}))
+    mask = data_t.mask.clone()
+    cell = torch.argmax(mask, dim=-1)
+    mask[torch.arange(mask.shape[0]), cell] = 0.0
+    f_drop, _ = loss_kernel.loss_plain(th, data_t._replace(mask=mask), tc,
+                                       grad=False)
+    gaps = chip_smoke.loss_gaps(th, data_t, tc, {"f": (f_drop, f_p)})
+    assert not chip_smoke.within_gap_rule(gaps), gaps
+    f_scale, _ = chip_smoke.loss_scales(th, data_t, tc)
+    eps = float(np.finfo(np.float32).eps)
+    bound = chip_smoke.GAP_TOL * data_t.t.shape[-1] * eps * f_scale
+    moved = f_p.clone()
+    moved[2] = moved[2] + 2.0 * bound[2]
+    gaps = chip_smoke.loss_gaps(th, data_t, tc, {"f": (moved, f_p)})
+    assert not chip_smoke.within_gap_rule(gaps), gaps
 
 
 def test_jax_reference_is_on_the_cpu():

@@ -79,9 +79,15 @@ def _slice_state(state: FitState, lo: int, hi: int, c: int) -> FitState:
 
 
 def _pad_batch(arr, b_pad):
-    """Host-side (numpy) zero-padding along the batch axis."""
+    """Zero-padding along the batch axis: numpy on the host, and a tensor
+    on its own device (a warm start on the card stays there)."""
     if arr is None:
         return None
+    if isinstance(arr, torch.Tensor):
+        if arr.shape[0] == b_pad:
+            return arr
+        return torch.cat([arr, arr.new_zeros(
+            (b_pad - arr.shape[0],) + tuple(arr.shape[1:]))])
     arr = np.asarray(arr)
     if arr.shape[0] == b_pad:
         return arr
@@ -443,9 +449,7 @@ class CudaBackend(ForecastBackend):
             floor = _pad_batch(floor, c) if floor is not None else None
             regressors = (_pad_batch(regressors, c)
                           if regressors is not None else None)
-            if init is not None:
-                init = _pad_batch(init.numpy() if isinstance(
-                    init, torch.Tensor) else init, c)
+            init = _pad_batch(init, c)
             if conditions is not None:
                 conditions = {
                     k: _pad_batch(v, c) for k, v in conditions.items()

@@ -39,6 +39,20 @@ def atomic_write(path: str, write_fn: Callable, mode: str = "wb") -> None:
         raise
 
 
+def append_line(path: str, line: str) -> None:
+    """Crash-safe append of ONE line to a shared JSONL log: the whole line
+    (newline included) goes down in a single ``os.write`` on an
+    ``O_APPEND`` descriptor, so concurrent writer processes never
+    interleave bytes mid-line; a writer killed mid-write tears at most
+    its own last line, which every reader of these logs tolerates."""
+    data = (line if line.endswith("\n") else line + "\n").encode()
+    fd = os.open(path, os.O_CREAT | os.O_WRONLY | os.O_APPEND, 0o644)
+    try:
+        os.write(fd, data)
+    finally:
+        os.close(fd)
+
+
 def sweep_stale_temps(root: str, max_age_s: float = STALE_TEMP_S) -> int:
     """Remove dead writers' orphaned ``.*.tmp.<pid>`` files anywhere under
     ``root`` (age-gated so a live writer's temp is never yanked).  Returns
