@@ -114,7 +114,26 @@ the script exits non-zero without printing the final line:
    series streamed on the CPU plain path, and the replay's against the
    warm run's, per series in units of the noise (``FLEET_NOISE_TOL``,
    which a planted fault fails).
-12. kernels — each kernel at its main path's shapes, on the main path's
+12. uncertainty — the uncertainty tier at the M5 fleet's width (the JAX
+   package's calibration recipe): serve's ``m5_like(30490, 1941)`` batch
+   under ``ProphetConfig()`` with the last 28 days withheld, the MAP fit
+   (``CudaBackend.fit``, ``SolverConfig(max_iters=25)``), ``publish``,
+   ``fit_advi`` at ``AdviConfig()`` (200 steps: K3's gradient on the
+   121,960-row draw stack and K7), ``save_posterior``, the ADVI-mode
+   quantile plane (``qplane.maybe_publish``), ``evaluate_version`` on the
+   held-out days, 200 reads through ``PredictionEngine.quantiles``, 512
+   MAP-mode reads of a version without a posterior (K1), and
+   ``gold.audit_version`` (8 rows, ``McmcConfig()``).  Launch counts set
+   to 0 just before, read just after.  Then the path's ADVI loop replayed
+   step by step (the same bits): K3 on the first and last steps' draw
+   stacks (512 series x 4 draws) by GAP_RULE (a dropped cell must fail),
+   K7 bitwise against its plain version at both steps; the plane bitwise
+   against ``compute_rows`` on 512 rows and ordered and finite over all;
+   the card's ADVI against the plain CPU path on 64 series with the same
+   MAP theta and draws (``ADVI_PARITY``, which two planted faults fail);
+   walls, ms a step (K3, K7, the rest), the idle share of five steps,
+   coverage per bucket, read latency, the audit's qdiv, R-hat and ESS.
+13. kernels — each kernel at its main path's shapes, on the main path's
    inputs (K3 and K4 at 8192x1746 on config 3's first chunk; K3's
    logistic branch at 8192x1080; K3's trial-stack layout on config 4's
    21 x 8192 line-search stack and on one of flat growth over config 3's
@@ -126,13 +145,15 @@ the script exits non-zero without printing the final line:
    same bits alone, permuted and in a trial stack; K1 (all three shapes) and
    K2 (its own Philox draws, each row keeping its Philox coordinate, both
    growths) alone and permuted; K6 from phase mcmc.  K1-K4 gain their
-   launches on the two streaming paths.
+   launches on the two streaming paths; K3 the ADVI draw stack's time,
+   bound and gaps, and K7's entry joins from phase uncertainty.
 
 The CPU parity fits of phases fit and fit_logistic (the scipy oracle and
 the port's plain fit on their subsets) and the CPU streaming runs of
 phases stream5 and stream_fleet run in two worker processes
 (``ParityFits``), started with the data before phase forward, beside the
-card's phases; each phase waits for its own.
+card's phases; each phase waits for its own.  Phase uncertainty hands the
+pool its CPU ADVI fit once its MAP fit is done.
 
 The last lines: the run's wall time, the kernels JSON object,
 ``nvidia-smi``'s ``name, power.limit`` line, and
@@ -1228,7 +1249,7 @@ def phase_serve(args, device) -> dict:
         emit(phase_profile(root, list(ids), device))
         kernel_inputs = {
             "state": snap.state, "ds_full": ds_full, "cfg": cfg,
-            "step": snap.step,
+            "step": snap.step, "batch": batch,
         }
     return {"out": out, "inputs": kernel_inputs}
 
@@ -1331,6 +1352,10 @@ class ParityFits:
 
     def get(self, kind: str, config_no: int) -> dict:
         return self.jobs[(kind, config_no)].get()
+
+    def submit(self, fn, *args):
+        """A job handed to the pool during the run (``.get()`` waits)."""
+        return self.pool.apply_async(fn, args)
 
     def get_stream(self, kind: str, which: str) -> dict:
         return self.jobs[(kind, which)].get()
@@ -3414,6 +3439,577 @@ def loss_row_invariance(data, cfg, theta, device) -> dict:
             "loss_trial_stack": 3 * b}
 
 
+# ---------------------------------------------------------------------------
+# phase uncertainty: ADVI (K3 on the draw stack, K7), the quantile plane,
+# interval reads, coverage and the gold audit at the M5 fleet's width
+# ---------------------------------------------------------------------------
+
+UNC_SUBSET = 64         # the ADVI parity subset (card against CPU)
+UNC_CHECK_ROWS = 512    # K3's draw-stack gaps, the plane's bitwise checks
+UNC_PROBES = 200
+UNC_SEED = 0
+# The card's ADVI against the plain CPU path on the same MAP theta and the
+# same draws, per series: max over parameters of |d mu| / sd (the CPU
+# posterior's) and of |d log sd|.  Read on the card (PERF.md §6):
+# 2.3e-4 and 6.0e-6 (K3's sums against the plain loss's, carried through
+# 200 steps); the planted faults (``ADVI_FAULTS``) 1.66 / 1.08 (the
+# entropy's -1 dropped) and 80.7 / 5.73 (eps left out of the rho
+# gradient).  The limits sit ~40x and ~170x above the sound readings and
+# 100x below the faults.
+ADVI_PARITY = {"dmu_sd": 0.01, "dlog_sd": 0.001}
+ADVI_FAULTS = ("no_entropy", "no_eps_in_rho_grad")
+# K7 against its plain version on the path's tensors: both take every
+# operation in the same order, each rounded on its own (no FMA), so the
+# same bits are required.
+K7_TOL = 0.0
+
+
+def advi_parity_job(ds_fit, y, mask, theta0, seed: int) -> dict:
+    """The plain CPU ADVI fit of the parity subset from the card's MAP
+    theta, on ``advi_draws(seed)``.  Runs in a ``ParityFits`` worker."""
+    import torch
+
+    from tsspark_tpu_torch.config import ProphetConfig
+    from tsspark_tpu_torch.models.prophet.design import prepare_fit_data
+    from tsspark_tpu_torch.uncertainty import advi
+
+    torch.set_num_threads(PARITY_THREADS)
+    cfg = ProphetConfig()
+    data, _ = prepare_fit_data(ds_fit, y, cfg, mask=mask)
+    t0 = time.perf_counter()
+    post = advi.fit_advi(theta0, data, None, cfg, device="cpu",
+                         draws=advi_draws(seed, theta0.shape, "cpu"))
+    return {"seconds": time.perf_counter() - t0, "mu": post.mu.numpy(),
+            "rho": post.rho.numpy()}
+
+
+def advi_draws(seed: int, shape, device):
+    """The parity fits' draws: (K, B, P) standard normals a step from one
+    host generator, the same sequence on both sides."""
+    import torch
+
+    from tsspark_tpu_torch.config import AdviConfig
+
+    gen = torch.Generator().manual_seed(seed)
+    k = AdviConfig().num_elbo_samples
+    return lambda _i: torch.randn((k,) + tuple(shape), generator=gen) \
+        .to(device)
+
+
+def advi_distance(mu, rho, ref_mu, ref_rho) -> dict:
+    """Per series max over parameters of |d mu| / sd_ref and |d log sd|:
+    their max and median over series."""
+    dmu = (np.abs(mu - ref_mu) / np.exp(ref_rho)).max(-1)
+    dsd = np.abs(rho - ref_rho).max(-1)
+    return {"dmu_sd": float(dmu.max()), "dmu_sd_median": float(np.median(dmu)),
+            "dlog_sd": float(dsd.max()),
+            "dlog_sd_median": float(np.median(dsd))}
+
+
+def within_advi_parity(d: dict) -> bool:
+    return all(d[k] <= v for k, v in ADVI_PARITY.items())
+
+
+def planted_advi_fault(kind: str):
+    """A K7 step with one planted fault, as the plain version on the card:
+    the entropy's -1 dropped from g_rho, or eps left out of it."""
+    import torch
+
+    from tsspark_tpu_torch.kernels import advi as advi_k
+
+    real = advi_k.elbo_grads
+
+    def grads(g, eps, sd, inv_k):
+        g_mu, g_rho = real(g, eps, sd, inv_k)
+        if kind == "no_entropy":
+            return g_mu, g_rho + 1.0
+        return g_mu, real(g, torch.ones_like(eps), sd, inv_k)[1]
+
+    def step(*args):
+        saved = advi_k.elbo_grads
+        advi_k.elbo_grads = grads
+        try:
+            return advi_k.advi_plain(*args)
+        finally:
+            advi_k.elbo_grads = saved
+    return step
+
+
+def advi_bound_ms(k_draws, b, p) -> dict:
+    """Least time for one K7 launch: g and eps (K B P each), f (K B), mu,
+    rho and the four moments read once, the six states and the loss
+    written once; against ~4K + 20 float32 operations a (b, p).  K7 also
+    reads sd, but sd = exp(rho) is not work the function needs."""
+    floats = 2 * k_draws * b * p + k_draws * b + 6 * b * p + 6 * b * p + b
+    t_bytes = 4 * floats / PEAK_BYTES_PER_S * 1e3
+    t_ops = b * p * (4 * k_draws + 20) / PEAK_F32_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def stack_gaps(mu, rho, eps, data, cfg) -> dict:
+    """K3 (both modes) on a draw stack against its plain version by
+    GAP_RULE, each draw held to its own rows' scale; the same with one
+    observed cell a row dropped (required to fail); the plain float32
+    version against float64 by the same rule (the rule holds K3 only where
+    float32 itself is within it)."""
+    import torch
+
+    from tsspark_tpu_torch.kernels import loss as lk
+    from tsspark_tpu_torch.uncertainty.advi import _stack
+
+    k_draws, b, p = eps.shape
+    _, stack = _stack(mu, rho, eps)
+    f_k, g_k = lk.loss(stack, data, cfg)
+    v_k, _ = lk.loss(stack, data, cfg, grad=False)
+    f_p, g_p = lk.loss_plain(stack, data, cfg)
+    mask = data.mask.clone()
+    mask[torch.arange(b, device=mask.device), mask.argmax(-1)] = 0.0
+    dropped = data._replace(mask=mask)
+    f_drop, _ = lk.loss(stack, dropped, cfg, grad=False)
+    data64 = data._replace(**{f: getattr(data, f).double()
+                              for f in data._fields})
+    f64, g64 = lk.loss_plain(stack.double(), data64, cfg)
+    gaps, planted, plain64 = {}, [], {}
+    rows = lambda x, k: x[k * b:(k + 1) * b]  # noqa: E731
+    for k in range(k_draws):
+        th = rows(stack, k)
+        gk = loss_gaps(th, data, cfg, {
+            "f": (rows(f_k, k), rows(f_p, k)),
+            "g": (rows(g_k, k), rows(g_p, k)),
+            "value_mode": (rows(v_k, k), rows(f_p, k))})
+        for name, v in gk.items():
+            gaps[name] = max(gaps.get(name, 0.0), v)
+        planted.append(loss_gaps(th, data, cfg, {
+            "f": (rows(f_drop, k), rows(f_p, k))})["f"])
+        pk = loss_gaps(th, data, cfg, {
+            "f": (rows(f_p, k).double(), rows(f64, k)),
+            "g": (rows(g_p, k).double(), rows(g64, k))})
+        for name, v in pk.items():
+            plain64[name] = max(plain64.get(name, 0.0), v)
+    torch.cuda.synchronize()
+    return {"gap": gaps, "planted_dropped_cell": min(planted),
+            "plain_f32_vs_f64": plain64,
+            "max_abs_err": max(float((f_k - f_p).abs().max()),
+                               float((g_k - g_p).abs().max()),
+                               float((v_k - f_p).abs().max()))}
+
+
+def k7_check(state, g, f, eps, sd, step, advi) -> dict:
+    """K7 against its plain version on clones of the path's tensors."""
+    import torch
+
+    from tsspark_tpu_torch.kernels import advi as advi_k
+
+    sc = advi_k.adam_scalars(advi, step)
+    mine = [x.clone() for x in state]
+    plain = [x.clone() for x in state]
+    got = advi_k.advi_step(g, f, eps, sd, *mine, sc)
+    want = advi_k.advi_plain(g, f, eps, sd, *plain, sc)
+    torch.cuda.synchronize()
+    pairs = [(got, want)] + list(zip(mine, plain))
+    err = max(float((a - c).abs().max()) for a, c in pairs)
+    same = all(torch.equal(a, c) for a, c in pairs)
+    require(same and err <= K7_TOL,
+            f"advi at step {step}: max |k-p| {err}, bitwise {same}")
+    return {"bitwise": same, "max_abs_err": err}
+
+
+def phase_uncertainty(serve, device, parity) -> dict:
+    """The uncertainty tier at the M5 fleet's width (``run_calibration_
+    smoke``'s recipe): serve's ``m5_like(30490, 1941)`` batch under
+    ``ProphetConfig()``, the last 28 days withheld; the MAP fit through
+    ``CudaBackend.fit`` (``SolverConfig(max_iters=25)``), ``publish``,
+    ``fit_advi`` at ``AdviConfig()`` (K3 on the 121,960-row draw stack,
+    K7), ``save_posterior``, ``qplane.maybe_publish`` (ADVI mode),
+    ``evaluate_version``, 200 reads through ``PredictionEngine.quantiles``,
+    512 reads of a version without a posterior (MAP mode: K1), and
+    ``gold.audit_version`` (8 rows, ``McmcConfig()``).  Then the checks:
+    K3 on the draw stack by GAP_RULE, K7 against its plain version, the
+    card's ADVI against the plain CPU path on 64 series (with planted
+    faults), the plane against ``compute_rows``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tsspark_tpu_torch.backends.registry import get_backend
+    from tsspark_tpu_torch.config import (
+        AdviConfig,
+        ProphetConfig,
+        SolverConfig,
+    )
+    from tsspark_tpu_torch.kernels import advi as advi_k
+    from tsspark_tpu_torch.kernels import fan as fan_k
+    from tsspark_tpu_torch.kernels import forward as fk
+    from tsspark_tpu_torch.kernels import loss as lk
+    from tsspark_tpu_torch.models.prophet.design import (
+        fitdata_to_device,
+        prepare_fit_data,
+    )
+    from tsspark_tpu_torch.ops import hmc
+    from tsspark_tpu_torch.serve import (
+        ForecastCache,
+        ParamRegistry,
+        PredictionEngine,
+    )
+    from tsspark_tpu_torch.uncertainty import advi as advi_mod
+    from tsspark_tpu_torch.uncertainty import calibrate, gold, qplane
+
+    cfg, advi = ProphetConfig(), AdviConfig()
+    batch = serve["inputs"]["batch"]
+    n, days = batch.y.shape
+    cut = days - calibrate.DEFAULT_HOLDOUT
+    ds_fit = batch.ds[:cut]
+    y_fit = np.nan_to_num(batch.y[:, :cut])
+    m_fit = batch.mask[:, :cut]
+    ids = batch.series_ids
+    stages = {}
+
+    def stage(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        stages[name] = time.perf_counter() - t0
+        return out
+
+    root = tempfile.mkdtemp(prefix="uncertainty_")
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        hmc.timing.reset()
+        # The main path: counts to 0 just before, read just after.
+        lk.launches = lk.grad_launches = fan_k.launches = 0
+        fk.launches = advi_k.launches = 0
+        bk = get_backend("cuda", cfg, SolverConfig(max_iters=25),
+                         device=device)
+        state = stage("map_fit", bk.fit, ds_fit, y_fit, mask=m_fit)
+        reg = ParamRegistry(root, cfg)
+        v = stage("publish", reg.publish, state, ids, step=np.ones(n))
+        data_np, _ = stage("advi_prep", prepare_fit_data, ds_fit, y_fit,
+                           cfg, mask=m_fit)
+        theta0 = np.nan_to_num(state.theta.cpu().numpy().astype(np.float32))
+        t0 = time.perf_counter()
+        post = advi_mod.fit_advi(
+            theta0, data_np, torch.Generator(device=device)
+            .manual_seed(UNC_SEED), cfg, advi, device=device)
+        torch.cuda.synchronize()
+        stages["fit_advi"] = time.perf_counter() - t0
+        k7_path = advi_k.launches
+        stage("save_posterior", advi_mod.save_posterior,
+              reg.version_dir(v), post, seed=UNC_SEED,
+              num_steps=advi.num_steps)
+        pub = stage("qplane_publish", qplane.maybe_publish, reg, v, bk,
+                    horizons=(7, 14, 28))
+        calib = stage("evaluate", calibrate.evaluate_version, reg, v,
+                      batch.ds[cut:], batch.y[:, cut:],
+                      mask_future=batch.mask[:, cut:])
+        eng = PredictionEngine(reg, cache=ForecastCache(0), device=device)
+        rng = np.random.default_rng(UNC_SEED)
+        walls = []
+        t0 = time.perf_counter()
+        for _ in range(UNC_PROBES):
+            k = int(rng.integers(1, 9))
+            sel = [ids[i] for i in np.sort(rng.choice(n, k, replace=False))]
+            h = int(rng.choice((7, 14, 28)))
+            t1 = time.perf_counter()
+            eng.quantiles(sel, h)
+            walls.append((time.perf_counter() - t1) * 1e3)
+        stages["reads"] = time.perf_counter() - t0
+        reads = {"probes": UNC_PROBES,
+                 "p50_ms": float(np.percentile(walls, 50)),
+                 "p99_ms": float(np.percentile(walls, 99)),
+                 "qplane_hits": eng.stats.qplane_hits,
+                 "qplane_misses": eng.stats.qplane_misses}
+        plane_view = qplane.attach(reg.version_dir(v))
+        n_chk = min(UNC_CHECK_ROWS, n)
+        sel512 = list(ids[:n_chk])
+        eng_advi = {h: eng.quantiles(sel512, h) for h in (7, 14, 28)}
+        # A version without a posterior: MAP-mode intervals (K1).
+        v_map = reg.publish(state, ids, step=np.ones(n))
+        eng_map = PredictionEngine(reg, cache=ForecastCache(0),
+                                   device=device)
+        k1_before = fk.launches
+        map_res = stage("reads_map_mode", eng_map.quantiles, sel512, 28)
+        k1_map = fk.launches - k1_before
+        require(map_res.version == v_map
+                and eng_map.stats.qplane_misses == n_chk,
+                "MAP-mode reads: served by the version without a posterior")
+        hmc.timing.reset()
+        audit = stage("gold", gold.audit_version, reg, version=v,
+                      arrays=(ds_fit, y_fit, m_fit, None), device=device)
+        launches = {"loss": lk.launches, "loss_grad": lk.grad_launches,
+                    "loss_value": lk.launches - lk.grad_launches,
+                    "fan": fan_k.launches, "forward": fk.launches,
+                    "advi": advi_k.launches}
+        gold_leapfrogs, gold_host_s = hmc.timing.leapfrogs, hmc.timing.host_s
+        peak = torch.cuda.max_memory_allocated()
+
+        require(k7_path == advi.num_steps and launches["advi"] == k7_path,
+                f"K7 launches on the path: {launches}")
+        require(launches["loss_grad"] >= advi.num_steps
+                and launches["fan"] > 0 and launches["forward"] > 0
+                and k1_map > 0,
+                f"kernels launched on the uncertainty path: {launches}")
+        mu, rho = post.mu.cpu().numpy(), post.rho.cpu().numpy()
+        elbo = post.elbo.cpu().numpy()
+        require(mu.shape == rho.shape == (n, cfg.num_params)
+                and elbo.shape == (n,), "posterior shapes")
+        finite = {"mu": bool(np.isfinite(mu).all()),
+                  "rho": bool(np.isfinite(rho).all()),
+                  "elbo": bool(np.isfinite(elbo).all())}
+        require(all(finite.values()), f"posterior finite: {finite}")
+        require(pub is not None and pub["status"] == "published"
+                and pub["mode"] == "advi", f"qplane publish: {pub}")
+        require(calib is not None and calib["mode"] == "advi",
+                f"evaluate_version: {calib}")
+        # The plane: finite, ordered, its columns the compute path's bits
+        # on 512 rows, the engine's reads the plane's and compute's bits.
+        plane_checks = {}
+        for hb in plane_view.buckets:
+            cols = {pm: np.asarray(c) for pm, c in
+                    plane_view.columns[hb].items()}
+            require(all(np.isfinite(c).all() for c in cols.values()),
+                    f"plane bucket {hb} finite")
+            require(bool((cols[100] <= cols[500]).all()
+                         and (cols[500] <= cols[900]).all()),
+                    f"plane bucket {hb}: q100 <= q500 <= q900")
+            idx = np.arange(n_chk)
+            ref = qplane.compute_rows(reg.load(v), cfg, bk, idx, hb,
+                                      posterior=post)
+            require(all(np.array_equal(cols[pm][idx], ref[pm])
+                        for pm in ref),
+                    f"plane bucket {hb} != compute_rows on 512 rows")
+            h = {8: 7, 16: 14, 32: 28}[hb]
+            res = eng_advi[h]
+            require(all(np.array_equal(res.values[f"q{pm:03d}"],
+                                       ref[pm][:, :h]) for pm in ref),
+                    f"engine.quantiles(h={h}) != compute_rows")
+            plane_checks[str(hb)] = "bitwise (512 rows), finite, ordered"
+        for k, val in map_res.values.items():
+            require(np.isfinite(val).all(), f"MAP-mode {k} finite")
+        require(bool((map_res.values["q100"] <= map_res.values["q500"])
+                     .all() and (map_res.values["q500"]
+                                 <= map_res.values["q900"]).all()),
+                "MAP-mode quantiles ordered")
+        require(audit is not None and np.isfinite(audit["qdiv_max"])
+                and np.isfinite(audit["rhat_max"])
+                and np.isfinite(audit["ess_min"]), f"gold audit: {audit}")
+
+        # The path's loop replayed step by step from the same generator
+        # (it must land on fit_advi's bits): the first and the last step's
+        # tensors for the kernel checks, the first step's for the times.
+        data = fitdata_to_device(data_np, device)
+        del data_np
+        gen = torch.Generator(device=device).manual_seed(UNC_SEED)
+        shape = (advi.num_elbo_samples, n, cfg.num_params)
+        st = advi_mod.init_state(torch.from_numpy(theta0).to(device), advi)
+        eps0 = torch.randn(shape, generator=gen, device=device)
+        state0 = [x.clone() for x in st]
+        sd0, stack0 = advi_mod._stack(st.mu, st.rho, eps0)
+        f0, g0 = lk.loss(stack0, data, cfg)
+        k3_ms = cuda_ms(lambda: lk.loss(stack0, data, cfg), iters=10)
+        k3_plain_ms = cuda_ms(lambda: lk.loss_plain(stack0, data, cfg),
+                              iters=1, warmup=1)
+        sc0 = advi_k.adam_scalars(advi, 0)
+        tmp = [x.clone() for x in state0]
+        k7_ms = cuda_ms(lambda: advi_k.advi_step(g0, f0, eps0, sd0, *tmp,
+                                                 sc0))
+        tmp = [x.clone() for x in state0]
+        k7_plain_ms = cuda_ms(lambda: advi_k.advi_plain(
+            g0, f0, eps0, sd0, *tmp, sc0), iters=3, warmup=1)
+        tmp = [x.clone().requires_grad_() for x in state0[:2]]
+        for x, gr in zip(tmp, (g0[:n], g0[n:2 * n])):
+            x.grad = gr.clone()
+        adam = torch.optim.Adam(tmp, lr=advi.learning_rate,
+                                betas=(advi.adam_b1, advi.adam_b2),
+                                eps=advi.adam_eps, fused=True)
+        adam_ms = cuda_ms(adam.step)
+        del tmp, adam
+        step_ms = 1e3 * stages["fit_advi"] / advi.num_steps
+        # Five steps under the profiler, on a copy: the card's idle share.
+        cp = advi_mod.AdviState(*[x.clone() for x in state0])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            for i in range(5):
+                advi_mod.elbo_step(cp, data, cfg, eps0, i, advi)
+            torch.cuda.synchronize()
+            traced = time.perf_counter() - t1
+        top = _device_events(prof)
+        busy_ms = sum(ms for _, ms in top)
+        del cp
+        # The step's device work by CUDA events, part by part (the draws,
+        # the stack, K3, K7): the idle share where the profiler records
+        # no device event.
+        parts_ms = k3_ms + k7_ms + cuda_ms(lambda: torch.randn(
+            shape, generator=torch.Generator(device=device), device=device)) \
+            + cuda_ms(lambda: advi_mod._stack(state0[0], state0[1], eps0))
+        k7_first = k7_check(state0, g0, f0, eps0, sd0, 0, advi)
+        advi_mod.elbo_step(st, data, cfg, eps0, 0, advi)
+        for i in range(1, advi.num_steps - 1):
+            advi_mod.elbo_step(st, data, cfg, torch.randn(
+                shape, generator=gen, device=device), i, advi)
+        eps_last = torch.randn(shape, generator=gen, device=device)
+        state_last = [x.clone() for x in st]
+        sd_l, stack_l = advi_mod._stack(st.mu, st.rho, eps_last)
+        f_l, g_l = lk.loss(stack_l, data, cfg)
+        k7_last = k7_check(state_last, g_l, f_l, eps_last, sd_l,
+                           advi.num_steps - 1, advi)
+        advi_mod.elbo_step(st, data, cfg, eps_last, advi.num_steps - 1, advi)
+        require(torch.equal(st.mu, post.mu) and torch.equal(st.rho, post.rho),
+                "the replayed ADVI loop differs from fit_advi's bits")
+
+        # K3 on the draw stack (first 512 series x 4 draws) by GAP_RULE at
+        # the first and the last step.
+        r = slice(0, n_chk)
+        sub = _rows(data, r)
+        first = stack_gaps(state0[0][r].contiguous(),
+                           state0[1][r].contiguous(),
+                           eps0[:, r].contiguous(), sub, cfg)
+        require(within_gap_rule(first["gap"]),
+                f"K3 on the first-step draw stack: {first}")
+        require(first["planted_dropped_cell"] > GAP_TOL,
+                f"a dropped cell passes GAP_RULE on the draw stack: {first}")
+        last = stack_gaps(state_last[0][r].contiguous(),
+                          state_last[1][r].contiguous(),
+                          eps_last[:, r].contiguous(), sub, cfg)
+        last["held"] = within_gap_rule(last["plain_f32_vs_f64"])
+        if last["held"]:
+            require(within_gap_rule(last["gap"]),
+                    f"K3 on the last-step draw stack: {last}")
+        del data, sub, st, stack_l, g_l, f_l, stack0, g0, f0
+
+        # The card's ADVI against the plain CPU path on 64 series: the
+        # card's MAP theta, the same host draws.
+        idx = np.linspace(0, n - 1, UNC_SUBSET).astype(np.int64)
+        th_sub = theta0[idx]
+        job = parity.submit(advi_parity_job, ds_fit, y_fit[idx], m_fit[idx],
+                            th_sub, UNC_SEED + 1)
+        sub_np, _ = prepare_fit_data(ds_fit, y_fit[idx], cfg,
+                                     mask=m_fit[idx])
+        card = advi_mod.fit_advi(th_sub, sub_np, None, cfg, device=device,
+                                 draws=advi_draws(UNC_SEED + 1,
+                                                  th_sub.shape, device))
+        faults = {}
+        for kind in ADVI_FAULTS:
+            saved = advi_k.advi_step
+            advi_k.advi_step = planted_advi_fault(kind)
+            try:
+                bad = advi_mod.fit_advi(
+                    th_sub, sub_np, None, cfg, device=device,
+                    draws=advi_draws(UNC_SEED + 1, th_sub.shape, device))
+            finally:
+                advi_k.advi_step = saved
+            faults[kind] = (bad.mu.cpu().numpy(), bad.rho.cpu().numpy())
+        t1 = time.perf_counter()
+        cpu = job.get()
+        wait_s = time.perf_counter() - t1
+        sound = advi_distance(card.mu.cpu().numpy(), card.rho.cpu().numpy(),
+                              cpu["mu"], cpu["rho"])
+        planted = {k: advi_distance(m, rr, cpu["mu"], cpu["rho"])
+                   for k, (m, rr) in faults.items()}
+        advi_parity = {"subset": UNC_SUBSET, "cpu_s": cpu["seconds"],
+                       "wait_s": wait_s, "limits": ADVI_PARITY,
+                       "card_vs_cpu": sound, "planted": planted}
+        emit({"phase": "uncertainty_parity", **advi_parity})
+        require(within_advi_parity(sound),
+                f"the card's ADVI against the CPU's: {advi_parity}")
+        require(not any(within_advi_parity(d) for d in planted.values()),
+                f"a planted ADVI fault passes the parity limits: "
+                f"{advi_parity}")
+    finally:
+        import shutil
+
+        shutil.rmtree(root, ignore_errors=True)
+
+    sd = np.exp(rho)
+    out = {
+        "phase": "uncertainty", "series": n, "days_fit": cut,
+        "holdout": calibrate.DEFAULT_HOLDOUT, "params": cfg.num_params,
+        "advi": {"num_steps": advi.num_steps,
+                 "num_elbo_samples": advi.num_elbo_samples,
+                 "stack_rows": advi.num_elbo_samples * n},
+        "stages_s": stages,
+        "map_fit_backend_stages_s": dict(bk.stages.seconds),
+        "launches": launches, "launches_k1_map_mode_reads": k1_map,
+        "ms_per_advi_step": {
+            "wall": step_ms, "k3": k3_ms, "k7": k7_ms,
+            "rest_torch_ops_and_host": step_ms - k3_ms - k7_ms},
+        "advi_profile_5_steps": {
+            "traced_wall_s": traced,
+            "device_busy_ms": busy_ms if top else "not measured",
+            "device_idle_share": (1.0 - busy_ms / 1e3 / traced if top
+                                  else "not measured: the profiler "
+                                  "recorded no device event"),
+            "top_device_ms": [(k[:60], ms) for k, ms in top[:6]]},
+        "device_ms_per_step_event_timed_parts": parts_ms,
+        "idle_share_from_event_timed_parts": 1.0 - parts_ms / step_ms,
+        "peak_device_bytes": peak,
+        "posterior_sd": {
+            "quantiles_all": {str(q): float(np.quantile(sd, q))
+                              for q in (0.01, 0.1, 0.5, 0.9, 0.99)},
+            "median_by_block": {
+                "k": float(np.median(sd[:, 0])),
+                "m": float(np.median(sd[:, 1])),
+                "log_sigma": float(np.median(sd[:, 2])),
+                "delta": float(np.median(sd[:, 3:3 + cfg.n_changepoints])),
+                "beta": float(np.median(sd[:, 3 + cfg.n_changepoints:]))}},
+        "elbo_median": float(np.median(elbo)),
+        "qplane": {k: pub[k] for k in ("mode", "buckets", "nbytes",
+                                       "publish_s")},
+        "coverage_abs_gap": calib["coverage_abs_gap"],
+        "coverage": {hb: {"interval_empirical": r["interval_empirical"],
+                          "coverage_abs_gap": r["coverage_abs_gap"],
+                          "n_cells": r["n_cells"],
+                          "quantile_empirical": {
+                              str(pm): g["empirical"] for pm, g in
+                              r["quantile_gaps"].items()}}
+                     for hb, r in calib["buckets"].items()},
+        "reads": reads, "plane_checks": plane_checks,
+        "gold": {k: audit[k] for k in ("rows", "qdiv_max", "qdiv_mean",
+                                       "rhat_max", "ess_min", "accept_mean",
+                                       "hmc_divergences")},
+        "gold_host_ms_per_leapfrog": 1e3 * gold_host_s
+        / max(gold_leapfrogs, 1),
+        "gold_leapfrogs": gold_leapfrogs,
+        "k3_draw_stack": {"first_step": first, "last_step": last},
+        "k7": {"first_step": k7_first, "last_step": k7_last},
+    }
+    emit(out)
+    kb = advi.num_elbo_samples * n
+    k7 = {"name": "advi", "route": "cuda",
+          "source": "tsspark_tpu_torch/csrc/advi.cu",
+          "replaces": "tsspark_tpu/uncertainty/advi.py:87",
+          "launches": launches["advi"],
+          "max_abs_err": max(k7_first["max_abs_err"],
+                             k7_last["max_abs_err"]),
+          "tolerance": "bitwise (the plain version's operation order)",
+          "ms": k7_ms, "plain_ms": k7_plain_ms,
+          **advi_bound_ms(advi.num_elbo_samples, n, cfg.num_params),
+          # No single PyTorch call computes the ELBO's reduction over the
+          # draws and the Adam step; torch.optim.Adam(fused=True) on the
+          # same (B, P) parameters, the update alone, as a yardstick.
+          "library_ms": None, "adam_fused_update_only_ms": adam_ms,
+          "shape": [advi.num_elbo_samples, n, cfg.num_params]}
+    k3_stack = {"shape": [kb, cut, cfg.num_params], "ms": k3_ms,
+                "plain_ms": k3_plain_ms,
+                "launches": launches["loss_grad"],
+                "launches_in_fit_advi": advi.num_steps,
+                **loss_bound_ms(kb, n, cut, cfg, True),
+                "gap": {"first_step": first["gap"],
+                        "last_step": last["gap"]}}
+    return {"out": out, "kernel": k7, "k3_stack": k3_stack}
+
+
+def add_uncertainty(kernels, unc) -> None:
+    """K7's entry joins the kernels line; K3's gains the ADVI draw stack
+    (gradient, row layout: each data row read once a draw)."""
+    for k in kernels:
+        if k["name"] == "loss":
+            k["advi_draw_stack"] = unc["k3_stack"]
+    kernels.append(unc["kernel"])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3481,9 +4077,11 @@ def main(argv=None) -> int:
         fleet = timed("stream_fleet", phase_stream_fleet, device, fleet_df,
                       gen5_s, parity)
         del fleet_df
+        unc = timed("uncertainty", phase_uncertainty, serve, device, parity)
         kernels = timed("kernels", phase_kernels, serve, fwd, bnd, fit,
                         fit4, mcmc, device)
         add_stream_launches(kernels["kernels"], stream5, fleet)
+        add_uncertainty(kernels["kernels"], unc)
         finished = True
     finally:
         parity.close(finished)

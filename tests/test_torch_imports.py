@@ -71,7 +71,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "tsspark_tpu_torch.streaming.warmstart",
                 "tsspark_tpu_torch.streaming.state",
                 "tsspark_tpu_torch.streaming.source",
-                "tsspark_tpu_torch.streaming.driver"):
+                "tsspark_tpu_torch.streaming.driver",
+                "tsspark_tpu_torch.kernels.advi",
+                "tsspark_tpu_torch.io.errors",
+                "tsspark_tpu_torch.plane.protocol",
+                "tsspark_tpu_torch.serve.fplane",
+                "tsspark_tpu_torch.uncertainty",
+                "tsspark_tpu_torch.uncertainty.advi",
+                "tsspark_tpu_torch.uncertainty.qplane",
+                "tsspark_tpu_torch.uncertainty.gold",
+                "tsspark_tpu_torch.uncertainty.calibrate"):
         assert mod in out["modules"]
 
 
@@ -170,6 +179,39 @@ def test_cpu_wrappers_count_no_launches():
         state, 18100.0 + np.arange(5.0), num_samples=16)
     assert out["yhat_lower"].shape == (b, 5)
     assert (fk.launches, bk.launches) == (f0, b0)
+
+
+def test_advi_runs_on_the_card_or_raises(monkeypatch):
+    """fit_advi's default device is the card (it raises without one); K7's
+    wrapper refuses a device other than the CPU and CUDA; on the CPU the
+    plain versions run and no launch is counted."""
+    from tsspark_tpu_torch.config import AdviConfig, ProphetConfig
+    from tsspark_tpu_torch.kernels import advi as advi_k
+    from tsspark_tpu_torch.kernels import loss as lk
+    from tsspark_tpu_torch.models.prophet.design import prepare_fit_data
+    from tsspark_tpu_torch.uncertainty import advi
+
+    cfg = ProphetConfig(seasonalities=(), n_changepoints=2)
+    rng = np.random.default_rng(2)
+    ds = np.arange(40.0)
+    y = 3.0 + 0.1 * ds + rng.normal(0, 0.2, (2, 40))
+    data, _ = prepare_fit_data(ds, y, cfg)
+    theta0 = rng.normal(0, 0.1, (2, cfg.num_params)).astype(np.float32)
+    short = AdviConfig(num_steps=3)
+    before = (lk.launches, advi_k.launches)
+    post = advi.fit_advi(theta0, data, torch.Generator().manual_seed(0),
+                         cfg, short, device="cpu")
+    assert post.mu.shape == (2, cfg.num_params)
+    assert (lk.launches, advi_k.launches) == before
+    m = lambda *s: torch.empty(s, device="meta")  # noqa: E731
+    with pytest.raises(ValueError, match="unsupported device"):
+        advi_k.advi_step(m(8, 5), m(8), m(4, 2, 5), m(2, 5),
+                         *[m(2, 5) for _ in range(6)],
+                         advi_k.adam_scalars(short, 0))
+    assert advi_k.launches == before[1]
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        advi.fit_advi(theta0, data, None, cfg, short)
 
 
 def test_cpu_mcmc_counts_no_launches():

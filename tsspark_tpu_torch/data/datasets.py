@@ -7,7 +7,10 @@ seed, plain numpy arrays out:
   M5's onset pattern (leading unobserved days), weekly and yearly
   seasonality, changepoints, and holiday, price and promo effects;
 * ``wiki_logistic_like`` (eval config 4): saturating pageview series
-  with a known capacity and a multiplicative weekly pattern.
+  with a known capacity and a multiplicative weekly pattern;
+* ``demo_weekly_rows`` (the calibration smoke's workload): block-seeded
+  smooth weekly-cycle series, rows [lo, hi) the same bytes whatever
+  range they are generated in, with their ``dataset_ids``.
 """
 
 from __future__ import annotations
@@ -118,4 +121,70 @@ def wiki_logistic_like(
     return SeriesBatch(
         ds=ds, y=y, mask=np.ones_like(y), series_ids=ids,
         cap=np.broadcast_to(caps * 1.1, y.shape).copy(),
+    )
+
+
+# ---------------------------------------------------------------------------
+# block-seeded generators (the JAX package's data-plane workloads)
+# ---------------------------------------------------------------------------
+
+#: Rows per seeding block: part of the data's identity, as in the JAX
+#: package (a row's values depend on its block's rng alone).
+SEED_BLOCK = 1024
+
+
+def _block_rng(seed: int, block: int, tag: int = 0):
+    """The rng for one (seed, block) cell; ``tag`` separates streams."""
+    return np.random.default_rng(
+        [0x7355, int(seed) & 0xFFFFFFFF, int(block), int(tag)]
+    )
+
+
+def _zero_pad(idx: np.ndarray, width: int) -> np.ndarray:
+    """``f"{i:0{width}d}"`` vectorized (values with more digits than
+    ``width`` keep their own digits, as the f-spec does)."""
+    natw = len(str(int(idx.max()))) if idx.size else 1
+    s = idx.astype(f"<U{natw}")
+    maxw = max(width, natw)
+    out = s.astype(f"<U{maxw}")
+    short = np.char.str_len(s) < width
+    if short.any():
+        out[short] = np.char.zfill(s[short], width)
+    return out
+
+
+def dataset_ids(generator: str, lo: int, hi: int) -> np.ndarray:
+    """Series ids for rows [lo, hi) of a named block generator (the
+    ``demo_weekly`` scheme ``s0000``, else M5's ``M5_00000``)."""
+    idx = np.arange(lo, hi)
+    if generator == "demo_weekly":
+        return np.char.add("s", _zero_pad(idx, 4))
+    return np.char.add("M5_", _zero_pad(idx, 5))
+
+
+def demo_weekly_rows(
+    lo: int, hi: int, n_steps: int = 180, seed: int = 0
+) -> SeriesBatch:
+    """Block-seeded smooth weekly-cycle series (level + slope + sine +
+    N(0, 0.2^2)) on the day grid 0 .. n_steps - 1."""
+    if not 0 <= lo < hi:
+        raise ValueError(f"bad row range [{lo}, {hi})")
+    t = np.arange(n_steps, dtype=np.float64)
+    ys = []
+    for block in range(lo // SEED_BLOCK, (hi - 1) // SEED_BLOCK + 1):
+        rng = _block_rng(seed, block, tag=2)
+        S = SEED_BLOCK
+        level = rng.uniform(5.0, 50.0, (S, 1))
+        slope = rng.uniform(-0.02, 0.05, (S, 1))
+        amp = rng.uniform(0.5, 3.0, (S, 1))
+        y_b = (level + slope * t[None, :]
+               + amp * np.sin(2 * np.pi * t[None, :] / 7.0)
+               + rng.normal(0, 0.2, (S, n_steps)))
+        row0 = block * SEED_BLOCK
+        ys.append(y_b[max(lo, row0) - row0:
+                      min(hi, row0 + SEED_BLOCK) - row0])
+    y = np.concatenate(ys, axis=0)
+    return SeriesBatch(
+        ds=t, y=y, mask=np.ones_like(y),
+        series_ids=dataset_ids("demo_weekly", lo, hi),
     )

@@ -78,6 +78,14 @@ SIGNATURES = {
         _i, _i, _i, _i, _i, _i,                    # B T P ncp S growth
         _c,                                        # stream
     ],
+    "tsspark_advi": [
+        _c, _c, _c, _c,                            # g f eps sd
+        _c, _c, _c, _c, _c, _c,                    # mu rho m_mu v_mu m_rho v_rho
+        _c,                                        # loss out
+        _i, _i, _i,                                # K B P
+        _f, _f, _f, _f, _f, _f, _f, _f, _f,        # 1/K b1 1-b1 b2 1-b2 c1 c2 lr eps
+        _c,                                        # stream
+    ],
     "tsspark_draws": [
         _c,                                        # theta_t (B, P, S)
         _c, _c, _c,                                # t s cap (or null)

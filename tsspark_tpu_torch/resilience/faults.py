@@ -15,9 +15,10 @@ then ``attempts`` firings).  Call slots are claimed by atomic
 ``O_CREAT|O_EXCL`` file creation under the plan's ``state_dir``, so the
 N-th matching call fires the same way no matter which process makes it.
 
-Named point wired in the port so far:
+Named points wired in the port so far:
 
   stream_poll       streaming source poll
+  qplane_publish    quantile plane publish, once per column
 
 With ``TSSPARK_FAULTS`` unset, ``inject`` is one dict lookup.
 """

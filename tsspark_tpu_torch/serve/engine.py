@@ -24,6 +24,12 @@ refused when it is made; any other count is served.
 (snapshot rows, padding, parameter take, future grid), "predict" (the
 ``backend.predict`` call, arrays back on the host), "scatter" (per-series
 rows for the cache) and "assemble" (each request's arrays).
+
+``quantiles`` serves interval forecasts synchronously: from the version's
+quantile plane (``uncertainty/qplane.py``) as a memmap gather when the
+plane covers the request, else through the row-local compute fallback
+(``qplane.compute_rows``), which gives plane-covered cells the same bits.
+``EngineStats.qplane_hits`` / ``qplane_misses`` count the rows each way.
 """
 
 from __future__ import annotations
@@ -200,6 +206,10 @@ class EngineStats:
     rejected: int = 0
     pumps: int = 0
     dispatches: int = 0
+    # Interval rows answered by the quantile plane's gather vs through
+    # the row-local compute fallback.
+    qplane_hits: int = 0
+    qplane_misses: int = 0
     latencies_s: "collections.deque" = dataclasses.field(
         default_factory=lambda: collections.deque(maxlen=_LATENCY_WINDOW)
     )
@@ -225,6 +235,13 @@ class EngineStats:
             "rejected": self.rejected,
             "pumps": self.pumps,
             "dispatches": self.dispatches,
+            "qplane_hits": self.qplane_hits,
+            "qplane_misses": self.qplane_misses,
+            "qplane_hit_rate": (
+                round(self.qplane_hits
+                      / (self.qplane_hits + self.qplane_misses), 4)
+                if (self.qplane_hits + self.qplane_misses) else None
+            ),
             "latency_ms": {"p50": pct(50), "p95": pct(95), "p99": pct(99)},
             "mean_fill": (round(float(np.mean(fill)), 4) if fill else None),
         }
@@ -271,6 +288,9 @@ class PredictionEngine:
         self._snapshot: Optional[Snapshot] = None
         self._manifest_key: Optional[Tuple[int, ...]] = None
         self._active_seen: Optional[int] = None
+        # Attached quantile planes, version-keyed; None memoizes an absent
+        # or refused plane, so a plane-less version costs one probe.
+        self._qplanes: Dict[int, Optional[object]] = {}
         self._pump_lock = threading.Lock()
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
@@ -499,6 +519,98 @@ class PredictionEngine:
                 row["ds"] = grid[i]
                 result[sid] = row
         return result
+
+    # -- quantile plane (interval reads) ----------------------------------------
+
+    def _qplane_for(self, version: int):
+        """The attached quantile plane of ``version``, or None (absent,
+        torn or corrupt: memoized, and intervals are computed)."""
+        from tsspark_tpu_torch.uncertainty import qplane
+
+        version = int(version)
+        if version in self._qplanes:
+            return self._qplanes[version]
+        view = None
+        try:
+            vdir = self.registry.version_dir(version)
+            if qplane.has_qplane(vdir):
+                view = qplane.attach(vdir)
+        except (qplane.QuantilePlaneError, OSError):
+            view = None
+        self._qplanes[version] = view
+        while len(self._qplanes) > 4:
+            self._qplanes.pop(next(iter(self._qplanes)))
+        return view
+
+    def attach_qplane(self, version: int) -> bool:
+        """Re-probe ``version``'s quantile plane, dropping any memoized
+        refusal first (the pickup after a torn publish is retried)."""
+        self._qplanes.pop(int(version), None)
+        return self._qplane_for(version) is not None
+
+    def quantiles(self, series_ids: Sequence, horizon: int,
+                  quantiles: Optional[Sequence[float]] = None
+                  ) -> ForecastResult:
+        """Interval forecast: per-series quantile rows, from the version's
+        quantile plane when it covers every requested (bucket, quantile)
+        pair (a memmap gather, no device work), else through
+        ``qplane.compute_rows`` (ADVI mode when the plane's spec says so
+        and the posterior loads; MAP mode through ``backend.predict``,
+        K1 on the card), which gives plane-covered cells the same bits.
+        ``quantiles`` defaults to the plane's set (``DEFAULT_QUANTILES``
+        without a plane).  Values are keyed ``"q<permille>"``;
+        ``from_cache`` counts plane-served rows."""
+        from tsspark_tpu_torch.uncertainty import advi as advi_mod
+        from tsspark_tpu_torch.uncertainty import qplane
+
+        t0 = time.monotonic()
+        sids = [str(s) for s in series_ids]
+        if not sids:
+            raise ValueError("series_ids must be non-empty")
+        with self._pump_lock:
+            snap = self.refresh()
+        version = snap.version
+        idx, missing = snap.rows(sids)
+        if missing:
+            raise UnknownSeries(missing, version)
+        h = int(horizon)
+        hb = max(self.horizon_floor, next_pow2(h))
+        view = self._qplane_for(version)
+        qs = (tuple(float(q) for q in quantiles) if quantiles is not None
+              else (view.quantiles if view is not None
+                    else qplane.DEFAULT_QUANTILES))
+        if view is not None and view.covers(hb, qs):
+            grid, cols = qplane.quantile_batch(view, snap, idx, hb)
+            self.stats.qplane_hits += len(sids)
+            cached = len(sids)
+        else:
+            self.stats.qplane_misses += len(sids)
+            posterior = None
+            if view is not None and view.mode == "advi":
+                loaded = advi_mod.load_posterior(
+                    self.registry.version_dir(version))
+                if loaded is not None:
+                    posterior = loaded[0]
+            cols = qplane.compute_rows(
+                snap, self.registry.config, self.backend, idx, hb,
+                quantiles=qs,
+                draws=qplane.DEFAULT_DRAWS if view is None else view.draws,
+                seed=qplane.DEFAULT_SEED if view is None else view.seed,
+                posterior=posterior,
+            )
+            meta = snap.state.meta
+            last = (np.asarray(meta.ds_start, np.float64)[idx]
+                    + np.asarray(meta.ds_span, np.float64)[idx])
+            step = np.asarray(snap.step, np.float64)[idx]
+            grid = last[:, None] + step[:, None] * np.arange(1, hb + 1)
+            cached = 0
+        values = {f"q{qplane.permille(q):03d}":
+                  cols[qplane.permille(q)][:, :h] for q in qs}
+        return ForecastResult(
+            series_ids=tuple(sids), ds=grid[:, :h], values=values,
+            version=version, latency_s=time.monotonic() - t0,
+            from_cache=cached,
+        )
 
     # -- background worker -----------------------------------------------------
 
