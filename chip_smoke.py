@@ -119,15 +119,18 @@ the script exits non-zero without printing the final line:
    under ``ProphetConfig()`` with the last 28 days withheld, the MAP fit
    (``CudaBackend.fit``, ``SolverConfig(max_iters=25)``), ``publish``,
    ``fit_advi`` at ``AdviConfig()`` (200 steps: K3's gradient on the
-   121,960-row draw stack and K7), ``save_posterior``, the ADVI-mode
+   121,960-row draw stack in its draw-stack layout, required on every
+   step, and K7), ``save_posterior``, the ADVI-mode
    quantile plane (``qplane.maybe_publish``), ``evaluate_version`` on the
    held-out days, 200 reads through ``PredictionEngine.quantiles``, 512
    MAP-mode reads of a version without a posterior (K1), and
    ``gold.audit_version`` (8 rows, ``McmcConfig()``).  Launch counts set
    to 0 just before, read just after.  Then the path's ADVI loop replayed
-   step by step (the same bits): K3 on the first and last steps' draw
-   stacks (512 series x 4 draws) by GAP_RULE (a dropped cell must fail),
-   K7 bitwise against its plain version at both steps; the plane bitwise
+   step by step (the same bits): K3 on the first and last steps' whole
+   draw stacks, each draw the bits of its rows' row-layout launch alone,
+   and on their first 512 series x 4 draws by GAP_RULE against the plain
+   version (a dropped cell must fail), K7 bitwise against its plain
+   version at both steps; the plane bitwise
    against ``compute_rows`` on 512 rows and ordered and finite over all;
    the card's ADVI against the plain CPU path on 64 series with the same
    MAP theta and draws (``ADVI_PARITY``, which two planted faults fail);
@@ -3595,6 +3598,26 @@ def stack_gaps(mu, rho, eps, data, cfg) -> dict:
                                float((v_k - f_p).abs().max()))}
 
 
+def draw_stack_bits(stack, data, cfg, k_draws, f, g) -> dict:
+    """K3's draw-stack launch (``f``, ``g`` on the (K B, P) ``stack``)
+    against each draw's rows launched alone (the row layout, N = B): the
+    same bits are required."""
+    import torch
+
+    from tsspark_tpu_torch.kernels import loss as lk
+
+    b = stack.shape[0] // k_draws
+    same, err = True, 0.0
+    for k in range(k_draws):
+        rows = slice(k * b, (k + 1) * b)
+        fk, gk = lk.loss(stack[rows].contiguous(), data, cfg)
+        same = same and torch.equal(f[rows], fk) and torch.equal(g[rows], gk)
+        err = max(err, float((f[rows] - fk).abs().max()),
+                  float((g[rows] - gk).abs().max()))
+    torch.cuda.synchronize()
+    return {"bitwise": bool(same), "max_abs_err": err}
+
+
 def k7_check(state, g, f, eps, sd, step, advi) -> dict:
     """K7 against its plain version on clones of the path's tensors."""
     import torch
@@ -3677,8 +3700,8 @@ def phase_uncertainty(serve, device, parity) -> dict:
         torch.cuda.reset_peak_memory_stats()
         hmc.timing.reset()
         # The main path: counts to 0 just before, read just after.
-        lk.launches = lk.grad_launches = fan_k.launches = 0
-        fk.launches = advi_k.launches = 0
+        lk.launches = lk.grad_launches = lk.stack_launches = 0
+        fk.launches = advi_k.launches = fan_k.launches = 0
         bk = get_backend("cuda", cfg, SolverConfig(max_iters=25),
                          device=device)
         state = stage("map_fit", bk.fit, ds_fit, y_fit, mask=m_fit)
@@ -3687,6 +3710,7 @@ def phase_uncertainty(serve, device, parity) -> dict:
         data_np, _ = stage("advi_prep", prepare_fit_data, ds_fit, y_fit,
                            cfg, mask=m_fit)
         theta0 = np.nan_to_num(state.theta.cpu().numpy().astype(np.float32))
+        before = (lk.stack_launches, lk.grad_launches)
         t0 = time.perf_counter()
         post = advi_mod.fit_advi(
             theta0, data_np, torch.Generator(device=device)
@@ -3694,6 +3718,9 @@ def phase_uncertainty(serve, device, parity) -> dict:
         torch.cuda.synchronize()
         stages["fit_advi"] = time.perf_counter() - t0
         k7_path = advi_k.launches
+        # K3's draw-stack launches in fit_advi (gradient mode, all of them).
+        k3_draw_path = lk.stack_launches - before[0]
+        k3_grad_path = lk.grad_launches - before[1]
         stage("save_posterior", advi_mod.save_posterior,
               reg.version_dir(v), post, seed=UNC_SEED,
               num_steps=advi.num_steps)
@@ -3738,6 +3765,8 @@ def phase_uncertainty(serve, device, parity) -> dict:
                       arrays=(ds_fit, y_fit, m_fit, None), device=device)
         launches = {"loss": lk.launches, "loss_grad": lk.grad_launches,
                     "loss_value": lk.launches - lk.grad_launches,
+                    "loss_stack": lk.stack_launches,
+                    "loss_draw_stack_in_fit_advi": k3_draw_path,
                     "fan": fan_k.launches, "forward": fk.launches,
                     "advi": advi_k.launches}
         gold_leapfrogs, gold_host_s = hmc.timing.leapfrogs, hmc.timing.host_s
@@ -3745,6 +3774,9 @@ def phase_uncertainty(serve, device, parity) -> dict:
 
         require(k7_path == advi.num_steps and launches["advi"] == k7_path,
                 f"K7 launches on the path: {launches}")
+        require(k3_draw_path >= advi.num_steps
+                and k3_grad_path == k3_draw_path,
+                f"K3's draw-stack layout on fit_advi's path: {launches}")
         require(launches["loss_grad"] >= advi.num_steps
                 and launches["fan"] > 0 and launches["forward"] > 0
                 and k1_map > 0,
@@ -3806,7 +3838,15 @@ def phase_uncertainty(serve, device, parity) -> dict:
         state0 = [x.clone() for x in st]
         sd0, stack0 = advi_mod._stack(st.mu, st.rho, eps0)
         f0, g0 = lk.loss(stack0, data, cfg)
+        bits_first = draw_stack_bits(stack0, data, cfg,
+                                     advi.num_elbo_samples, f0, g0)
+        require(bits_first["bitwise"],
+                f"K3's draw stack at the first step: each draw against "
+                f"its row-layout launch: {bits_first}")
         k3_ms = cuda_ms(lambda: lk.loss(stack0, data, cfg), iters=10)
+        k3_row_ms = cuda_ms(lambda: [
+            lk.loss(stack0[k * n:(k + 1) * n], data, cfg)
+            for k in range(advi.num_elbo_samples)], iters=5)
         k3_plain_ms = cuda_ms(lambda: lk.loss_plain(stack0, data, cfg),
                               iters=1, warmup=1)
         sc0 = advi_k.adam_scalars(advi, 0)
@@ -3853,6 +3893,11 @@ def phase_uncertainty(serve, device, parity) -> dict:
         state_last = [x.clone() for x in st]
         sd_l, stack_l = advi_mod._stack(st.mu, st.rho, eps_last)
         f_l, g_l = lk.loss(stack_l, data, cfg)
+        bits_last = draw_stack_bits(stack_l, data, cfg,
+                                    advi.num_elbo_samples, f_l, g_l)
+        require(bits_last["bitwise"],
+                f"K3's draw stack at the last step: each draw against "
+                f"its row-layout launch: {bits_last}")
         k7_last = k7_check(state_last, g_l, f_l, eps_last, sd_l,
                            advi.num_steps - 1, advi)
         advi_mod.elbo_step(st, data, cfg, eps_last, advi.num_steps - 1, advi)
@@ -3972,7 +4017,9 @@ def phase_uncertainty(serve, device, parity) -> dict:
         "gold_host_ms_per_leapfrog": 1e3 * gold_host_s
         / max(gold_leapfrogs, 1),
         "gold_leapfrogs": gold_leapfrogs,
-        "k3_draw_stack": {"first_step": first, "last_step": last},
+        "k3_draw_stack": {"first_step": first, "last_step": last,
+                          "row_layout_bits": {"first_step": bits_first,
+                                              "last_step": bits_last}},
         "k7": {"first_step": k7_first, "last_step": k7_last},
     }
     emit(out)
@@ -3991,10 +4038,20 @@ def phase_uncertainty(serve, device, parity) -> dict:
           # same (B, P) parameters, the update alone, as a yardstick.
           "library_ms": None, "adam_fused_update_only_ms": adam_ms,
           "shape": [advi.num_elbo_samples, n, cfg.num_params]}
-    k3_stack = {"shape": [kb, cut, cfg.num_params], "ms": k3_ms,
-                "plain_ms": k3_plain_ms,
-                "launches": launches["loss_grad"],
-                "launches_in_fit_advi": advi.num_steps,
+    k3_stack = {"shape": [kb, cut, cfg.num_params],
+                "source": "tsspark_tpu_torch/csrc/loss_draws.cuh",
+                "layout": "draw stack (csrc/loss_draws.cuh draw_kernel: a warp "
+                          "a series' 4 draws)",
+                "ms": k3_ms, "plain_ms": k3_plain_ms,
+                "row_layout_ms": k3_row_ms,
+                "launches": launches["loss_draw_stack_in_fit_advi"],
+                "max_abs_err": max(first["max_abs_err"],
+                                   last["max_abs_err"]),
+                "tolerance": GAP_RULE + " (512 series x 4 draws)",
+                "max_abs_err_vs_row_layout": max(
+                    bits_first["max_abs_err"], bits_last["max_abs_err"]),
+                "tolerance_vs_row_layout": "bitwise",
+                "library_ms": None,
                 **loss_bound_ms(kb, n, cut, cfg, True),
                 "gap": {"first_step": first["gap"],
                         "last_step": last["gap"]}}
@@ -4003,7 +4060,8 @@ def phase_uncertainty(serve, device, parity) -> dict:
 
 def add_uncertainty(kernels, unc) -> None:
     """K7's entry joins the kernels line; K3's gains the ADVI draw stack
-    (gradient, row layout: each data row read once a draw)."""
+    (gradient, the draw-stack layout: each data row read once for a
+    series' four draws)."""
     for k in kernels:
         if k["name"] == "loss":
             k["advi_draw_stack"] = unc["k3_stack"]

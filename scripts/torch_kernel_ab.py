@@ -30,7 +30,17 @@ the solver's ridge init and first preconditioned direction — and:
 * times K6 ``draws`` at the MCMC path's chunk (512 series of
   ``m5_like(512, 1941, seed=2)`` under config 3, S = 300 draws around
   random parameters from a fixed seed) with its own Philox draws and on
-  given draws (keys ``k6_*``).
+  given draws (keys ``k6_*``);
+* times the ADVI step's two kernels at the uncertainty tier's shape
+  (``m5_like(30490, 1941, seed=2, with_regressors=False)`` under the
+  default ``ProphetConfig``, the last 28 days withheld: T = 1,913, K = 4
+  draws, P = 54, random parameters from a fixed seed): K3 in gradient
+  mode on the (K B, P) draw stack and K7 ``advi`` (keys ``k3_draw_stack``,
+  ``k7_advi``), each beside its bound, and five ``elbo_step`` calls under
+  ``torch.profiler``: device ms by kernel, the wall a step, the idle share.
+
+``--only advi`` runs the last item alone (each child then skips the fit
+chunk, serving, the stacks and K6).
 
 Give the checkouts as A B B A to see the spread.  Each child prints one
 JSON line; the outputs of K1-K4 go to ``--out`` (a temporary directory,
@@ -55,7 +65,19 @@ FULL_DAYS = 1941
 CHUNK = 8192
 
 
-def child(out_dir: str, tag: str) -> dict:
+def child(out_dir: str, tag: str, only: str = "") -> dict:
+    if only == "advi":
+        import torch
+
+        from tsspark_tpu_torch.kernels import build
+
+        t0 = time.perf_counter()
+        build.library()
+        build_s = time.perf_counter() - t0
+        advi, advi_out = advi_kernels(torch.device("cuda"))
+        torch.save(advi_out, os.path.join(out_dir, f"{tag}.pt"))
+        return {"tag": tag, "tree": os.getcwd(), "build_s": build_s,
+                "advi_kernels": advi}
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -131,16 +153,18 @@ def child(out_dir: str, tag: str) -> dict:
     serve, serve_out = serve_kernels(batch, device)
     stack, stack_out = stack_kernels(data, device)
     draws, draws_out = draws_kernel(device)
+    advi, advi_out = advi_kernels(device)
     saved = torch.load(os.path.join(out_dir, f"{tag}.pt"))
     saved.update(serve_out)
     saved.update(stack_out)
     saved.update(draws_out)
+    saved.update(advi_out)
     torch.save(saved, os.path.join(out_dir, f"{tag}.pt"))
     return {
         "tag": tag, "tree": os.getcwd(), "build_s": build_s,
         "shape": [b, t_len, cfg.num_params], "kernels": kernels,
         "serve_kernels": serve, "stack_kernels": stack,
-        "draws_kernel": draws,
+        "draws_kernel": draws, "advi_kernels": advi,
         "chunk_solve": {
             "iterations": int(res.n_iters.max()), "traced_wall_s": traced,
             "device_busy_ms": busy,
@@ -299,6 +323,101 @@ def draws_kernel(device):
     return times, out
 
 
+def advi_kernels(device):
+    """K3 on the ADVI draw stack and K7 at the uncertainty tier's shape,
+    and five ADVI steps under the profiler: times beside bounds, and
+    outputs (K3's f and g on the stack, K7's loss and updated state)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    from tsspark_tpu_torch.config import AdviConfig, ProphetConfig
+    from tsspark_tpu_torch.data.datasets import m5_like
+    from tsspark_tpu_torch.kernels import advi as advi_k
+    from tsspark_tpu_torch.kernels import loss as lk
+    from tsspark_tpu_torch.models.prophet import design
+    from tsspark_tpu_torch.uncertainty import advi as advi_mod
+
+    cfg, advi = ProphetConfig(), AdviConfig()
+    batch = m5_like(30490, FULL_DAYS, seed=2, with_regressors=False)
+    cut = FULL_DAYS - 28
+    data_np, _ = design.prepare_fit_data(
+        batch.ds[:cut], np.nan_to_num(batch.y[:, :cut]), cfg,
+        mask=batch.mask[:, :cut])
+    data = design.fitdata_to_device(data_np, device)
+    del data_np
+    b, t_len = data.t.shape
+    k_draws, p = advi.num_elbo_samples, cfg.num_params
+    theta = torch.from_numpy(cs.random_theta(np.random.default_rng(0), b,
+                                             cfg)).to(device)
+    state = advi_mod.init_state(theta, advi)
+    eps = torch.randn((k_draws, b, p), device=device,
+                      generator=torch.Generator(device=device)
+                      .manual_seed(0))
+    sd, stack = advi_mod._stack(state.mu, state.rho, eps)
+    f, g = lk.loss(stack, data, cfg)
+    sc = advi_k.adam_scalars(advi, 0)
+    after = [x.clone() for x in state]
+    loss = advi_k.advi_step(g, f, eps, sd, *after, sc)
+    out = {"k3_draw_stack_f": f.cpu(), "k3_draw_stack_g": g.cpu(),
+           "k7_loss": loss.cpu()}
+    out.update({f"k7_{name}": x.cpu() for name, x in
+                zip(advi_mod.AdviState._fields, after)})
+    tmp = [x.clone() for x in state]
+    times = {
+        "k3_draw_stack": {
+            "shape": [k_draws * b, t_len, p],
+            "ms": cs.cuda_ms(lambda: lk.loss(stack, data, cfg), iters=10),
+            **cs.loss_bound_ms(k_draws * b, b, t_len, cfg, True)},
+        "k7_advi": {
+            "shape": [k_draws, b, p],
+            "ms": cs.cuda_ms(lambda: advi_k.advi_step(g, f, eps, sd, *tmp,
+                                                      sc)),
+            **cs.advi_bound_ms(k_draws, b, p)},
+    }
+    for k in times.values():
+        k["share_of_bound"] = k["bound_ms"] / k["ms"]
+    # The step's other device work, event-timed: the draws and the stack.
+    rest_ms = cs.cuda_ms(lambda: torch.randn(
+        (k_draws, b, p), generator=torch.Generator(device=device),
+        device=device)) + cs.cuda_ms(
+            lambda: advi_mod._stack(state.mu, state.rho, eps))
+    cp = advi_mod.AdviState(*[x.clone() for x in state])
+    gen = torch.Generator(device=device).manual_seed(1)
+    for i in range(2):
+        advi_mod.elbo_step(cp, data, cfg, torch.randn(
+            (k_draws, b, p), generator=gen, device=device), i, advi)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for i in range(2, 7):
+            advi_mod.elbo_step(cp, data, cfg, torch.randn(
+                (k_draws, b, p), generator=gen, device=device), i, advi)
+        torch.cuda.synchronize()
+        traced = time.perf_counter() - t1
+    top = cs._device_events(prof)
+    busy = sum(ms for _, ms in top)
+    t1 = time.perf_counter()
+    for i in range(7, 27):
+        advi_mod.elbo_step(cp, data, cfg, torch.randn(
+            (k_draws, b, p), generator=gen, device=device), i, advi)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t1) / 20
+    times["step"] = {
+        "wall_ms": wall_ms,
+        "event_timed_parts_ms": times["k3_draw_stack"]["ms"]
+        + times["k7_advi"]["ms"] + rest_ms,
+        "rest_event_timed_ms": rest_ms,
+        "profiled_steps": 5, "traced_wall_ms_per_step": 1e3 * traced / 5,
+        "device_busy_ms_per_step": busy / 5 if top else "not measured",
+        "device_idle_share": (1.0 - busy / 1e3 / traced if top else
+                              "not measured: no device event recorded"),
+        "top_device_ms_per_step": [(k[:60], ms / 5) for k, ms in top[:8]]}
+    return times, out
+
+
 def serve_kernels(batch, device):
     """K1 at both serve shapes and K2 at the sampled chunk: times beside
     their bounds, and the outputs on the host."""
@@ -355,11 +474,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("trees", nargs="*")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--only", default="", choices=("", "advi"))
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.child:
         out_dir = os.path.abspath(args.out)
-        print(json.dumps(child(out_dir, args.child)), flush=True)
+        print(json.dumps(child(out_dir, args.child, args.only)), flush=True)
         return 0
     import torch
 
@@ -370,13 +490,13 @@ def main(argv=None) -> int:
                else tempfile.mkdtemp(prefix="kernel_ab_"))
     os.makedirs(out_dir, exist_ok=True)
     try:
-        return compare(args.trees, out_dir)
+        return compare(args.trees, out_dir, args.only)
     finally:
         if not args.out:
             shutil.rmtree(out_dir, ignore_errors=True)
 
 
-def compare(trees, out_dir) -> int:
+def compare(trees, out_dir, only: str = "") -> int:
     import torch
 
     tags = []
@@ -386,7 +506,8 @@ def compare(trees, out_dir) -> int:
         env = dict(os.environ, PYTHONPATH=tree)
         run = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--child", tag,
-             "--out", out_dir], cwd=tree, env=env, capture_output=True,
+             "--out", out_dir, "--only", only], cwd=tree, env=env,
+            capture_output=True,
             text=True)
         sys.stdout.write(run.stdout)
         if run.returncode != 0:

@@ -222,6 +222,22 @@ def _state(seed, b=5, p=7):
     }
 
 
+def _np_lane_sum(cols):
+    """numpy float32: lane l adds the terms l, l + 32, ... from 0 in
+    ascending order, then lane j takes lane j + h's sum for h = 16, 8, 4,
+    2, 1 (the kernel's warp)."""
+    lanes = []
+    for lane in range(32):
+        acc = np.zeros_like(cols[0])
+        for c in cols[lane::32]:
+            acc = acc + c
+        lanes.append(acc)
+    while len(lanes) > 1:
+        h = len(lanes) // 2
+        lanes = [lanes[j] + lanes[j + h] for j in range(h)]
+    return lanes[0]
+
+
 @pytest.mark.parametrize("step", [0, 7, 199])
 def test_plain_k7_is_the_formula(step):
     """advi_plain against the step's formula written out in numpy float32,
@@ -246,13 +262,8 @@ def test_plain_k7_is_the_formula(step):
         g_e = g_e + gs[k] * s["eps"][k]
     g_rho = g_e * sd - f32(1)
     fk = s["f"].reshape(K, b)
-    lw = fk[0]
-    for k in range(1, K):
-        lw = lw + fk[k]
-    rs = s["rho"][:, 0]
-    for j in range(1, p):
-        rs = rs + s["rho"][:, j]
-    want_loss = lw / f32(K) - rs
+    want_loss = _np_lane_sum([fk[k] for k in range(K)]) / f32(K) \
+        - _np_lane_sum([s["rho"][:, j] for j in range(p)])
     np.testing.assert_array_equal(loss.numpy(), want_loss)
     b1, b2 = f32(sc.b1), f32(sc.b2)
     for name, grad in (("mu", g_mu), ("rho", g_rho)):
@@ -285,6 +296,35 @@ def test_nonfinite_draws_propagate_as_in_the_reference():
                       t["v_rho"], sc)
     assert np.isnan(t["mu"].numpy()[2, 1]) and np.isnan(t["rho"].numpy()[2, 1])
     assert np.isfinite(np.delete(t["mu"].numpy(), 2, axis=0)).all()
+
+
+def test_plain_k7_loss_order_matches_the_jax_packages_elbo_losses():
+    """advi_plain's loss, its two sums taken as the kernel's lanes take
+    them (over the K draws' losses and over the P rhos), against the JAX
+    package's ``_elbo_losses`` on the same draws, at the uncertainty
+    tier's ``ProphetConfig()`` (P = 54: the rho sum spans lanes 0-21
+    twice), to the one-step test's rtol 1e-5."""
+    jc, tc = jcfg.ProphetConfig(), tcfg.ProphetConfig()
+    b, p = 8, tc.num_params
+    batch = demo_weekly_rows(0, b, n_steps=DAYS, seed=0)
+    y = batch.y.astype(np.float32)
+    tdata, _ = tdesign.prepare_fit_data(batch.ds, y, tc)
+    jdata, _ = jdesign.prepare_fit_data(batch.ds, y, jc)
+    rng = np.random.default_rng(5)
+    mu = (0.05 * rng.standard_normal((b, p))).astype(np.float32)
+    mu[:, 1] = 0.5
+    rho = (-3.0 + 0.3 * rng.standard_normal((b, p))).astype(np.float32)
+    eps = rng.standard_normal((K, b, p)).astype(np.float32)
+    want = jadvi._elbo_losses(jnp.asarray(mu), jnp.asarray(rho), jdata, jc,
+                              jnp.asarray(eps))
+    sd, stack = tadvi._stack(torch.from_numpy(mu), torch.from_numpy(rho),
+                             torch.from_numpy(eps))
+    f, g = loss_k.loss(stack, tdesign.fitdata_to_device(tdata, "cpu"), tc)
+    state = [torch.from_numpy(mu.copy()), torch.from_numpy(rho.copy())] \
+        + [torch.zeros((b, p)) for _ in range(4)]
+    got = advi_k.advi_plain(g, f, torch.from_numpy(eps), sd, *state,
+                            advi_k.adam_scalars(tcfg.AdviConfig(), 0))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
 
 
 def _post(seed):
@@ -370,6 +410,90 @@ def test_k7_matches_its_plain_version_bitwise_on_the_card(card, shape):
             assert torch.equal(a, c)
 
 
+def test_k7_takes_every_load_width_bitwise_on_the_card(card):
+    """K7 loads 16-byte pieces where every array's base and B P allow,
+    else 8-byte pieces, else single floats: each width against the plain
+    version, bitwise (B P = 1,782: 8-byte pieces; arrays one float past
+    their allocation's start: single floats)."""
+    k_draws, b, p = 4, 33, 54
+    gen = torch.Generator(device=card).manual_seed(1)
+
+    def r(*s, shift=0):
+        x = torch.randn((s[0] * s[1] + shift,) if len(s) == 2 else
+                        (s[0] * s[1] * s[2] + shift,), generator=gen,
+                        device=card)
+        return x[shift:].reshape(s)
+
+    advi = tcfg.AdviConfig()
+    sc = advi_k.adam_scalars(advi, 3)
+    for shift in (0, 1):
+        g, eps = 50 * r(k_draws * b, p, shift=shift), r(k_draws, b, p,
+                                                        shift=shift)
+        f = 100 * torch.randn(k_draws * b, generator=gen, device=card)
+        state = [r(b, p, shift=shift), -3 + 0.3 * r(b, p, shift=shift),
+                 0.1 * r(b, p, shift=shift), r(b, p, shift=shift).abs(),
+                 0.1 * r(b, p, shift=shift), r(b, p, shift=shift).abs()]
+        sd = state[1].exp()
+        mine = [x.clone() for x in state]
+        plain = [x.clone() for x in state]
+        got = advi_k.advi_step(g, f, eps, sd, *mine, sc)
+        want = advi_k.advi_plain(g, f, eps, sd, *plain, sc)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        for a, c in zip(mine, plain):
+            assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("n_draws,growth,mode", [
+    (4, "linear", "additive"), (3, "linear", "multiplicative"),
+    (5, "flat", "additive"), (2, "linear", "additive"),
+    (4, "logistic", "additive"),
+])
+def test_k3_draw_stack_gives_each_draw_its_row_layout_bits(card, n_draws,
+                                                           growth, mode):
+    """K3 in gradient mode on a draw stack (the draw-stack layout, one
+    stack launch) gives each draw's f and g the bits of that draw's rows
+    launched alone (the row layout), at the uncertainty tier's columns
+    (yearly 10, weekly 3, 25 changepoints: P = 54), with a warp's draws
+    full (4), short (3, 2) and spread over two draw groups (5), and under
+    logistic growth (not ADVI-eligible, but the layout serves any
+    gradient stack)."""
+    import dataclasses
+
+    cfg = tcfg.ProphetConfig(growth=growth, seasonality_mode=mode)
+    if mode == "multiplicative":
+        cfg = dataclasses.replace(cfg, seasonalities=(
+            dataclasses.replace(tcfg.YEARLY, mode="multiplicative"),
+            tcfg.WEEKLY))
+    b = 64
+    batch = demo_weekly_rows(0, b, n_steps=400, seed=0)
+    y = batch.y.astype(np.float32)
+    cap = ({"cap": np.full(y.shape, 2.0 * np.nanmax(np.abs(y)))}
+           if growth == "logistic" else {})
+    data, _ = tdesign.prepare_fit_data(batch.ds, y, cfg, **cap)
+    on = tdesign.fitdata_to_device(data, card)
+    rng = np.random.default_rng(7)
+    mu = rng.normal(0.0, 0.05, (b, cfg.num_params)).astype(np.float32)
+    mu[:, 1] = 0.5
+    if growth == "logistic":
+        mu[:, 0] = rng.uniform(1.0, 2.0, b)
+    rho = np.full(mu.shape, -3.0, np.float32)
+    eps = rng.standard_normal((n_draws, b, cfg.num_params)).astype(
+        np.float32)
+    _, stack = tadvi._stack(torch.from_numpy(mu).to(card),
+                            torch.from_numpy(rho).to(card),
+                            torch.from_numpy(eps).to(card))
+    before = (loss_k.stack_launches, loss_k.grad_launches)
+    f, g = loss_k.loss(stack, on, cfg)
+    assert (loss_k.stack_launches, loss_k.grad_launches) == (
+        before[0] + 1, before[1] + 1)
+    for k in range(n_draws):
+        rows = slice(k * b, (k + 1) * b)
+        fk, gk = loss_k.loss(stack[rows].contiguous(), on, cfg)
+        assert torch.equal(f[rows], fk), k
+        assert torch.equal(g[rows], gk), k
+
+
 def test_fit_advi_on_the_card_runs_k3_and_k7(card, setup):
     """64 series: K3 (gradient, one launch a step on the draw stack) and K7
     (one a step); the card's fit against the plain CPU fit on the same
@@ -382,10 +506,11 @@ def test_fit_advi_on_the_card_runs_k3_and_k7(card, setup):
         .fit(batch.ds, y).theta.numpy())
     advi = tcfg.AdviConfig(num_steps=20)
     eps = [torch.from_numpy(_draws(100 + i, (K, 64, P))) for i in range(20)]
-    loss_k.grad_launches = advi_k.launches = 0
+    loss_k.grad_launches = loss_k.stack_launches = advi_k.launches = 0
     got = tadvi.fit_advi(theta, data, None, TCFG, advi,
                          draws=lambda i: eps[i].to(card))
     assert loss_k.grad_launches == 20 and advi_k.launches == 20
+    assert loss_k.stack_launches == 20
     want = tadvi.fit_advi(theta, data, None, TCFG, advi, device="cpu",
                           draws=lambda i: eps[i])
     for name in ("mu", "rho"):

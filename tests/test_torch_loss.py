@@ -141,13 +141,14 @@ def test_stacked_trials_reuse_the_data_rows():
 
 @pytest.mark.parametrize("n_rows,b,grad,stack", [
     (21 * 8, 8, False, True), (2 * 8, 8, False, True), (8, 8, False, False),
-    (21 * 8, 8, True, False), (8, 8, True, False),
+    (21 * 8, 8, True, True), (8, 8, True, False),
 ])
 @pytest.mark.parametrize("per_series", [False, True])
 def test_stack_layout_dispatch_rule(n_rows, b, grad, stack, per_series):
-    """The wrapper launches the trial-stack layout for value mode on a
-    stack of more than one copy of the batch, the row layout otherwise
-    (config 4: the layout's plan fits)."""
+    """The wrapper launches a stack layout on a stack of more than one
+    copy of the batch (value mode: the trial stack's; gradient mode: the
+    draw stack's), the row layout otherwise (config 4: both plans
+    fit)."""
     from tsspark_tpu_torch.eval.configs import CONFIG4
 
     assert loss_kernel.uses_stack_layout(n_rows, b, grad, CONFIG4,
@@ -198,6 +199,89 @@ def test_stack_layout_covers_every_trial_row_once(n_trials, b):
         assert all(len(warp) <= per_warp for warp in block)
         # Live warps come first: a warp past the last trial holds none.
         sizes = [len(warp) for warp in block]
+        assert sizes == sorted(sizes, reverse=True)
+
+
+def _draw_cfg(ncp=25, order=10):
+    """The uncertainty tier's ``ProphetConfig()`` (yearly order 10, weekly
+    3, 25 changepoints: P = 54), or its yearly order and changepoints
+    changed."""
+    return tcfg.ProphetConfig(n_changepoints=ncp, seasonalities=(
+        dataclasses.replace(tcfg.YEARLY, fourier_order=order),
+        tcfg.WEEKLY))
+
+
+@pytest.mark.parametrize("what,n_rows,b,cfg,stack", [
+    ("uncertainty K=4 stack", 4 * 30490, 30490, "unc", True),
+    ("uncertainty K=4 stack, 8 series", 4 * 8, 8, "unc", True),
+    ("two draws", 2 * 8, 8, "unc", True),
+    ("N = B", 30490, 30490, "unc", False),
+    ("the MCMC batch (config 3, N = B)", 30490, 30490, "config3", False),
+    ("gold audit's HMC (8 rows, N = B)", 8, 8, "unc", False),
+    ("past the plan (300 changepoints)", 4 * 8, 8, "past", False),
+])
+@pytest.mark.parametrize("per_series", [False, True])
+def test_draw_stack_dispatch_rule(what, n_rows, b, cfg, stack, per_series):
+    """Gradient mode: the uncertainty config's K = 4 draw stack takes the
+    draw-stack layout; a batch of its own (N = B: the fit, the MCMC
+    batch, the gold audit's HMC) and a stack past the layout's plan take
+    the row layout."""
+    from tsspark_tpu_torch.eval.configs import CONFIG3
+
+    config = {"unc": _draw_cfg(), "config3": CONFIG3,
+              "past": _draw_cfg(ncp=300)}[cfg]
+    assert loss_kernel.uses_stack_layout(n_rows, b, True, config,
+                                         per_series) is stack, what
+
+
+def test_draw_stack_plan_edge():
+    """The draw-stack layout's plan (7 warps x 4 draws' slots of 28
+    seasonal columns, its own bucket for 25 to 28 of them; a row layout's
+    stage) at its edge: under the uncertainty config's columns (yearly
+    10, weekly 3: 26) it fits the card's 232,448 bytes up to 235
+    changepoints and not at 236, where the row layout still fits; the
+    uncertainty config's own plan (25 changepoints) is 91,456 bytes."""
+    assert loss_kernel.smem_bytes("loss", _draw_cfg(), False, True,
+                                  True) == 91456
+    edge = _draw_cfg(ncp=235)
+    past = _draw_cfg(ncp=236)
+    assert loss_kernel.smem_bytes("loss", edge, False, True, True) \
+        <= 232448
+    assert loss_kernel.uses_stack_layout(4 * 8, 8, True, edge, False)
+    with pytest.raises(ValueError, match="shared memory"):
+        loss_kernel.smem_bytes("loss", past, False, True, True)
+    assert loss_kernel.smem_bytes("loss", past, False, True, False) \
+        <= 232448
+    assert not loss_kernel.uses_stack_layout(4 * 8, 8, True, past, False)
+
+
+@pytest.mark.parametrize("n_draws,b,kfs", [
+    (4, 30490, 32), (4, 8, 32), (3, 10, 32), (5, 13, 16), (2, 7, 8),
+    (4, 1, 32), (5, 9, 48), (3, 4, 64), (9, 2, 24),
+])
+def test_draw_stack_covers_every_draw_row_once(n_draws, b, kfs):
+    """The draw-stack layout's block plan: every (draw, series) row in
+    exactly one warp of one block; a warp's rows one series' consecutive
+    draws, at most ``draws_per_warp`` of them (four up to 32 seasonal
+    columns, two past); ceil(ceil(n / d) b / ROWS) blocks, the live warps
+    first."""
+    d = loss_kernel.draws_per_warp(kfs)
+    assert d == (4 if kfs <= 32 else 2)
+    plan = loss_kernel.draw_block_rows(n_draws, b, kfs)
+    units = -(-n_draws // d) * b
+    assert len(plan) == -(-units // loss_kernel.ROWS)
+    rows = [r for block in plan for warp in block for r in warp]
+    assert sorted(rows) == list(range(n_draws * b))
+    for block in plan:
+        assert len(block) == loss_kernel.ROWS
+        for warp in block:
+            assert len(warp) <= d
+            if warp:
+                assert len({r % b for r in warp}) == 1
+                draws = [r // b for r in warp]
+                assert draws == list(range(draws[0], draws[0] + len(warp)))
+                assert draws[0] % d == 0
+        sizes = [len(warp) > 0 for warp in block]
         assert sizes == sorted(sizes, reverse=True)
 
 
@@ -441,6 +525,30 @@ def test_stack_past_its_plan_runs_the_row_layout(card):
     for n, part in enumerate(trials):
         fn, _ = loss_kernel.loss(part.contiguous(), on, cfg, False)
         assert torch.equal(fs[n * b:(n + 1) * b], fn)
+
+
+def test_draw_stack_past_its_plan_runs_the_row_layout(card):
+    """A 4-draw gradient stack whose draw-stack plan passes the card's
+    shared memory (300 changepoints at yearly order 10) goes through K3's
+    row layout: no stack launch, every draw its own launch's bits."""
+    cfg = _draw_cfg(ncp=300)
+    rng = np.random.default_rng(4)
+    b, t_len = 16, 400
+    ds = 18000.0 + np.arange(t_len, dtype=np.float64)
+    y = 10 + np.sin(ds / 7.0) + rng.normal(0, 0.3, (b, t_len))
+    data, _ = tdesign.prepare_fit_data(ds, y, cfg)
+    on = tdesign.FitData(*(T(np.ascontiguousarray(a)).to(card)
+                           for a in data))
+    th = T(rng.normal(0, 0.05, (b, cfg.num_params)).astype(
+        np.float32)).to(card)
+    draws = [th * (1.0 + 0.01 * n) for n in range(4)]
+    before = loss_kernel.stack_launches
+    fs, gs = loss_kernel.loss(torch.cat(draws).contiguous(), on, cfg)
+    assert loss_kernel.stack_launches == before
+    for n, part in enumerate(draws):
+        fn, gn = loss_kernel.loss(part.contiguous(), on, cfg)
+        assert torch.equal(fs[n * b:(n + 1) * b], fn)
+        assert torch.equal(gs[n * b:(n + 1) * b], gn)
 
 
 def test_kernels_give_a_row_the_same_bits_anywhere(card):

@@ -549,24 +549,45 @@ def test_datetime_ds_round_trips():
 
 
 def test_hourly_grid_stays_float64_where_the_reference_quantizes():
-    """Reference behaviour the port does not copy: the JAX package's
-    driver hands its fit a float32 grid, which moves hourly epoch-day
-    timestamps by up to ~1.4 minutes; the port keeps the float64 grid, so
-    its stored ds_start is the first timestamp exactly."""
+    """Both drivers fit an hourly frame on the union grid rounded through
+    float32, as the JAX package's driver hands it over (``jnp.asarray``
+    with x64 off moves hourly epoch-day timestamps by up to ~1.4
+    minutes): the port's stored ds_start and span are the reference's
+    (the rounded first timestamp, not the float64 one), and its fitted
+    loss agrees.  (The name is the test's older one, from when the port
+    kept the float64 grid.)"""
     t = 20650.0 + np.arange(24 * 20, dtype=np.float64) / 24.0 + 1.0 / 24.0
     df = pd.DataFrame({"series_id": "h", "ds": t,
                        "y": 5 + np.sin(2 * np.pi * t)})
     tsf = StreamingForecaster(CFG, SolverConfig(max_iters=5), device="cpu")
-    tsf.process(df)
     jsf = jdriver.StreamingForecaster(JCFG, JSolver(max_iters=5),
                                       backend="tpu")
+    ts, js = _capture(tsf), _capture(jsf)
+    tsf.process(df)
     jsf.process(df)
-    t_start = tsf.store.lookup(["h"])[1].ds_start[0]
-    j_start = jsf.store.lookup(["h"])[1].ds_start[0]
-    assert t_start == t[0]
-    assert j_start == float(np.float32(t[0])) != t[0]
+    _, t_meta, _ = tsf.store.lookup(["h"])
+    _, j_meta, _ = jsf.store.lookup(["h"])
+    assert t_meta.ds_start[0] == j_meta.ds_start[0] \
+        == float(np.float32(t[0])) != t[0]
+    assert t_meta.ds_span[0] == j_meta.ds_span[0]
     moved = np.abs(np.float32(t).astype(np.float64) - t).max() * 1440.0
     assert 0.5 < moved < 1.5  # minutes
+    # The fitted loss: both thetas scored by the JAX objective on the
+    # reference's FitData of the frame, as test_stream_losses_within_
+    # keep_best_margin scores a micro-batch.
+    (jargs, jstate_), (targs, tstate) = js[0], ts[0]
+    assert np.array_equal(np.asarray(targs[0]), np.asarray(jargs[0]))
+    jdata, _ = jdesign.prepare_fit_data(*jargs, JCFG)
+
+    def score(theta):
+        return np.asarray(jloss.value_batch(
+            jnp.asarray(np.asarray(theta, np.float32)), jdata, JCFG),
+            np.float64)
+
+    j_at_js, j_at_ts = score(jstate_.theta), score(tstate.theta)
+    np.testing.assert_allclose(np.asarray(tstate.loss, np.float64),
+                               j_at_ts, rtol=REPORT_RTOL)
+    assert np.all(j_at_ts - j_at_js <= KEEP_BEST_MARGIN), (j_at_ts, j_at_js)
 
 
 def test_cuda_backend_takes_a_tensor_init_as_numpy():

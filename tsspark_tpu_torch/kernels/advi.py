@@ -8,8 +8,10 @@ runs the plain PyTorch version, ``advi_plain``; on CUDA tensors it launches
 
 Both versions take the same float32 operation order (the JAX package's
 ``_fit_advi`` step, ``tsspark_tpu/uncertainty/advi.py:87-104``), each
-operation rounded on its own, the sums over the draws and over the
-parameters in ascending order, so on one device they give the same bits:
+operation rounded on its own, the gradient's sums over the draws in
+ascending order and the loss's two sums (over the K draws' losses and
+over the P rhos) as the kernel's lanes take them (``lane_sum``), so on
+one device they give the same bits:
 
     g_mu   = sum_k g_k / K
     g_rho  = (sum_k (g_k / K) eps_k) sd - 1
@@ -75,6 +77,24 @@ def _seq_sum(cols):
     return acc
 
 
+def lane_sum(cols) -> torch.Tensor:
+    """The sum of a sequence of same-shaped tensors as a warp of the
+    kernel takes it: lane l adds the terms l, l + 32, ... in ascending
+    order from 0, then a fixed tree adds the 32 lanes' sums (at each
+    level lane j gets lane j + half's sum: 16, 8, 4, 2, 1)."""
+    lanes = []
+    for lane in range(32):
+        acc = torch.zeros_like(cols[0])
+        for c in cols[lane::32]:
+            acc = acc + c
+        lanes.append(acc)
+    half = 16
+    while half:
+        lanes = [lanes[j] + lanes[j + half] for j in range(half)]
+        half //= 2
+    return lanes[0]
+
+
 def _divisor(x, like: torch.Tensor) -> torch.Tensor:
     """A divisor as a tensor on ``like``'s device: a CUDA division by a
     host scalar multiplies by its reciprocal, not the kernel's quotient."""
@@ -83,11 +103,11 @@ def _divisor(x, like: torch.Tensor) -> torch.Tensor:
 
 def elbo_losses(f, rho, k_draws: int) -> torch.Tensor:
     """(B,) negative ELBO from the stack's losses f (K B,): the mean over
-    the draws minus sum_p rho, each sum in ascending order."""
+    the draws minus sum_p rho, each sum a ``lane_sum``."""
     b, p = rho.shape
     f = f.reshape(k_draws, b)
-    return _seq_sum([f[k] for k in range(k_draws)]) \
-        / _divisor(k_draws, rho) - _seq_sum([rho[:, j] for j in range(p)])
+    return lane_sum([f[k] for k in range(k_draws)]) \
+        / _divisor(k_draws, rho) - lane_sum([rho[:, j] for j in range(p)])
 
 
 def elbo_grads(g, eps, sd, inv_k: float):

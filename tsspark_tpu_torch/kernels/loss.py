@@ -7,17 +7,20 @@ sums the kernel takes (``csrc/loss.cu``), with logistic growth's pull
 back through the offset recursion on top (the kernel's logistic branch
 takes the same pull-back).  On a CUDA tensor it launches the kernel or
 raises.  ``launches`` counts kernel launches, ``grad_launches`` those in
-gradient mode among them, ``stack_launches`` those in the trial-stack
-layout.
+gradient mode among them, ``stack_launches`` those in a stack layout (the
+trial stack's or the draw stack's).
 
 ``theta`` may hold N stacked copies of the batch, (N * B, P) for a (B, T)
 ``data``: row i is scored on data row i % B (the stacked line-search
-trials of logistic and flat growth, and the fallback row).  In value mode
-such a stack (N > 1) goes through the kernel's trial-stack layout, which
+trials of logistic and flat growth, the fallback row, and ADVI's draws).
+Such a stack (N > 1) goes through the kernel's stack layout of its mode
+where that layout's shared-memory plan fits the card
+(``uses_stack_layout``): in value mode the trial-stack layout, which
 stages each data row once for 21 trials, three a warp
-(``stack_block_rows``), where that layout's shared-memory plan fits the
-card (``uses_stack_layout``); a row's value is the same bits in either
-layout.  The kernel needs ``t`` rising along each row and ascending
+(``stack_block_rows``); in gradient mode the draw-stack layout, which
+stages it once for four draws, all in one warp (``draw_block_rows``).  A
+row's value and gradient are the same bits in either layout as in the
+row layout.  The kernel needs ``t`` rising along each row and ascending
 changepoints, as ``prepare_fit_data`` builds them (K4 too).
 """
 
@@ -36,7 +39,7 @@ from tsspark_tpu_torch.kernels.forward import (
 )
 
 #: Kernel launches since the count was last set to 0, those of them in
-#: gradient mode, and those in the trial-stack layout.
+#: gradient mode, and those in a stack layout (trial or draw stack).
 launches = 0
 grad_launches = 0
 stack_launches = 0
@@ -46,7 +49,8 @@ stack_launches = 0
 # warp walks T in tiles through a STAGES-deep pipeline; seasonal columns
 # are unrolled to the next of _FS_BUCKETS.  K3's trial-stack layout gives
 # each row warp TRIALS_PER_WARP trials of one series and stages one row a
-# stage.
+# stage; its draw-stack layout gives each row warp ``draws_per_warp``
+# draws of one series.
 ROWS = 7
 STAGES = 2
 TRIALS_PER_WARP = 3
@@ -58,15 +62,23 @@ def _r4(n: int) -> int:
     return (n + 3) & ~3
 
 
+def draws_per_warp(kfs: int) -> int:
+    """Draws a warp of the draw-stack layout: four where four draws'
+    column sums fit a lane's registers (up to 32 seasonal columns), else
+    two (``csrc/loss.cu`` ``draws_per_warp``)."""
+    return 4 if kfs <= 32 else 2
+
+
 def uses_stack_layout(n_rows: int, b: int, grad: bool,
                       config: ProphetConfig, per_series: bool) -> bool:
-    """Whether ``loss`` launches the trial-stack layout: value mode on a
-    stack of more than one copy of the batch, where the layout's 21 slots
-    fit the card's shared memory (past that, many changepoints or
+    """Whether ``loss`` launches a stack layout: a stack of more than one
+    copy of the batch, where the mode's layout (value: the trial stack's
+    21 slots; gradient: the draw stack's 7 x ``draws_per_warp`` slots)
+    fits the card's shared memory (past that, many changepoints or
     columns, the row layout: the same bits).  ``csrc/loss.cu``
     ``launch`` makes the same choice from the same plan."""
-    return (not grad and n_rows > b
-            and _plan_bytes("loss", config, per_series, False, True)
+    return (n_rows > b
+            and _plan_bytes("loss", config, per_series, grad, True)
             <= _MAX_SMEM_BYTES)
 
 
@@ -94,9 +106,38 @@ def stack_block_rows(n_trials: int, b: int) -> list:
     return plan
 
 
+def draw_block_rows(n_draws: int, b: int, kfs: int) -> list:
+    """The draw-stack layout's block plan (``csrc/loss_draws.cuh``,
+    ``draw_kernel``): for each block in launch order, the rows of each of
+    its row warps.  With d = ``draws_per_warp(kfs)``, unit u = ROWS x + w
+    (block x, warp w) is series u % b and draw group u // b, holding the
+    draws j = d (u // b) + k, k < d (those below n_draws), draw j's row
+    being j b + u % b; warps past the last unit hold none.  This is the
+    plan written out for the CPU tests; what checks the kernel itself is
+    the card's bitwise tests (every draw against its row-layout launch
+    alone)."""
+    d = draws_per_warp(kfs)
+    units = -(-n_draws // d) * b
+    plan = []
+    for x in range(-(-units // ROWS)):
+        warps = []
+        for w in range(ROWS):
+            u = ROWS * x + w
+            if u >= units:
+                warps.append([])
+                continue
+            series, j0 = u % b, (u // b) * d
+            warps.append([j * b + series for j in range(
+                j0, min(j0 + d, n_draws))])
+        plan.append(warps)
+    return plan
+
+
 def _plan_bytes(kernel: str, config: ProphetConfig, per_series: bool,
                 grad: bool, stack: bool) -> int:
-    """Bytes of ``smem_bytes``'s plan, past the card's limit or not."""
+    """Bytes of ``smem_bytes``'s plan, past the card's limit or not
+    (``stack``: the loss kernel's stack layout of the mode: the trial
+    stack's in value mode, the draw stack's in gradient mode)."""
     ncp = config.n_changepoints
     fs = config.num_seasonal_features
     r = config.num_regressors
@@ -106,6 +147,8 @@ def _plan_bytes(kernel: str, config: ProphetConfig, per_series: bool,
             f"{kernel} kernel: {fs} seasonal columns; it takes an even "
             f"number (sin/cos pairs) up to {_FS_BUCKETS[-1]}")
     kfs = next(k for k in _FS_BUCKETS if fs <= k)
+    if stack and grad and kfs == 32 and fs <= 28:
+        kfs = 28  # the draw-stack layout's own bucket (csrc/loss.cu)
     tile = 32 if per_series else 128
     if kernel == "loss":
         row = (_r4(p) + 3 * _r4(ncp) + 2 * _r4(ncp + 1) + 4 * kfs
@@ -116,21 +159,23 @@ def _plan_bytes(kernel: str, config: ProphetConfig, per_series: bool,
     streams = 4 if kernel == "loss" and config.growth == "logistic" else 3
     st_row = streams * (tile + 8) + _r4(tile * r) + 8
     st_x = _r4(tile * fs) + 8 + kfs
-    if stack:
+    if stack and not grad:
         return 4 * (4 * STAGES + ROWS * TRIALS_PER_WARP * row
                     + STAGES * (st_row + st_x))
+    slots = draws_per_warp(kfs) if stack else 1
     st_x *= ROWS if per_series else 1
     racc = _r4(r) * 32 * (ROWS + 1) if kernel == "loss" and grad else 0
-    return 4 * (4 * STAGES + ROWS * row
-                + STAGES * (ROWS * st_row + st_x) + racc)
+    return 4 * (4 * STAGES + ROWS * slots * row
+                + STAGES * (ROWS * st_row + st_x) + slots * racc)
 
 
 def smem_bytes(kernel: str, config: ProphetConfig, per_series: bool,
                grad: bool = True, stack: bool = False) -> int:
     """Bytes of shared memory one block of the ``"loss"`` or ``"fan"``
     kernel takes for ``config`` (the loss kernel stages each row's
-    capacity too under logistic growth; ``stack``: its trial-stack
-    layout); ValueError past the kernels' limits."""
+    capacity too under logistic growth; ``stack``: its stack layout of
+    the mode, the trial stack's or the draw stack's); ValueError past the
+    kernels' limits."""
     total = _plan_bytes(kernel, config, per_series, grad, stack)
     if total > _MAX_SMEM_BYTES:
         raise ValueError(

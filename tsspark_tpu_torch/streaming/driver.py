@@ -21,9 +21,12 @@ Flow per micro-batch:
      and K4 on the card)
   5. write refreshed params back to the store (scatter)
 
-The union grid stays host float64 into every time map (``design.py``'s
-rule; the JAX package's driver hands its fit a float32 grid, the same
-values on integer-day grids, quantized at sub-daily cadence).
+The fit takes the union grid rounded through float32, as the JAX
+package's driver hands it over (the same values on integer-day grids;
+at sub-daily cadence epoch days move by up to ~1.4 minutes, and the
+stored ``ds_start`` is the rounded first timestamp, as the reference's);
+``design.py`` then maps it in float64 on the host.  The cadence
+(``median_steps``) and the forecast's grid stay float64.
 
 ``stages`` times the driver's own steps (absorb, union_grid,
 materialize, prep, initial_theta, lookup, transfer_theta, update), each
@@ -202,12 +205,14 @@ class StreamingForecaster:
             grid = self._hist.union_grid(codes)
         with clock.span("materialize"):
             y = self._hist.materialize(codes, grid)  # (B, T), NaN holes
-            # The fit's observations in float32, as the JAX package's
-            # driver hands them over; the grid stays float64.
+            # The fit's grid and observations in float32, as the JAX
+            # package's driver hands them over (jnp.asarray with x64
+            # off); median_steps keeps the float64 grid, as there.
+            grid32 = grid.astype(np.float32)
             y32 = y.astype(np.float32)
 
         with clock.span("prep"):
-            data, meta = prepare_fit_data(grid, y32, self.config)
+            data, meta = prepare_fit_data(grid32, y32, self.config)
             data = fitdata_to_device(data, dev)
         # Cold-start series get the same ridge warm start the batch path
         # uses; warm series are overwritten by the transferred params.
@@ -229,7 +234,7 @@ class StreamingForecaster:
                     _sync(dev)
         else:
             found = np.zeros(len(touched), bool)
-        state = self.backend.fit(grid, y32, init=theta0)
+        state = self.backend.fit(grid32, y32, init=theta0)
         # Cadence is recorded WITH the refreshed params so the forecast
         # path never re-derives it from history (see median_steps).
         with clock.span("update"):
