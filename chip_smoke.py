@@ -136,7 +136,36 @@ the script exits non-zero without printing the final line:
    MAP theta and draws (``ADVI_PARITY``, which two planted faults fail);
    walls, ms a step (K3, K7, the rest), the idle share of five steps,
    coverage per bucket, read latency, the audit's qdiv, R-hat and ESS.
-13. kernels — each kernel at its main path's shapes, on the main path's
+13. planes — on phase uncertainty's registry and ADVI version: the
+   forecast plane's publish (``fplane.maybe_publish``: K1 over 30,490
+   rows at buckets 8/16/32 in 256-row chunks), the snapshot and forecast
+   planes' CRC sweeps, 200 requests served from the plane (on 512 rows x
+   three horizons bitwise the engine's compute path, K1), a delta version
+   (305 rows refitted warm through ``CudaBackend.fit``, ADVI on them,
+   ``publish_delta``, the forecast and quantile planes' deltas: unchanged
+   rows bitwise the base's, changed rows bitwise a full publish of the
+   delta version), and a torn forecast-plane publish refused at attach
+   and served by compute.
+14. stream_fleet_m5 — a retail-conditioned fleet cell beside
+   stream_fleet: ``m5_like(30490, 730, seed=2, with_regressors=False)`` as
+   a long frame (unobserved cells dropped), config 5's model and schedule,
+   the warm run only (each micro-batch's wall, stages, starts and
+   launches), one deterministic forecast (K1); K3 (both modes) and K4 on
+   every 8,192-row chunk of the last micro-batch at the warm optimum
+   itself by GAP_RULE (a dropped cell must fail); the 64-series subset's
+   forecasts against the same series streamed on the CPU plain path per
+   series in units of its noise (``M5_NOISE_TOL``, which a forecast served
+   one row off must fail; the rolled warm start reported).
+15. eval12 — eval configs 1 (one series of 2,905 days, P = 54) and 2
+   (414 hourly series of 700-960 hours, P = 27) at their published sizes
+   through ``CudaBackend.fit`` and ``predict`` (launch counts set to 0
+   just before, read just after; the length-bucket plan config 2 took),
+   K3/K4 at the fitted parameters by GAP_RULE at the fit shapes (and each
+   length bucket's), their rows bitwise invariant, K1 on the forecast
+   shapes; every series against the port's scipy oracle in the parity
+   workers (train sMAPE per series <= 0.1, |mean| <= 0.05; holdout
+   reported), and a ``run_parity``-shaped record.
+16. kernels — each kernel at its main path's shapes, on the main path's
    inputs (K3 and K4 at 8192x1746 on config 3's first chunk; K3's
    logistic branch at 8192x1080; K3's trial-stack layout on config 4's
    21 x 8192 line-search stack and on one of flat growth over config 3's
@@ -149,13 +178,16 @@ the script exits non-zero without printing the final line:
    K2 (its own Philox draws, each row keeping its Philox coordinate, both
    growths) alone and permuted; K6 from phase mcmc.  K1-K4 gain their
    launches on the two streaming paths; K3 the ADVI draw stack's time,
-   bound and gaps, and K7's entry joins from phase uncertainty.
+   bound and gaps, and K7's entry joins from phase uncertainty; K1, K3
+   and K4 their launches and checks on phases stream_fleet_m5, eval12 and
+   planes.
 
 The CPU parity fits of phases fit and fit_logistic (the scipy oracle and
-the port's plain fit on their subsets) and the CPU streaming runs of
-phases stream5 and stream_fleet run in two worker processes
-(``ParityFits``), started with the data before phase forward, beside the
-card's phases; each phase waits for its own.  Phase uncertainty hands the
+the port's plain fit on their subsets), the CPU streaming runs of phases
+stream5, stream_fleet and stream_fleet_m5 and phase eval12's scipy fits
+run in three worker processes (``ParityFits``), started with the data
+before phase forward, beside the card's phases; each phase waits for its
+own.  Phase uncertainty hands the
 pool its CPU ADVI fit once its MAP fit is done.
 
 The last lines: the run's wall time, the kernels JSON object,
@@ -1269,10 +1301,22 @@ def fit_subset() -> np.ndarray:
 # fit phase's subset) run in PARITY_WORKERS spawned processes of
 # PARITY_THREADS threads each, submitted with the data before the first
 # phase; the card's phases run meanwhile, and each fit phase collects its
-# own.  (One after another they take ~385 s of an 8-core host.)
-PARITY_WORKERS = 2
+# own.  (One after another they took ~385 s of an 8-core host before
+# phase eval12's scipy fits of 415 series, ~360 s more, and the M5 fleet
+# cell's two subset runs joined them.)
+PARITY_WORKERS = 3
 PARITY_THREADS = 2
 _THREAD_ENV = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
+
+
+def fit_config(no: int):
+    """(ProphetConfig, SolverConfig) of eval config ``no`` (1 to 4)."""
+    from tsspark_tpu_torch.eval import configs
+
+    return {1: (configs.CONFIG1, configs.SOLVER1),
+            2: (configs.CONFIG2, configs.SOLVER2),
+            3: (configs.CONFIG3, configs.SOLVER3),
+            4: (configs.CONFIG4, configs.SOLVER4)}[no]
 
 
 def parity_job(kind: str, config_no: int, ds_fit, y, sub: dict,
@@ -1287,8 +1331,7 @@ def parity_job(kind: str, config_no: int, ds_fit, y, sub: dict,
     from tsspark_tpu_torch.eval import configs
 
     torch.set_num_threads(PARITY_THREADS)
-    cfg, solver = {3: (configs.CONFIG3, configs.SOLVER3),
-                   4: (configs.CONFIG4, configs.SOLVER4)}[config_no]
+    cfg, solver = fit_config(config_no)
     t0 = time.perf_counter()
     bk = (get_backend("cpu", cfg, solver) if kind == "oracle"
           else get_backend("cuda", cfg, solver, device="cpu"))
@@ -1306,13 +1349,16 @@ def parity_job(kind: str, config_no: int, ds_fit, y, sub: dict,
 
 
 class ParityFits:
-    """The four CPU parity fits of phases fit and fit_logistic and the CPU
+    """The four CPU parity fits of phases fit and fit_logistic, the CPU
     streaming runs of phases stream5 and stream_fleet (``stream_job``:
     config 5's 50 series, plain and with each planted fault; the fleet's
-    64-series subset, plain and rolled), in a pool of spawned processes beside the
-    card's phases (see PARITY_WORKERS)."""
+    64-series subset, plain and rolled) and of phase stream_fleet_m5
+    (``stream_m5_job``: the M5 subset, plain and rolled), and phase
+    eval12's scipy fits (``eval12_oracle_jobs``), in a pool of spawned
+    processes beside the card's phases (see PARITY_WORKERS)."""
 
-    def __init__(self, batch3, batch4, stream5_df, fleet_subset_df):
+    def __init__(self, batch3, batch4, stream5_df, fleet_subset_df,
+                 m5_subset_df, batches12):
         import multiprocessing as mp
         import os
 
@@ -1352,6 +1398,9 @@ class ParityFits:
         }
         for k in STREAM_FAULTS:
             self.jobs[(k, "stream5")] = run(stream_job, (k, stream5_df))
+        for k in ("plain", "rolled"):
+            self.jobs[(k, "m5")] = run(stream_m5_job, (k, m5_subset_df))
+        self.eval12 = eval12_oracle_jobs(run, batches12)
 
     def get(self, kind: str, config_no: int) -> dict:
         return self.jobs[(kind, config_no)].get()
@@ -1744,6 +1793,208 @@ def phase_fit_logistic(device, batch, gen_s, parity) -> dict:
                                  device=device)}}
 
 
+# Eval configs 1 and 2 at their published sizes (phase eval12): config 1
+# one daily series of 2,905 days (yearly order 10 + weekly order 3, 25
+# changepoints, P = 54), config 2 414 hourly series of 700-960 hours
+# right-aligned on one grid (daily order 4 + weekly order 3, 10
+# changepoints, P = 27), each fitted on the first 90% of its calendar
+# through ``CudaBackend.fit`` and forecast over all of it.  Every series of
+# both is fitted by the port's scipy oracle in the parity workers, and the
+# card's per-series train sMAPE is held to it by the budget of
+# tests/test_backends.py:77-78 (per series EVAL12_SERIES_TOL, the mean
+# EVAL12_MEAN_TOL).  Holdout deltas are reported (``_delta_dist``), not
+# held: no limit for them has been measured against the JAX package's own
+# batched-vs-oracle deltas at these sizes (its config 1 record reads 0.348,
+# EVAL_r03.json).
+EVAL12_SERIES_TOL = 0.1
+EVAL12_MEAN_TOL = 0.05
+EVAL12_ORACLE_JOBS = 6  # config 2's oracle fits, split over the pool
+EVAL12_CASES = {1: "config1_peyton", 2: "config2_m4_hourly"}
+
+
+def eval12_batches() -> dict:
+    """Eval configs 1 and 2's datasets at their published sizes."""
+    from tsspark_tpu_torch.data.datasets import (
+        m4_hourly_like,
+        peyton_manning_like,
+    )
+
+    return {1: peyton_manning_like(), 2: m4_hourly_like()}
+
+
+def eval12_oracle_jobs(run, batches) -> dict:
+    """Submit the scipy oracle's fits of every series of configs 1 and 2
+    (``parity_job``, with each forecast's yhat over the whole calendar):
+    {config: [(rows, job)]}."""
+    from tsspark_tpu_torch.eval import configs
+
+    jobs = {}
+    for no, b in batches.items():
+        split = configs.split_point(b.y.shape[1])
+        parts = np.array_split(np.arange(b.y.shape[0]),
+                               EVAL12_ORACLE_JOBS if no == 2 else 1)
+        jobs[no] = [(rows, run(parity_job, (
+            "oracle", no, b.ds[:split], np.nan_to_num(b.y[rows, :split]),
+            dict(mask=b.mask[rows, :split]), b.ds))) for rows in parts]
+    return jobs
+
+
+def eval12_kernels(state, batch, cfg, plan, device) -> dict:
+    """K3 (both modes) and K4 by GAP_RULE at the fitted parameters on the
+    config's fit shape (and each length bucket's, when the fit took
+    buckets), K3/K4 rows bitwise invariant, K1 against its plain version
+    on the forecast's shape; each timed against its bound and its plain
+    version."""
+    import torch
+
+    from tsspark_tpu_torch.eval import configs
+    from tsspark_tpu_torch.kernels import fan as fan_k
+    from tsspark_tpu_torch.kernels import forward as fk
+    from tsspark_tpu_torch.kernels import loss as lk
+    from tsspark_tpu_torch.models.prophet.design import (
+        fitdata_to_device,
+        prepare_fit_data,
+    )
+    from tsspark_tpu_torch.models.prophet.predict import (
+        prepare_predict_data,
+    )
+
+    split = configs.split_point(batch.y.shape[1])
+    y = np.nan_to_num(batch.y[:, :split])
+    m = batch.mask[:, :split]
+    theta = state.theta.to(device).contiguous()
+    gen = torch.Generator(device=device).manual_seed(12)
+
+    def held_at(rows, lo, hi, what):
+        data = fitdata_to_device(prepare_fit_data(
+            batch.ds[lo:hi], y[rows, lo:hi], cfg, mask=m[rows, lo:hi])[0],
+            device)
+        th = theta[torch.as_tensor(rows, device=device)].contiguous()
+        d = (0.02 * torch.randn(th.shape, generator=gen, device=device))
+        return data, th, d, hold_kernels(th, d, data, cfg, what)
+
+    rows = np.arange(batch.y.shape[0])
+    data, th, d, held = held_at(rows, 0, split, "the fit's shape")
+    b, t_len = data.t.shape
+    ladder = _ladder(b, device)
+    sl = slice(0, 1) if b == 1 else slice(100, 300)
+    inv = row_invariance(data, cfg, th, d, ladder, device, sl)
+    out = {"loss": {**held, "row_invariance": inv,
+                    "ms": cuda_ms(lambda: lk.loss(th, data, cfg)),
+                    "plain_ms": cuda_ms(lambda: lk.loss_plain(th, data, cfg),
+                                        iters=3, warmup=1),
+                    **loss_bound_ms(b, b, t_len, cfg, True),
+                    "value_mode": {
+                        "ms": cuda_ms(lambda: lk.loss(th, data, cfg,
+                                                      grad=False)),
+                        **loss_bound_ms(b, b, t_len, cfg, False)}},
+           "fan": {"shape": [20, b, t_len], "gap": held["gap"]["fan"],
+                   "max_abs_err": held["fan_max_abs_err"],
+                   "ms": cuda_ms(lambda: fan_k.fan(th, d, ladder, data,
+                                                   cfg)),
+                   "plain_ms": cuda_ms(lambda: fan_k.fan_plain(
+                       th, d, ladder, data, cfg), iters=3, warmup=1),
+                   **fan_bound_ms(b, t_len, 20, cfg)}}
+    if plan is not None:
+        out["loss"]["buckets"] = [
+            {"rows": int(len(idx)), "window": [int(lo), int(hi)],
+             "gap": held_at(np.asarray(idx), lo, hi,
+                            f"length bucket [{lo}, {hi})")[3]["gap"]}
+            for idx, lo, hi in plan]
+    pdata = prepare_predict_data(batch.ds, state.meta, cfg, device)
+    scale = torch.as_tensor(state.meta.y_scale, dtype=torch.float32,
+                            device=device)
+    floor = torch.as_tensor(state.meta.floor, dtype=torch.float32,
+                            device=device)
+    got = fk.forward(theta, pdata, cfg, scale, floor)
+    want = fk.forward_plain(theta, pdata, cfg, scale, floor)
+    err = _forward_err(got, want, scale)
+    require(err <= 2e-5, f"forward at the config's forecast shape: {err}")
+    out["forward"] = {
+        "shape": list(pdata.t.shape) if pdata.t.ndim == 2
+        else [b] + list(pdata.t.shape),
+        "max_rel_err": err,
+        "max_abs_err": max(float((g - w).abs().max())
+                           for g, w in zip(got, want)),
+        "ms": cuda_ms(lambda: fk.forward(theta, pdata, cfg, scale, floor)),
+        "plain_ms": cuda_ms(lambda: fk.forward_plain(
+            theta, pdata, cfg, scale, floor), iters=3, warmup=1),
+        **forward_bound_ms(b, batch.y.shape[1], cfg, False, True)}
+    return out
+
+
+def phase_eval12(device, batches, gen_s, parity) -> dict:
+    """Eval configs 1 and 2 at their published sizes through
+    ``CudaBackend.fit`` and ``predict`` on the card (launch counts set to
+    0 just before each, read just after): sMAPE, the length-bucket plan,
+    the kernels at the configs' shapes against their plain versions, and
+    every series against the scipy oracle (the parity budget; a
+    ``run_parity``-shaped record)."""
+    import torch
+
+    from tsspark_tpu_torch.eval import configs
+    from tsspark_tpu_torch.eval.parity import parity_record
+
+    res = {"phase": "eval12", "data_s": gen_s, "configs": {}}
+    records = {}
+    for no, batch in batches.items():
+        t0 = time.perf_counter()
+        cfg, solver = fit_config(no)
+        split = configs.split_point(batch.y.shape[1])
+        torch.cuda.synchronize()
+        _zero_counts()
+        bk, state, fc, fit_s = configs.fit_and_forecast(
+            cfg, batch, "cuda", solver, device=device)
+        torch.cuda.synchronize()
+        launches = _stream_counts()
+        sc = configs.score(batch, fc)
+        plan = bk._plan_length_buckets(np.nan_to_num(batch.y[:, :split]),
+                                       batch.mask[:, :split])
+        kern = eval12_kernels(state, batch, cfg, plan, device)
+        t1 = time.perf_counter()
+        yhat = np.full(batch.y.shape, np.nan)
+        cpu_s = 0.0
+        for rows, job in parity.eval12[no]:
+            got = job.get()
+            yhat[rows] = got["yhat"]
+            cpu_s += got["seconds"]
+        wait_s = time.perf_counter() - t1
+        oracle = configs.score(batch, {"yhat": yhat})
+        rec = parity_record(oracle["smape_train"], oracle["smape_holdout"],
+                            cpu_s, sc["smape_train"], sc["smape_holdout"],
+                            fit_s)
+        records[EVAL12_CASES[no]] = rec
+        res["configs"][EVAL12_CASES[no]] = {
+            "series": int(batch.y.shape[0]), "days_fit": split,
+            "days": int(batch.y.shape[1]), "params": cfg.num_params,
+            "fit_s": fit_s, "launches": launches,
+            "backend_stages_s": dict(bk.stages.seconds),
+            "status_counts": np.unique(np.asarray(state.status),
+                                       return_counts=True)[1].tolist(),
+            "converged_frac": float(np.asarray(state.converged).mean()),
+            "length_buckets": None if plan is None else [
+                {"rows": int(len(i)), "window": [int(lo), int(hi)]}
+                for i, lo, hi in plan],
+            "smape_train": float(sc["smape_train"].mean()),
+            "smape_holdout": float(sc["smape_holdout"].mean()),
+            "kernels": kern, "oracle_wait_s": wait_s,
+            "phase_s": time.perf_counter() - t0}
+        require(np.isfinite(fc["yhat"]).all(), f"config {no} finite")
+        require(launches["loss_grad"] > 0 and launches["fan"] > 0
+                and launches["forward"] > 0,
+                f"config {no} ran K3, K4 and K1: {launches}")
+        require(rec["delta_train_max_abs"] <= EVAL12_SERIES_TOL
+                and abs(rec["delta_train_mean"]) <= EVAL12_MEAN_TOL,
+                f"config {no} against the scipy oracle: {rec}")
+    res["parity"] = {"kind": "eval-parity", "scale": 1.0,
+                     "platform": "cuda:" + torch.cuda.get_device_name(0),
+                     "configs": records,
+                     "train_limits": {"series": EVAL12_SERIES_TOL,
+                                      "mean": EVAL12_MEAN_TOL}}
+    emit(res)
+    return res
+
+
 # Continuous refit (eval config 5): ``StreamingForecaster`` over a 510-day
 # base batch and three 73-day micro-batches, at config 5's published 50
 # series (phase stream5) and at the M5 fleet's 30,490 (phase
@@ -1790,12 +2041,10 @@ def fleet_subset() -> np.ndarray:
     return np.linspace(0, FLEET_SERIES - 1, FLEET_SUBSET).astype(np.int64)
 
 
-def stream5_fault_run(name: str, df) -> dict:
-    """Config 5's schedule over ``df`` on the CPU plain path with a
-    planted fault in the warm start: "rolled" (each series warm-started
-    from its neighbour's transferred row), "raw_theta" (the stored theta
-    passed on untransferred); ``config5_run``'s detail."""
-    from tsspark_tpu_torch.eval import configs
+def planted_transfer(name: str):
+    """The streaming driver's ``transfer_theta`` with a planted fault:
+    "rolled" (each series warm-started from its neighbour's transferred
+    row), "raw_theta" (the stored theta passed on untransferred)."""
     from tsspark_tpu_torch.streaming import driver
 
     sound = driver.transfer_theta
@@ -1808,7 +2057,19 @@ def stream5_fault_run(name: str, df) -> dict:
     def raw_theta(th, mo, mn, cfg, device=None):
         return th.to(device)
 
-    driver.transfer_theta = {"rolled": rolled, "raw_theta": raw_theta}[name]
+    return {"rolled": rolled, "raw_theta": raw_theta}[name]
+
+
+def stream5_fault_run(name: str, df) -> dict:
+    """Config 5's schedule over ``df`` on the CPU plain path with a
+    planted fault in the warm start: "rolled" (each series warm-started
+    from its neighbour's transferred row), "raw_theta" (the stored theta
+    passed on untransferred); ``config5_run``'s detail."""
+    from tsspark_tpu_torch.eval import configs
+    from tsspark_tpu_torch.streaming import driver
+
+    sound = driver.transfer_theta
+    driver.transfer_theta = planted_transfer(name)
     try:
         _, det = configs.config5_run("cuda", 1.0, "cpu", frame=df,
                                      warmup=False)
@@ -2026,16 +2287,17 @@ def off_optimum(theta, seed: int) -> tuple:
     return out.contiguous(), d
 
 
-def stream_chunk(sf, batch, device, width=None):
+def stream_chunk(sf, batch, device, width=None, ids=None):
     """The refit chunk of ``batch``'s first ``width`` series (default the
-    backend's chunk width) as the driver builds it: (ids, the warm start
-    transferred from the store, the device data)."""
+    backend's chunk width), or of ``ids``, as the driver builds it: (ids,
+    the warm start transferred from the store, the device data)."""
     from tsspark_tpu_torch.models.prophet import design
     from tsspark_tpu_torch.streaming.warmstart import transfer_theta
 
     cfg = sf.config
-    ids = list(dict.fromkeys(batch.series_id.astype(str)))[
-        :width or sf.backend.chunk_size]
+    if ids is None:
+        ids = list(dict.fromkeys(batch.series_id.astype(str)))[
+            :width or sf.backend.chunk_size]
     codes = sf._codes(ids)
     grid = sf._hist.union_grid(codes)
     y32 = sf._hist.materialize(codes, grid).astype(np.float32)
@@ -2050,17 +2312,16 @@ def stream_chunk(sf, batch, device, width=None):
     return ids, theta, data
 
 
-def hold_stream_kernels(theta_ws, data, cfg, seed: int) -> dict:
-    """K3 (both modes) and K4 against their plain versions on a streaming
-    chunk: by GAP_RULE off the optimum (required), the same with one
+def hold_kernels(theta, d, data, cfg, what: str) -> dict:
+    """K3 (both modes) and K4 (along ``d``) against their plain versions
+    at ``theta`` on ``data``: by GAP_RULE (required), and with one
     observed cell a row dropped from the kernels' input (required to
-    fail), and at the warm start (reported)."""
+    fail the rule)."""
     import torch
 
     from tsspark_tpu_torch.kernels import fan as fan_k
     from tsspark_tpu_torch.kernels import loss as lk
 
-    theta, d = off_optimum(theta_ws, seed)
     b, t_len = data.t.shape
     f_k, g_k = lk.loss(theta, data, cfg)
     v_k, _ = lk.loss(theta, data, cfg, grad=False)
@@ -2080,21 +2341,32 @@ def hold_stream_kernels(theta_ws, data, cfg, seed: int) -> dict:
         "f": (lk.loss(theta, dropped, cfg, grad=False)[0], f_p)})
     planted["fan"] = _gap(fan_k.fan(theta, d, ladder, dropped, cfg),
                           fan_want, fan_sc, t_len)
-
-    fw_k, gw_k = lk.loss(theta_ws, data, cfg)
-    fw_p, gw_p = lk.loss_plain(theta_ws, data, cfg)
     out = {"shape": [b, t_len, cfg.num_params], "gap": gaps,
            "tolerance": GAP_RULE,
            "max_abs_err": max(float((f_k - f_p).abs().max()),
                               float((g_k - g_p).abs().max()),
                               float((v_k - f_p).abs().max())),
            "fan_max_abs_err": float((fan_got - fan_want).abs().max()),
-           "planted_dropped_cell": planted,
-           "warm_start_gap_reported": loss_gaps(theta_ws, data, cfg, {
-               "f": (fw_k, fw_p), "g": (gw_k, gw_p)})}
-    require(within_gap_rule(gaps), f"K3/K4 on a streaming chunk: {out}")
+           "planted_dropped_cell": planted}
+    require(within_gap_rule(gaps), f"K3/K4 on {what}: {out}")
     require(min(planted.values()) > GAP_TOL,
-            f"a dropped cell passes GAP_RULE on a streaming chunk: {out}")
+            f"a dropped cell passes GAP_RULE on {what}: {out}")
+    return out
+
+
+def hold_stream_kernels(theta_ws, data, cfg, seed: int) -> dict:
+    """K3 (both modes) and K4 against their plain versions on a streaming
+    chunk: by GAP_RULE off the optimum (required), the same with one
+    observed cell a row dropped from the kernels' input (required to
+    fail), and at the warm start (reported)."""
+    from tsspark_tpu_torch.kernels import loss as lk
+
+    theta, d = off_optimum(theta_ws, seed)
+    out = hold_kernels(theta, d, data, cfg, "a streaming chunk")
+    fw_k, gw_k = lk.loss(theta_ws, data, cfg)
+    fw_p, gw_p = lk.loss_plain(theta_ws, data, cfg)
+    out["warm_start_gap_reported"] = loss_gaps(theta_ws, data, cfg, {
+        "f": (fw_k, fw_p), "g": (gw_k, gw_p)})
     return out
 
 
@@ -2351,6 +2623,194 @@ def phase_stream_fleet(device, frame, gen_s, parity) -> dict:
             f"{res['subset_vs_plain_cpu']['noise_units']}")
     require(fault_noise.max() > FLEET_NOISE_TOL,
             f"fleet: the rolled fault passes the limit: {fault_noise.max()}")
+    return res
+
+
+# A second fleet cell with a retail fleet's conditioning (phase
+# stream_fleet_m5): ``m5_like(30490, 730, seed=2, with_regressors=False)``
+# as a long frame (the unobserved cells dropped: M5's onset pattern), day
+# index as ``ds``, through config 5's model and schedule (a 510-day base
+# batch, three 73-day micro-batches), the warm run only, then one
+# deterministic 14-day forecast.  Here the residual at a warm start is
+# M5's noise, level x N(0, 0.15): a few percent of the series' scale, so
+# float32 resolves it (the plain float32 loss and gradient sit within
+# 0.0013 of GAP_RULE's unit from float64 at the warm optimum on 256
+# series, where config 5's fleet reads 15.3), and K3/K4 are held by
+# GAP_RULE on every chunk of the last micro-batch at the warm optimum
+# itself.  The 64-series subset's forecasts are held against the same
+# series streamed on the CPU plain path per series in units of that
+# series' noise (0.15 x its level) at M5_NOISE_TOL.  Readings (an H100,
+# PERF.md §5): the card against the CPU plain path at most 0.246 noise
+# units (median 0.046); on the CPU the 8-series subset of a 256-series
+# run against the same series streamed alone, 0.284.  The limit sits 4x
+# above the largest sound reading.  The rolled warm start (stream5's
+# planted fault) is reported, not required to fail: on this cell 60
+# iterations and the rescue pass heal it (0.409 noise units on the card's
+# subset, 0.196 on the CPU's 8 series), so no forecast limit above the
+# sound spread can see it.  What the limit must catch is a forecast
+# served for the wrong series: the subset's forecasts taken one fleet
+# row off, as an id->row index off by one would serve them
+# ("row_off_by_one": up to 77 noise units, 62 of 64 series past the
+# limit on the card).
+M5_FLEET_DAYS = 730
+M5_NOISE = 0.15
+M5_NOISE_TOL = 1.0
+
+
+def m5_fleet_frame(n: int = FLEET_SERIES):
+    """The cell's long frame (series_id, ds = day index, y) and its ids."""
+    import pandas as pd
+
+    from tsspark_tpu_torch.data.datasets import m5_like
+
+    b = m5_like(n, M5_FLEET_DAYS, seed=2, with_regressors=False)
+    rows, days = np.nonzero(b.mask > 0)
+    return pd.DataFrame({"series_id": b.series_ids[rows].astype(object),
+                         "ds": days.astype(np.float64),
+                         "y": b.y[rows, days]}), b.series_ids
+
+
+def m5_noise_unit(n: int = FLEET_SERIES) -> np.ndarray:
+    """Each series' noise sd in data units: ``m5_like``'s first draw is
+    the series' level, and its noise is level x N(0, M5_NOISE)."""
+    return M5_NOISE * np.random.default_rng(2).lognormal(1.0, 1.0, n)
+
+
+def m5_forecast(sf, ids) -> np.ndarray:
+    """The deterministic 14-day forecast of ``ids``: yhat (n, 14)."""
+    from tsspark_tpu_torch.eval import configs
+
+    fc = sf.forecast(ids, horizon=configs.HORIZON5, num_samples=0)
+    return fc.yhat.to_numpy().reshape(len(ids), configs.HORIZON5)
+
+
+def stream_m5_job(kind: str, df) -> dict:
+    """The warm run of config 5's schedule over the M5 subset ``df`` on
+    the CPU plain path in a ``ParityFits`` worker, sound ("plain") or with
+    the rolled fault: the forecast's yhat."""
+    import torch
+
+    from tsspark_tpu_torch.eval import configs
+    from tsspark_tpu_torch.streaming import driver
+    from tsspark_tpu_torch.streaming.source import InMemorySource
+
+    torch.set_num_threads(PARITY_THREADS)
+    t0 = time.perf_counter()
+    ids = list(dict.fromkeys(df.series_id.astype(str)))
+    sound = driver.transfer_theta
+    if kind != "plain":
+        driver.transfer_theta = planted_transfer(kind)
+    try:
+        sf = driver.StreamingForecaster(configs.CONFIG5, configs.SOLVER5,
+                                        device="cpu")
+        sf.run(InMemorySource(configs.config5_batches(df, M5_FLEET_DAYS)))
+        yhat = m5_forecast(sf, ids)
+    finally:
+        driver.transfer_theta = sound
+    return {"yhat_warm": yhat, "seconds": time.perf_counter() - t0}
+
+
+def phase_stream_fleet_m5(device, frame, ids, gen_s, parity) -> dict:
+    """The M5-conditioned fleet cell: the warm run of config 5's schedule
+    over ``frame`` (each micro-batch's wall, stages, starts and launches),
+    one deterministic forecast (K1), K3/K4 on every chunk of the last
+    micro-batch at the warm optimum by GAP_RULE, and the 64-series
+    subset's forecasts against the CPU plain path in noise units."""
+    import torch
+
+    from tsspark_tpu_torch.eval import configs
+    from tsspark_tpu_torch.kernels import loss as lk
+    from tsspark_tpu_torch.streaming.driver import StreamingForecaster
+
+    t_phase = time.perf_counter()
+    batches = configs.config5_batches(frame, M5_FLEET_DAYS)
+    ids = [str(s) for s in ids]
+    torch.cuda.reset_peak_memory_stats()
+    sf = StreamingForecaster(configs.CONFIG5, configs.SOLVER5, device=device)
+    t0 = time.perf_counter()
+    warm_rows = _stream_drive(sf, batches)
+    warm_wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    yhat = m5_forecast(sf, ids)
+    torch.cuda.synchronize()
+    fc = {"wall_s": time.perf_counter() - t0, "launches": _stream_counts()}
+
+    # K3/K4 at the warm optimum on each 8,192-row chunk of the last
+    # micro-batch (every series has rows there).
+    cfg = sf.config
+    last = list(dict.fromkeys(batches[-1].series_id.astype(str)))
+    width = sf.backend.chunk_size
+    gen = torch.Generator(device=device).manual_seed(11)
+    chunks = []
+    for lo in range(0, len(last), width):
+        _, theta, data = stream_chunk(sf, batches[-1], device,
+                                      ids=last[lo:lo + width])
+        d = 0.02 * torch.randn(theta.shape, generator=gen, device=device)
+        held = hold_kernels(theta, d, data, cfg,
+                            f"the M5 fleet's chunk at row {lo} at its "
+                            "warm optimum")
+        if lo == 0:
+            b, t_len = data.t.shape
+            held.update(
+                ms=cuda_ms(lambda: lk.loss(theta, data, cfg)),
+                plain_ms=cuda_ms(lambda: lk.loss_plain(theta, data, cfg),
+                                 iters=3, warmup=1),
+                **loss_bound_ms(b, b, t_len, cfg, True))
+        chunks.append(held)
+        del theta, data
+
+    idx = fleet_subset()
+    noise = m5_noise_unit()[idx]
+    plain = parity.get_stream("plain", "m5")
+    rolled = parity.get_stream("rolled", "m5")
+    sound = np.abs(yhat[idx] - plain["yhat_warm"]).max(-1) / noise
+    warm_fault = np.abs(rolled["yhat_warm"]
+                        - plain["yhat_warm"]).max(-1) / noise
+    off = np.minimum(idx + 1, len(ids) - 1)
+    off[off == idx] = idx[off == idx] - 1
+    fault = np.abs(yhat[off] - plain["yhat_warm"]).max(-1) / noise
+    summary = lambda d: {  # noqa: E731
+        "max": float(d.max()), "median": float(np.median(d)),
+        "series_over_tol": int((d > M5_NOISE_TOL).sum())}
+    res = {
+        "phase": "stream_fleet_m5", "series": len(ids),
+        "days": M5_FLEET_DAYS, "rows": int(len(frame)), "frame_s": gen_s,
+        "warm": {"wall_s": warm_wall, "micro_batches": warm_rows,
+                 "warm_starts": sf.stats.warm_starts,
+                 "cold_starts": sf.stats.cold_starts,
+                 "launches": _sum_counts(warm_rows)},
+        "forecast": fc,
+        "kernels_at_warm_optimum": {
+            "tolerance": GAP_RULE, "chunks": len(chunks),
+            "gap_max": {k: max(c["gap"][k] for c in chunks)
+                        for k in chunks[0]["gap"]},
+            "planted_dropped_cell_min": {
+                k: min(c["planted_dropped_cell"][k] for c in chunks)
+                for k in chunks[0]["planted_dropped_cell"]},
+            "first_chunk": chunks[0]},
+        "subset_vs_plain_cpu": {
+            "subset": FLEET_SUBSET, "noise_unit": "0.15 x the level",
+            "tolerance_noise_units": M5_NOISE_TOL,
+            "sound": summary(sound),
+            "row_off_by_one_fault": summary(fault),
+            "rolled_warm_start_fault_reported": summary(warm_fault),
+            "per_series": {"sound": sound.tolist(),
+                           "row_off_by_one": fault.tolist(),
+                           "rolled_warm_start": warm_fault.tolist()},
+            "plain_cpu_s": plain["seconds"]},
+        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    emit(res)
+    require(np.isfinite(yhat).all(), "M5 fleet forecast finite")
+    require(fc["launches"]["forward"] > 0, f"M5 fleet forecast K1: {fc}")
+    require(sound.max() <= M5_NOISE_TOL,
+            f"M5 fleet subset against the plain CPU run: {summary(sound)}")
+    require(fault.max() > M5_NOISE_TOL,
+            "M5 fleet: a forecast one row off passes the limit: "
+            f"{summary(fault)}")
     return res
 
 
@@ -3380,24 +3840,24 @@ def _rows(data, idx):
                             for f in per_row})
 
 
-def row_invariance(data, cfg, theta, d, ladder, device) -> dict:
+def row_invariance(data, cfg, theta, d, ladder, device,
+                   sl=slice(1000, 1500)) -> dict:
     """K3 (both modes) and K4 give a row the same bits wherever it sits:
-    rows 1000:1500 launched as a batch of their own, the batch permuted,
-    and (K3) a trial stack of 3B rows against three separate launches."""
+    rows ``sl`` launched as a batch of their own, the batch permuted, and
+    (K3) a trial stack of 3B rows against three separate launches."""
     import torch
 
     from tsspark_tpu_torch.kernels import fan as fan_k
 
-    out = loss_row_invariance(data, cfg, theta, device)
+    out = loss_row_invariance(data, cfg, theta, device, sl)
     b = theta.shape[0]
-    sl = slice(1000, 1500)
     perm = torch.randperm(b, generator=torch.Generator().manual_seed(0))
     perm = perm.to(device)
     sub, permuted = _rows(data, sl), _rows(data, perm)
     fan = fan_k.fan(theta, d, ladder, data, cfg)
     require(torch.equal(fan_k.fan(theta[sl].contiguous(), d[sl].contiguous(),
                                   ladder[:, sl].contiguous(), sub, cfg),
-                        fan[:, sl]), "fan: rows 1000:1500 alone differ")
+                        fan[:, sl]), f"fan: rows {sl} alone differ")
     require(torch.equal(fan_k.fan(theta[perm].contiguous(),
                                   d[perm].contiguous(),
                                   ladder[:, perm].contiguous(), permuted, cfg),
@@ -3406,16 +3866,16 @@ def row_invariance(data, cfg, theta, d, ladder, device) -> dict:
     return out
 
 
-def loss_row_invariance(data, cfg, theta, device) -> dict:
+def loss_row_invariance(data, cfg, theta, device,
+                        sl=slice(1000, 1500)) -> dict:
     """K3 (both modes) gives a row the same bits wherever it sits: rows
-    1000:1500 launched as a batch of their own, the batch permuted, and a
+    ``sl`` launched as a batch of their own, the batch permuted, and a
     trial stack of 3B rows against three separate launches."""
     import torch
 
     from tsspark_tpu_torch.kernels import loss as lk
 
     b = theta.shape[0]
-    sl = slice(1000, 1500)
     perm = torch.randperm(b, generator=torch.Generator().manual_seed(0))
     perm = perm.to(device)
     sub, permuted = _rows(data, sl), _rows(data, perm)
@@ -3425,7 +3885,7 @@ def loss_row_invariance(data, cfg, theta, device) -> dict:
         f, g = lk.loss(theta, data, cfg, grad)
         fs, gs = lk.loss(theta[sl].contiguous(), sub, cfg, grad)
         require(same(fs, f[sl]) and (g is None or same(gs, g[sl])),
-                f"loss ({mode}): rows 1000:1500 alone differ")
+                f"loss ({mode}): rows {sl} alone differ")
         fp, gp = lk.loss(theta[perm].contiguous(), permuted, cfg, grad)
         require(same(fp, f[perm]) and (g is None or same(gp, g[perm])),
                 f"loss ({mode}): a permuted batch differs")
@@ -3438,7 +3898,7 @@ def loss_row_invariance(data, cfg, theta, device) -> dict:
                                              or same(gst[rows], gn)),
                     f"loss ({mode}): trial stack part {n} differs")
     torch.cuda.synchronize()
-    return {"bitwise": True, "rows": [1000, 1500], "permuted": b,
+    return {"bitwise": True, "rows": [sl.start, sl.stop], "permuted": b,
             "loss_trial_stack": 3 * b}
 
 
@@ -3638,7 +4098,7 @@ def k7_check(state, g, f, eps, sd, step, advi) -> dict:
     return {"bitwise": same, "max_abs_err": err}
 
 
-def phase_uncertainty(serve, device, parity) -> dict:
+def phase_uncertainty(serve, device, parity, root=None) -> dict:
     """The uncertainty tier at the M5 fleet's width (``run_calibration_
     smoke``'s recipe): serve's ``m5_like(30490, 1941)`` batch under
     ``ProphetConfig()``, the last 28 days withheld; the MAP fit through
@@ -3650,7 +4110,9 @@ def phase_uncertainty(serve, device, parity) -> dict:
     ``gold.audit_version`` (8 rows, ``McmcConfig()``).  Then the checks:
     K3 on the draw stack by GAP_RULE, K7 against its plain version, the
     card's ADVI against the plain CPU path on 64 series (with planted
-    faults), the plane against ``compute_rows``."""
+    faults), the plane against ``compute_rows``.  ``root``: the
+    registry's directory, kept for phase planes (``handoff``); None: a
+    temporary one, removed at the end."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3694,7 +4156,9 @@ def phase_uncertainty(serve, device, parity) -> dict:
         stages[name] = time.perf_counter() - t0
         return out
 
-    root = tempfile.mkdtemp(prefix="uncertainty_")
+    own_root = root is None
+    if own_root:
+        root = tempfile.mkdtemp(prefix="uncertainty_")
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3963,9 +4427,10 @@ def phase_uncertainty(serve, device, parity) -> dict:
                 f"a planted ADVI fault passes the parity limits: "
                 f"{advi_parity}")
     finally:
-        import shutil
+        if own_root:
+            import shutil
 
-        shutil.rmtree(root, ignore_errors=True)
+            shutil.rmtree(root, ignore_errors=True)
 
     sd = np.exp(rho)
     out = {
@@ -4055,7 +4520,12 @@ def phase_uncertainty(serve, device, parity) -> dict:
                 **loss_bound_ms(kb, n, cut, cfg, True),
                 "gap": {"first_step": first["gap"],
                         "last_step": last["gap"]}}
-    return {"out": out, "kernel": k7, "k3_stack": k3_stack}
+    handoff = {"root": root, "registry": reg, "version": v, "backend": bk,
+               "cfg": cfg, "ids": ids, "ds_fit": ds_fit, "y_fit": y_fit,
+               "m_fit": m_fit, "posterior": (mu, rho, elbo),
+               "advi_steps": advi.num_steps}
+    return {"out": out, "kernel": k7, "k3_stack": k3_stack,
+            "handoff": handoff}
 
 
 def add_uncertainty(kernels, unc) -> None:
@@ -4066,6 +4536,312 @@ def add_uncertainty(kernels, unc) -> None:
         if k["name"] == "loss":
             k["advi_draw_stack"] = unc["k3_stack"]
     kernels.append(unc["kernel"])
+
+
+# ---------------------------------------------------------------------------
+# phase planes: the storage layer's snapshot and forecast planes, full and
+# delta publish, on phase uncertainty's 30,490-row registry
+# ---------------------------------------------------------------------------
+
+PLANES_PROBES = 200
+PLANES_CHECK_ROWS = 512
+PLANES_DELTA_FRAC = 0.01   # the delta version refits 1% of the rows
+PLANES_HOT = (7, 14, 28)
+
+
+def _plane_cols(prefix: str, vdir) -> dict:
+    """Every column file ``<prefix>*.npy`` of a plane in ``vdir``, by its
+    name, as host arrays."""
+    import os
+
+    return {n[len(prefix):-4]: np.load(os.path.join(vdir, n))
+            for n in sorted(os.listdir(vdir))
+            if n.startswith(prefix) and n.endswith(".npy")}
+
+
+def _same_rows(got: dict, want: dict, rows) -> bool:
+    return set(got) == set(want) and all(
+        np.array_equal(got[k][rows], want[k][rows]) for k in want)
+
+
+def phase_planes(unc, device) -> dict:
+    """The storage layer on phase uncertainty's registry (``unc``: its
+    registry, ADVI version, backend, fit inputs and posterior):
+    ``fplane.maybe_publish`` of the version (K1 over every row at buckets
+    8/16/32, counts set to 0 just before and read just after), both planes
+    attached with their CRC sweeps, 200 requests served (plane hits; on
+    512 rows x three horizons bitwise the engine's compute path, K1), a
+    delta version (1% of the rows refitted warm through
+    ``CudaBackend.fit``, ADVI on them, ``publish_delta``, the forecast and
+    quantile planes' deltas): unchanged rows bitwise the base's, changed
+    rows bitwise a full publish of the delta version; and a torn
+    forecast-plane publish refused at attach and served by compute."""
+    import os
+
+    import torch
+
+    from tsspark_tpu_torch.kernels import forward as fk
+    from tsspark_tpu_torch.models.prophet.design import prepare_fit_data
+    from tsspark_tpu_torch.resilience import faults
+    from tsspark_tpu_torch.serve import (
+        ForecastCache,
+        PredictionEngine,
+        fplane,
+        snapplane,
+    )
+    from tsspark_tpu_torch.uncertainty import advi as advi_mod
+    from tsspark_tpu_torch.uncertainty import qplane
+
+    t_phase = time.perf_counter()
+    reg, v, bk, cfg = unc["registry"], unc["version"], unc["backend"], \
+        unc["cfg"]
+    ids = np.asarray(unc["ids"])
+    n = len(ids)
+    stages = {}
+
+    def stage(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        stages[name] = time.perf_counter() - t0
+        return out
+
+    reg.activate(v)
+    vdir = reg.version_dir(v)
+    require(snapplane.has_plane(vdir), "publish landed a snapshot plane")
+    snap_bytes = snapplane.snapshot_nbytes(vdir)
+    sdir = os.path.join(unc["root"], "scratch_snapshot_plane")
+    os.makedirs(sdir)
+    stage("snapshot_plane_write", snapplane.write_plane, sdir,
+          reg.load(v).state, ids, extras={"step": np.ones(n)})
+    torch.cuda.synchronize()
+    fk.launches = 0
+    pub = stage("fplane_publish", fplane.maybe_publish, reg, v, bk,
+                horizons=PLANES_HOT)
+    k1_publish = fk.launches
+    require(pub is not None and pub["status"] == "published"
+            and pub["buckets"] == [8, 16, 32], f"fplane publish: {pub}")
+    require(k1_publish > 0, "the forecast plane's publish ran K1")
+    snap_ok = stage("snapshot_plane_crc_sweep", snapplane.verify_plane, vdir)
+    f_ok = stage("fplane_crc_sweep", fplane.verify_plane, vdir)
+    require(snap_ok and f_ok, "both planes pass their CRC sweeps")
+
+    # 200 requests through the engine: plane hits.
+    eng = PredictionEngine(reg, cache=ForecastCache(0), device=device)
+    rng = np.random.default_rng(UNC_SEED)
+    walls = []
+    fk.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(PLANES_PROBES):
+        k = int(rng.integers(1, 9))
+        sel = list(ids[np.sort(rng.choice(n, k, replace=False))])
+        h = int(rng.choice(PLANES_HOT))
+        t1 = time.perf_counter()
+        res = eng.forecast(sel, h)
+        walls.append((time.perf_counter() - t1) * 1e3)
+        require(res.version == v and res.from_cache == len(sel),
+                "a hot request served from the plane")
+    stages["reads"] = time.perf_counter() - t0
+    reads = {"probes": PLANES_PROBES,
+             "p50_ms": float(np.percentile(walls, 50)),
+             "p99_ms": float(np.percentile(walls, 99)),
+             "plane_hits": eng.stats.plane_hits,
+             "plane_misses": eng.stats.plane_misses,
+             "k1_launches": fk.launches}
+    require(eng.stats.dispatches == 0 and fk.launches == 0,
+            f"plane hits need no dispatch: {reads}")
+    # On 512 rows the plane hits are the compute path's bits (K1).
+    sel = list(ids[:PLANES_CHECK_ROWS])
+    eng_c = PredictionEngine(reg, cache=ForecastCache(0), device=device)
+    eng_c._planes = {v: None}
+    fk.launches = 0
+    for h in PLANES_HOT:
+        hit, comp = eng.forecast(sel, h), eng_c.forecast(sel, h)
+        require(np.array_equal(hit.ds, comp.ds) and set(hit.values)
+                == set(comp.values) and all(
+                    np.array_equal(hit.values[k], comp.values[k])
+                    for k in comp.values),
+                f"plane hits != the compute path at h={h}")
+    k1_compute = fk.launches
+    require(k1_compute > 0, "the compute path ran K1")
+
+    # The delta version: 1% of the rows refitted warm on the same history.
+    changed = np.linspace(0, n - 1, int(round(n * PLANES_DELTA_FRAC))) \
+        .astype(np.int64)
+    snap1 = reg.load(v)
+    theta1 = snap1.state.theta
+    ds_fit, y_fit, m_fit = unc["ds_fit"], unc["y_fit"], unc["m_fit"]
+    sub = stage("delta_refit", bk.fit, ds_fit, y_fit[changed],
+                mask=m_fit[changed],
+                init=theta1[torch.as_tensor(changed)].clone())
+    sub_np, _ = prepare_fit_data(ds_fit, y_fit[changed], cfg,
+                                 mask=m_fit[changed])
+    th_sub = np.nan_to_num(sub.theta.cpu().numpy().astype(np.float32))
+    post_sub = stage("delta_advi", advi_mod.fit_advi, th_sub, sub_np,
+                     torch.Generator(device=device).manual_seed(UNC_SEED + 2),
+                     cfg, device=device)
+    v2 = stage("publish_delta", reg.publish_delta, sub, changed,
+               step_sub=np.ones(len(changed)))
+    post = unc["posterior"]
+    mu, rho, elbo = (np.array(x) for x in post)
+    mu[changed] = post_sub.mu.cpu().numpy()
+    rho[changed] = post_sub.rho.cpu().numpy()
+    elbo[changed] = post_sub.elbo.cpu().numpy()
+    post2 = advi_mod.AdviPosterior(mu=mu, rho=rho, elbo=elbo)
+    advi_mod.save_posterior(reg.version_dir(v2), post2, seed=UNC_SEED,
+                            num_steps=unc["advi_steps"])
+    fk.launches = 0
+    fpub2 = stage("fplane_publish_delta", fplane.maybe_publish, reg, v2, bk)
+    k1_delta = fk.launches
+    qpub2 = stage("qplane_publish_delta", qplane.maybe_publish, reg, v2, bk)
+    require(fpub2 is not None and fpub2["status"] == "published-delta",
+            f"fplane delta: {fpub2}")
+    require(qpub2 is not None and qpub2["status"] == "published-delta"
+            and qpub2["mode"] == "advi", f"qplane delta: {qpub2}")
+    vdir2 = reg.version_dir(v2)
+    keep = np.setdiff1d(np.arange(n), changed)
+    snap2 = reg.load()
+    require(snap2.version == v2 and snap2.source == "mmap",
+            "the delta version is active and served from its plane")
+    # A full publish of the delta version's state, beside it.
+    full_dir = os.path.join(unc["root"], "full_delta")
+    os.makedirs(full_dir)
+    state2 = snap2.state._replace(theta=snap2.state.theta.clone())
+    stage("snapshot_plane_full_of_delta", snapplane.write_plane, full_dir,
+          state2, ids, extras={"step": np.ones(n)})
+    stage("fplane_full_of_delta", fplane.write_plane, full_dir, snap2, bk)
+    checks = {}
+    for name, prefix in (("snapshot", snapplane.COL_PREFIX),
+                         ("forecast", fplane.FCOL_PREFIX)):
+        base, delta, full = (_plane_cols(prefix, d)
+                             for d in (vdir, vdir2, full_dir))
+        checks[name] = {
+            "unchanged_rows_bitwise_base": _same_rows(delta, base, keep),
+            "changed_rows_bitwise_full": _same_rows(delta, full, changed),
+            "columns": len(delta)}
+        require(checks[name]["unchanged_rows_bitwise_base"]
+                and checks[name]["changed_rows_bitwise_full"],
+                f"{name} plane delta: {checks[name]}")
+    links = [nm for nm in os.listdir(vdir2)
+             if nm.startswith(snapplane.COL_PREFIX)
+             and os.path.samefile(os.path.join(vdir, nm),
+                                  os.path.join(vdir2, nm))]
+    require({"snapcol_ids.npy", "snapcol_ids_sorted.npy",
+             "snapcol_id_order.npy"} <= set(links),
+            f"the id index hardlinked from the base: {links}")
+    # The quantile plane: unchanged rows the base's bytes, changed rows
+    # the full publish's per-row function (compute_rows on those rows,
+    # keyed on (seed, row)).
+    qb, qd = qplane.attach(vdir), qplane.attach(vdir2)
+    q_ok = {"unchanged_rows_bitwise_base": True,
+            "changed_rows_bitwise_full": True}
+    for hb in qd.buckets:
+        ref = qplane.compute_rows(snap2, cfg, bk, changed, hb,
+                                  posterior=post2)
+        for pm, col in qd.columns[hb].items():
+            col = np.asarray(col)
+            q_ok["unchanged_rows_bitwise_base"] &= bool(np.array_equal(
+                col[keep], np.asarray(qb.columns[hb][pm])[keep]))
+            q_ok["changed_rows_bitwise_full"] &= bool(np.array_equal(
+                col[changed], ref[pm]))
+    checks["quantile"] = q_ok
+    require(all(q_ok.values()), f"quantile plane delta: {q_ok}")
+    eng2 = PredictionEngine(reg, cache=ForecastCache(0), device=device)
+    sel2 = list(ids[changed[:64]])
+    res2 = eng2.forecast(sel2, 14)
+    require(res2.version == v2 and eng2.stats.plane_hits == len(sel2),
+            "the delta version served from its forecast plane")
+
+    # A torn forecast-plane publish: refused at attach, served by compute.
+    v3 = reg.publish_delta(None, [])
+    vdir3 = reg.version_dir(v3)
+    plan = faults.FaultPlan(state_dir=os.path.join(unc["root"], "faults"))
+    plan.fail("fplane_publish", after=5)
+    os.environ[faults.ENV_VAR] = plan.to_env()
+    try:
+        fplane.write_plane(vdir3, reg.load(v3), bk)
+        torn = False
+    except faults.FaultInjected:
+        torn = True
+    finally:
+        os.environ.pop(faults.ENV_VAR, None)
+    refused = False
+    try:
+        fplane.attach(vdir3)
+    except fplane.ForecastPlaneError as e:
+        refused = e.reason == "corrupt"
+    eng3 = PredictionEngine(reg, cache=ForecastCache(0), device=device)
+    fk.launches = 0
+    sel3 = list(ids[changed[:64]])
+    res3 = eng3.forecast(sel3, 14)
+    k1_torn = fk.launches
+    hit2 = eng2.forecast(sel3, 14)
+    require(torn and refused, f"torn forecast plane: raised {torn}, "
+            f"refused at attach {refused}")
+    require(res3.version == v3 and eng3.stats.plane_hits == 0
+            and eng3.stats.plane_misses == len(sel3) and k1_torn > 0,
+            "the torn version served through the compute path")
+    require(all(np.array_equal(res3.values[k], hit2.values[k])
+                for k in hit2.values),
+            "compute over the torn version != the same rows' plane hits")
+    out = {
+        "phase": "planes", "series": n, "version": v,
+        "stages_s": stages,
+        "snapshot_plane": {"nbytes": snap_bytes, "crc_ok": snap_ok},
+        "fplane": {"publish_s": pub["publish_s"], "nbytes": pub["nbytes"],
+                   "buckets": pub["buckets"], "k1_launches": k1_publish,
+                   "crc_ok": f_ok},
+        "reads": reads,
+        "plane_vs_compute": {"rows": PLANES_CHECK_ROWS,
+                             "horizons": list(PLANES_HOT),
+                             "bitwise": True, "k1_launches": k1_compute},
+        "delta": {"version": v2, "changed": int(len(changed)),
+                  "fplane": {k: fpub2[k] for k in ("publish_s", "nbytes")},
+                  "fplane_k1_launches": k1_delta,
+                  "qplane": {k: qpub2[k] for k in ("publish_s", "nbytes",
+                                                   "mode")},
+                  "hardlinked_snapshot_columns": len(links),
+                  "checks": checks},
+        "torn": {"version": v3, "raised": torn, "refused_at_attach": refused,
+                 "served_by_compute_k1_launches": k1_torn,
+                 "bitwise_the_planes_rows": True},
+        "launches_forward": k1_publish + k1_compute + k1_delta + k1_torn,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    emit(out)
+    return out
+
+
+def add_new_paths(kernels, fleet_m5, eval12, planes) -> None:
+    """K1, K3 and K4's entries gain their launches and checks on phase
+    stream_fleet_m5's warm run (K3/K4 at the warm optimum), on eval
+    configs 1 and 2 (the fits, forecasts and their shapes' checks) and
+    on phase planes' paths (K1: the forecast plane's full and delta
+    publish, the compute path's reads)."""
+    m5 = fleet_m5["warm"]["launches"]
+    e12 = {name: c for name, c in eval12["configs"].items()}
+    for k in kernels:
+        name = k["name"]
+        if name not in ("loss", "fan", "forward"):
+            continue
+        if name in ("loss", "fan"):
+            m5_n = (m5["loss_grad"] + m5["loss_value"] if name == "loss"
+                    else m5["fan"])
+            k["launches_stream_fleet_m5"] = m5_n
+            k["stream_fleet_m5_check_at_warm_optimum"] = {
+                "gap_max": fleet_m5["kernels_at_warm_optimum"]["gap_max"],
+                "chunks": fleet_m5["kernels_at_warm_optimum"]["chunks"]}
+        else:
+            k["launches_stream_fleet_m5"] = \
+                fleet_m5["forecast"]["launches"]["forward"]
+            k["launches_planes"] = planes["launches_forward"]
+            k["planes_check"] = "plane hits bitwise the compute path"
+        for cname, c in e12.items():
+            launch = c["launches"]
+            k[f"launches_{cname}"] = (
+                launch["loss_grad"] + launch["loss_value"] if name == "loss"
+                else launch[name])
+            k[f"{cname}_check"] = c["kernels"][name]
 
 
 def main(argv=None) -> int:
@@ -4118,8 +4894,17 @@ def main(argv=None) -> int:
     fleet_sub = fleet_df[fleet_df.series_id.isin(
         {f"s{i}" for i in fleet_subset()})]
     gen5_s = time.perf_counter() - t0
-    phases_s["data"] = gen3_s + gen4_s + gen5_s
-    parity = ParityFits(batch3, batch4, stream5_df, fleet_sub)
+    t0 = time.perf_counter()
+    m5_df, m5_ids = m5_fleet_frame()
+    m5_sub = m5_df[m5_df.series_id.isin(set(m5_ids[fleet_subset()]))]
+    gen_m5_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batches12 = eval12_batches()
+    gen12_s = time.perf_counter() - t0
+    phases_s["data"] = gen3_s + gen4_s + gen5_s + gen_m5_s + gen12_s
+    parity = ParityFits(batch3, batch4, stream5_df, fleet_sub, m5_sub,
+                        batches12)
+    unc_root = tempfile.mkdtemp(prefix="uncertainty_")
     finished = False
     try:
         fwd = timed("forward", phase_forward, rng, device)
@@ -4135,13 +4920,25 @@ def main(argv=None) -> int:
         fleet = timed("stream_fleet", phase_stream_fleet, device, fleet_df,
                       gen5_s, parity)
         del fleet_df
-        unc = timed("uncertainty", phase_uncertainty, serve, device, parity)
+        unc = timed("uncertainty", phase_uncertainty, serve, device, parity,
+                    unc_root)
+        planes = timed("planes", phase_planes, unc["handoff"], device)
+        del unc["handoff"]
+        fleet_m5 = timed("stream_fleet_m5", phase_stream_fleet_m5, device,
+                         m5_df, m5_ids, gen_m5_s, parity)
+        del m5_df
+        eval12 = timed("eval12", phase_eval12, device, batches12, gen12_s,
+                       parity)
         kernels = timed("kernels", phase_kernels, serve, fwd, bnd, fit,
                         fit4, mcmc, device)
         add_stream_launches(kernels["kernels"], stream5, fleet)
         add_uncertainty(kernels["kernels"], unc)
+        add_new_paths(kernels["kernels"], fleet_m5, eval12, planes)
         finished = True
     finally:
+        import shutil
+
+        shutil.rmtree(unc_root, ignore_errors=True)
         parity.close(finished)
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start,
           "phases_s": phases_s})

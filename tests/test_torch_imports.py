@@ -74,8 +74,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "tsspark_tpu_torch.streaming.driver",
                 "tsspark_tpu_torch.kernels.advi",
                 "tsspark_tpu_torch.io.errors",
+                "tsspark_tpu_torch.io.durable",
+                "tsspark_tpu_torch.io.budget",
+                "tsspark_tpu_torch.io.ladder",
                 "tsspark_tpu_torch.plane.protocol",
                 "tsspark_tpu_torch.serve.fplane",
+                "tsspark_tpu_torch.serve.snapplane",
+                "tsspark_tpu_torch.eval.parity",
+                "tsspark_tpu_torch.obs.history",
+                "tsspark_tpu_torch.data.datasets",
                 "tsspark_tpu_torch.uncertainty",
                 "tsspark_tpu_torch.uncertainty.advi",
                 "tsspark_tpu_torch.uncertainty.qplane",

@@ -1,7 +1,8 @@
 """The port's quantile plane (``uncertainty/qplane.py``) and the engine's
-interval reads, case for case as the JAX package's ``tests/test_qplane.py``
-(its delta publish aside, which waits for the port's delta versions), on
-the same fitted batch carried across from the JAX package.
+interval reads, case for case as the JAX package's ``tests/test_qplane.py``,
+on the same fitted batch carried across from the JAX package, and its
+delta publish (``write_qplane_delta``) against a full publish of the
+delta version.
 
 Beside those, against the JAX package itself: the row samplers
 (``_row_quantiles_map`` / ``_row_quantiles_advi``) and ADVI-mode
@@ -311,6 +312,69 @@ def test_storage_refusal_returns_none(tmp_path, fitted, monkeypatch):
     monkeypatch.setattr("tsspark_tpu_torch.plane.protocol.atomic_write",
                         full)
     assert qplane.maybe_publish(reg, 1, backend) is None
+
+
+@pytest.mark.parametrize("mode", ["map", "advi"])
+def test_delta_publish_bitwise_base_and_full(tmp_path, fitted, mode):
+    """A delta version's quantile plane: unchanged rows' cells are the
+    base plane's bytes (hardlinked or copied forward), changed rows'
+    cells the bytes a full publish of the delta version lands."""
+    backend, state, ids = fitted
+    reg = _registry(tmp_path, fitted)
+    changed = np.asarray([1, 4])
+    post = _posterior(state)
+    if mode == "advi":
+        advi.save_posterior(reg.version_dir(1), post, seed=0, num_steps=0)
+    assert qplane.maybe_publish(reg, 1, backend)["mode"] == mode
+    sub, step_sub = reg.load().take(changed)
+    v2 = reg.publish_delta(sub._replace(theta=sub.theta * 1.03), changed,
+                           step_sub=step_sub)
+    full_theta = state.theta.clone()
+    full_theta[torch.as_tensor(changed)] *= 1.03
+    full = ParamRegistry(str(tmp_path / "full"), CFG)
+    full.publish(state._replace(theta=full_theta), ids,
+                 step=np.ones(len(ids)))
+    if mode == "advi":
+        mu = post.mu.copy()
+        mu[changed] *= 1.03
+        post2 = advi.AdviPosterior(mu=mu, rho=post.rho, elbo=post.elbo)
+        for r in (reg, full):
+            advi.save_posterior(r.version_dir(r.active_version()), post2,
+                                seed=0, num_steps=0)
+    pub = qplane.maybe_publish(reg, v2, backend)
+    assert pub["status"] == "published-delta" and pub["mode"] == mode
+    assert qplane.maybe_publish(full, 1, backend)["mode"] == mode
+    base = qplane.attach(reg.version_dir(1))
+    delta = qplane.attach(reg.version_dir(v2))
+    want = qplane.attach(full.version_dir(1))
+    keep = np.setdiff1d(np.arange(len(ids)), changed)
+    for hb in base.buckets:
+        for pm in base.columns[hb]:
+            d = np.asarray(delta.columns[hb][pm])
+            np.testing.assert_array_equal(
+                d[keep], np.asarray(base.columns[hb][pm])[keep])
+            np.testing.assert_array_equal(
+                d, np.asarray(want.columns[hb][pm]))
+            assert not np.array_equal(
+                d[changed], np.asarray(base.columns[hb][pm])[changed])
+    eng = _engine(reg)
+    got = eng.quantiles(ids, 14)
+    assert eng.stats.qplane_hits == len(ids) and got.version == v2
+
+
+def test_delta_publish_full_when_the_recipe_changed(tmp_path, fitted):
+    """An ADVI-mode base with no posterior in the delta version: the
+    recipe cannot be followed, so the delta version publishes full (MAP
+    mode)."""
+    backend, state, ids = fitted
+    reg = _registry(tmp_path, fitted)
+    advi.save_posterior(reg.version_dir(1), _posterior(state), seed=0,
+                        num_steps=0)
+    assert qplane.maybe_publish(reg, 1, backend)["mode"] == "advi"
+    sub, _ = reg.load().take(np.asarray([2]))
+    v2 = reg.publish_delta(sub, [2])
+    pub = qplane.maybe_publish(reg, v2, backend)
+    assert pub["status"] == "published" and pub["mode"] == "map"
 
 
 # -- against the JAX package ---------------------------------------------------

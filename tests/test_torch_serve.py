@@ -93,7 +93,7 @@ def test_port_opens_a_registry_the_jax_package_published(jax_registry,
         got = getattr(snap.state.meta, f)
         assert got.dtype == np.float64, f
         np.testing.assert_array_equal(got, getattr(state.meta, f))
-    assert snap.series_ids == tuple(IDS)
+    assert tuple(snap.series_ids) == tuple(IDS)
 
 
 def test_port_and_jax_engines_answer_the_same_requests(jax_registry):
@@ -212,10 +212,14 @@ def test_corrupt_active_snapshot_falls_back_to_last_good(tmp_path,
                                                          jax_fitted):
     reg = _port_registry(tmp_path, jax_fitted)
     reg.publish(_port_state(jax_fitted[1]), IDS)
-    path = os.path.join(reg.version_dir(2), "state.npz")
-    with open(path, "r+b") as fh:
-        fh.seek(os.path.getsize(path) // 2)
-        fh.write(b"\x00garbage\x00")
+    # Both representations of v2 corrupt (the column plane is preferred,
+    # its version's npz the first fallback): only then does the registry
+    # degrade to an older version.
+    for name in ("state.npz", "snapcol_theta.npy"):
+        path = os.path.join(reg.version_dir(2), name)
+        with open(path, "r+b") as fh:
+            fh.seek(os.path.getsize(path) // 2)
+            fh.write(b"\x00garbage\x00")
     with pytest.warns(RuntimeWarning, match="last good version 1"):
         snap = reg.load()
     assert snap.version == 1 and snap.fallback_from == 2
@@ -225,13 +229,24 @@ def test_corrupt_active_snapshot_falls_back_to_last_good(tmp_path,
 
 
 def test_plane_only_versions_are_refused(tmp_path, jax_fitted):
+    """A plane-only version the JAX package published loads from its
+    column plane, and is refused (no npz to fall back on) once that
+    plane is torn."""
     _, state = jax_fitted
     jreg = JaxRegistry(str(tmp_path / "mmap"), JCFG, snapshot_format="mmap")
     jreg.publish(state, IDS)
     reg = ParamRegistry.open(jreg.root)
+    snap = reg.load()
+    assert snap.source == "mmap"
+    np.testing.assert_array_equal(snap.state.theta.numpy(),
+                                  np.asarray(state.theta))
+    path = os.path.join(reg.version_dir(1), "snapcol_theta.npy")
+    with open(path, "r+b") as fh:
+        fh.seek(os.path.getsize(path) // 2)
+        fh.write(b"\x00garbage\x00")
     with pytest.raises(RegistryError) as e:
         reg.load()
-    assert e.value.reason == "format-unsupported"
+    assert e.value.reason == "corrupt-snapshot"
 
 
 def test_engine_unknown_series_shedding_and_admission(tmp_path, jax_fitted):

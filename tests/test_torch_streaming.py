@@ -448,7 +448,7 @@ def test_breaker_sheds_polls_once_open(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("rule", [{"mode": "exit"}, {"series": 3},
-                                  {"path": "registry"}])
+                                  {"mode": "corrupt"}])
 def test_fault_plan_refuses_what_the_port_does_not_inject(tmp_path,
                                                           monkeypatch, rule):
     """A JAX-package plan that arms another mode or scope is refused when

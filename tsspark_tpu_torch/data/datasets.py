@@ -1,8 +1,14 @@
 """Synthetic data (numpy), for driving the port at full size.
 
-Copies of two of the JAX package's generators, deterministic in their
-seed, plain numpy arrays out:
+Copies of the JAX package's generators, deterministic in their seed,
+plain numpy arrays out (the same bytes as the reference's):
 
+* ``peyton_manning_like`` (eval config 1): one daily series of ~8 years
+  with yearly and weekly seasonality, a few changepoints and 2% missing
+  days;
+* ``m4_hourly_like`` (eval config 2): 414 hourly series with daily and
+  weekly seasonality, ragged lengths (700-960) right-aligned on a shared
+  grid;
 * ``m5_like`` (eval config 3): 30,490 daily series over 1,941 days with
   M5's onset pattern (leading unobserved days), weekly and yearly
   seasonality, changepoints, and holiday, price and promo effects;
@@ -30,6 +36,80 @@ class SeriesBatch(NamedTuple):
     cap: Optional[np.ndarray] = None         # (B, T) logistic capacity
     regressors: Optional[np.ndarray] = None  # (B, T, R)
     regressor_names: tuple = ()
+
+
+def _trend_with_changepoints(rng, t, n_cp=4, base_slope=1.0, cp_scale=1.5):
+    """Piecewise-linear trend on t in [0, 1]."""
+    cps = np.sort(rng.uniform(0.05, 0.9, n_cp))
+    deltas = rng.normal(0, cp_scale, n_cp)
+    g = base_slope * t
+    for c, d in zip(cps, deltas):
+        g = g + d * np.maximum(t - c, 0.0)
+    return g
+
+
+def peyton_manning_like(
+    n_days: int = 2905, start_day: float = 10957.0, seed: int = 0
+) -> SeriesBatch:
+    """One daily series shaped like log Wikipedia pageviews of a celebrity:
+    ~8 years, strong yearly + weekly seasonality, a few trend changepoints,
+    heavy-ish noise, occasional missing days.  Stands in for eval config 1."""
+    rng = np.random.default_rng(seed)
+    ds = start_day + np.arange(n_days, dtype=np.float64)
+    t = np.linspace(0, 1, n_days)
+    trend = 8.0 + _trend_with_changepoints(rng, t, n_cp=5, base_slope=-0.5)
+    yearly = (
+        0.45 * np.sin(2 * np.pi * ds / 365.25)
+        + 0.25 * np.cos(2 * np.pi * ds / 365.25)
+        + 0.18 * np.sin(4 * np.pi * ds / 365.25)
+    )
+    dow = ds.astype(np.int64) % 7
+    weekly = np.asarray([0.12, 0.3, 0.22, 0.18, 0.1, -0.35, -0.42])[dow]
+    y = trend + yearly + weekly + rng.normal(0, 0.25, n_days)
+    miss = rng.uniform(size=n_days) < 0.02
+    y[miss] = np.nan
+    mask = (~miss).astype(np.float64)
+    return SeriesBatch(
+        ds=ds, y=y[None, :], mask=mask[None, :],
+        series_ids=np.asarray(["peyton_manning_like"]),
+    )
+
+
+def m4_hourly_like(
+    n_series: int = 414, max_len: int = 960, seed: int = 1,
+    min_len: Optional[int] = None,
+) -> SeriesBatch:
+    """414 hourly series with daily + weekly seasonality and ragged lengths
+    (M4-Hourly lengths span 700-960).  Stands in for eval config 2."""
+    rng = np.random.default_rng(seed)
+    if min_len is None:
+        min_len = min(700, max(2, int(0.73 * max_len)))
+    hours = np.arange(max_len, dtype=np.float64)
+    ds = 15000.0 + hours / 24.0  # days, hourly grid
+    y = np.full((n_series, max_len), np.nan)
+    mask = np.zeros((n_series, max_len))
+    lengths = rng.integers(min_len, max_len + 1, n_series)
+    for i in range(n_series):
+        n = lengths[i]
+        t = np.linspace(0, 1, n)
+        level = rng.uniform(10, 5000)
+        trend = level * (1 + 0.3 * _trend_with_changepoints(rng, t, 3, 0.5,
+                                                            0.8))
+        hod = ds[:n] * 24 % 24
+        daily = 0.25 * level * np.sin(2 * np.pi * hod / 24
+                                      + rng.uniform(0, 2 * np.pi))
+        daily += 0.1 * level * np.sin(4 * np.pi * hod / 24
+                                      + rng.uniform(0, 2 * np.pi))
+        dow = (ds[:n].astype(np.int64)) % 7
+        weekly = 0.12 * level * np.asarray(
+            [1.0, 0.9, 0.85, 0.9, 1.0, 1.3, 1.4]
+        )[dow] - 0.12 * level
+        noise = rng.normal(0, 0.05 * level, n)
+        # Right-align on the shared grid (all series end "now", like M4).
+        y[i, max_len - n:] = (trend + daily + weekly + noise)[:n]
+        mask[i, max_len - n:] = 1.0
+    ids = np.asarray([f"H{i+1}" for i in range(n_series)])
+    return SeriesBatch(ds=ds, y=y, mask=mask, series_ids=ids)
 
 
 def m5_like(

@@ -1,8 +1,14 @@
-"""The port's evaluation configs: eval config 3 (M5 retail, the headline),
-eval config 4 (logistic growth with a known capacity) and eval config 5
-(streaming micro-batch refit with warm starts).
+"""The port's evaluation configs: eval config 1 (one long daily series),
+eval config 2 (414 ragged hourly series), eval config 3 (M5 retail, the
+headline), eval config 4 (logistic growth with a known capacity) and eval
+config 5 (streaming micro-batch refit with warm starts).
 
-``config3_m5`` builds ``m5_like`` (30,490 daily series over 1,941 days
+``config1_peyton`` builds ``peyton_manning_like`` (2,905 days; ``scale``
+shrinks the days, 200 at least) under yearly order 10 + weekly order 3
+and 25 changepoints; ``config2_m4_hourly`` builds ``m4_hourly_like``
+(414 hourly series of 700-960 hours, right-aligned on one grid;
+``scale`` shrinks the series count) under daily order 4 + weekly order
+3 and 10 changepoints.  ``config3_m5`` builds ``m5_like`` (30,490 daily series over 1,941 days
 with holiday, price and promo regressors; ``scale`` shrinks the series
 count); ``config4_wiki_logistic`` builds ``wiki_logistic_like`` (8
 saturating series over 1,200 days at scale 1; ``scale`` multiplies the
@@ -16,7 +22,7 @@ through ``streaming.StreamingForecaster``, warm and cold, then replays
 the last micro-batch; it scores the 14-day forecast against the
 noise-free generator.
 
-Usage:  python -m tsspark_tpu_torch.eval.configs [{3,4,5}]
+Usage:  python -m tsspark_tpu_torch.eval.configs [{1,2,3,4,5}]
             [--scale S] [--backend B] [--device D]
 """
 
@@ -36,8 +42,31 @@ from tsspark_tpu_torch.config import (
     SeasonalityConfig,
     SolverConfig,
 )
-from tsspark_tpu_torch.data.datasets import m5_like, wiki_logistic_like
+from tsspark_tpu_torch.data.datasets import (
+    m4_hourly_like,
+    m5_like,
+    peyton_manning_like,
+    wiki_logistic_like,
+)
 from tsspark_tpu_torch.eval import metrics
+
+CONFIG1 = ProphetConfig(
+    seasonalities=(
+        SeasonalityConfig("yearly", 365.25, 10),
+        SeasonalityConfig("weekly", 7.0, 3),
+    ),
+    n_changepoints=25,
+)
+SOLVER1 = SolverConfig(max_iters=200)
+
+CONFIG2 = ProphetConfig(
+    seasonalities=(
+        SeasonalityConfig("daily", 1.0, 4),
+        SeasonalityConfig("weekly", 7.0, 3),
+    ),
+    n_changepoints=10,
+)
+SOLVER2 = SolverConfig(max_iters=150)
 
 CONFIG3 = ProphetConfig(
     seasonalities=(
@@ -121,20 +150,40 @@ def _fit_and_score(cfg, batch, backend, solver, holdout_frac=0.1,
     }
 
 
+def _device_kw(backend, device) -> Dict:
+    return {} if device is None or backend != "cuda" else {"device": device}
+
+
+def config1_peyton(backend="cuda", scale=1.0, device: Optional[str] = None
+                   ) -> Dict:
+    """Additive fit, single daily series (CPU-backend reference config)."""
+    batch = peyton_manning_like(n_days=max(200, int(2905 * scale)))
+    return _fit_and_score(CONFIG1, batch, backend, SOLVER1,
+                          **_device_kw(backend, device))
+
+
+def config2_m4_hourly(backend="cuda", scale=1.0,
+                      device: Optional[str] = None) -> Dict:
+    """Batched additive fit, weekly+daily seasonality, 414 hourly series."""
+    batch = m4_hourly_like(n_series=max(4, int(414 * scale)))
+    return _fit_and_score(CONFIG2, batch, backend, SOLVER2,
+                          **_device_kw(backend, device))
+
+
 def config3_m5(backend="cuda", scale=1.0, device: Optional[str] = None
                ) -> Dict:
     """M5 retail with holiday + external regressors (the headline config)."""
     batch = m5_like(n_series=max(8, int(30490 * scale)))
-    kw = {} if device is None or backend != "cuda" else {"device": device}
-    return _fit_and_score(CONFIG3, batch, backend, SOLVER3, **kw)
+    return _fit_and_score(CONFIG3, batch, backend, SOLVER3,
+                          **_device_kw(backend, device))
 
 
 def config4_wiki_logistic(backend="cuda", scale=1.0,
                           device: Optional[str] = None) -> Dict:
     """Logistic growth with capacity, multiplicative seasonality."""
     batch = wiki_logistic_like(n_series=max(2, int(8 * scale)))
-    kw = {} if device is None or backend != "cuda" else {"device": device}
-    return _fit_and_score(CONFIG4, batch, backend, SOLVER4, **kw)
+    return _fit_and_score(CONFIG4, batch, backend, SOLVER4,
+                          **_device_kw(backend, device))
 
 
 CONFIG5 = ProphetConfig(
@@ -221,7 +270,7 @@ def config5_run(backend="cuda", scale=1.0, device: Optional[str] = None,
     sids = list(dict.fromkeys(df.series_id.astype(str)))
     n_series = len(sids)
     batches = config5_batches(df, n_days)
-    kw = {} if device is None or backend != "cuda" else {"device": device}
+    kw = _device_kw(backend, device)
 
     def make(**k):
         return StreamingForecaster(CONFIG5, SOLVER5, backend=backend, **kw,
@@ -309,8 +358,8 @@ def config5_streaming(backend="cuda", scale=1.0,
     return config5_run(backend, scale, device)[0]
 
 
-RUNNERS = {"3": config3_m5, "4": config4_wiki_logistic,
-           "5": config5_streaming}
+RUNNERS = {"1": config1_peyton, "2": config2_m4_hourly, "3": config3_m5,
+           "4": config4_wiki_logistic, "5": config5_streaming}
 
 
 def main():

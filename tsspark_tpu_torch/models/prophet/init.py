@@ -57,12 +57,27 @@ def _ridge_solve(
     a = gram + torch.eye(q, dtype=phi.dtype, device=phi.device)[None] \
         * lam[:, :, None]
     chol, info = torch.linalg.cholesky_ex(a)
-    # A factorization that fails gives NaN rows, as the JAX package's
-    # Cholesky does, instead of raising for the whole batch.
-    chol = torch.where((info != 0)[:, None, None], torch.nan, chol)
+    bad = info != 0
+    # A factorization that fails gives NaN rows instead of raising for the
+    # whole batch.
+    chol = torch.where(bad[:, None, None], torch.nan, chol)
     z = torch.linalg.solve_triangular(chol, rhs, upper=False)
-    return torch.linalg.solve_triangular(chol.transpose(1, 2), z,
-                                         upper=True)[..., 0]
+    w = torch.linalg.solve_triangular(chol.transpose(1, 2), z,
+                                      upper=True)[..., 0]
+    if bool(bad.any()):
+        # LAPACK's float32 Cholesky refuses a nearly singular Gram (a
+        # season longer than the series, e.g. yearly order 10 on 180
+        # days) that XLA's factors; those rows are solved in float64
+        # instead, and any row that fails there too stays NaN.  Rows
+        # that factor in float32 keep their float32 bits.
+        a64, rhs64 = a[bad].double(), rhs[bad].double()
+        chol64, info64 = torch.linalg.cholesky_ex(a64)
+        chol64 = torch.where((info64 != 0)[:, None, None], torch.nan,
+                             chol64)
+        z64 = torch.linalg.solve_triangular(chol64, rhs64, upper=False)
+        w[bad] = torch.linalg.solve_triangular(
+            chol64.transpose(1, 2), z64, upper=True)[..., 0].to(w.dtype)
+    return w
 
 
 def _feature_matrix(data, b: int) -> torch.Tensor:

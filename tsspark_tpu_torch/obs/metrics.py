@@ -4,8 +4,9 @@ The part of the JAX package's ``obs/metrics.py`` that the port's
 streaming driver records through, with the same names and buckets:
 ``tsspark_<subsystem>_<what>_<unit>`` names, one locked increment on the
 hot path.  Histograms bucket on the pow-2 ladder as ``{exponent: count}``
-with exact sum/count/min/max alongside.  Gauges, labels and the snapshot
-export come with their first caller.
+with exact sum/count/min/max alongside.  Gauges hold the storage layer's
+headroom and ladder state (``io/budget.py``, ``io/ladder.py``).  Labels
+and the snapshot export come with their first caller.
 """
 
 from __future__ import annotations
@@ -28,6 +29,18 @@ class Counter:
     def inc(self, n: int = 1) -> None:
         with self._lock:
             self.value += n
+
+
+class Gauge:
+    """Last-value gauge."""
+
+    __slots__ = ("value",)
+
+    def __init__(self) -> None:
+        self.value = 0.0
+
+    def set(self, v: float) -> None:
+        self.value = float(v)
 
 
 #: Exponent clamp: 2**-30 s ≈ 1 ns and 2**30 ≈ 34 years/1G — everything
@@ -70,6 +83,7 @@ class MetricsRegistry:
         self._lock = threading.Lock()
         self._counters: Dict[str, Counter] = {}
         self._hists: Dict[str, Histogram] = {}
+        self._gauges: Dict[str, Gauge] = {}
 
     def counter(self, name: str) -> Counter:
         with self._lock:
@@ -78,6 +92,10 @@ class MetricsRegistry:
     def histogram(self, name: str) -> Histogram:
         with self._lock:
             return self._hists.setdefault(name, Histogram())
+
+    def gauge(self, name: str) -> Gauge:
+        with self._lock:
+            return self._gauges.setdefault(name, Gauge())
 
 
 #: The process's registry.

@@ -1,7 +1,9 @@
 """The column-plane protocol: spec first, columns, CRC sentinel last.
 
-The port's copy of the JAX package's ``plane/protocol.py`` (the parts the
-quantile plane uses), writing through ``utils.atomic``:
+The port's copy of the JAX package's ``plane/protocol.py``, the one
+implementation the snapshot, forecast and quantile planes route through,
+built on the durable-I/O layer (``io.durable``) so every plane inherits
+its fault points, typed storage errors and disk-budget gate:
 
 * ``write_spec``     — the identity record, FIRST.  A spec without its
   sentinel reads as a plane still being published.
@@ -10,22 +12,35 @@ quantile plane uses), writing through ``utils.atomic``:
   visibility.  A reader trusts nothing the sentinel does not cover, so a
   torn or short-written column is refused at attach, never served.
 
-The file layout and the CRCs are the JAX package's, so a plane either
-package publishes attaches in the other.  A write that fails for lack of
-space raises ``io.errors.DiskFullError`` (other media failures their own
-typed errors).
+``publish_plane`` is the one generic writer of that order.  The file
+layout and the CRCs are the JAX package's, so a plane either package
+publishes attaches in the other.  A write that fails for lack of space
+raises ``io.errors.DiskFullError`` (other media failures their own typed
+errors).
 """
 
 from __future__ import annotations
 
 import json
+import os
 import zlib
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from tsspark_tpu_torch.io.errors import is_missing, reraise_classified
-from tsspark_tpu_torch.utils.atomic import atomic_write
+from tsspark_tpu_torch.io import (
+    atomic_write,
+    attach_array,
+    is_missing,
+    link_or_copy,
+    reraise_classified,
+)
+
+__all__ = [
+    "shard_ranges", "shard_crcs", "read_json", "write_spec",
+    "write_column", "write_sentinel", "publish_plane", "verify_crcs",
+    "attach_column", "link_or_copy",
+]
 
 
 def shard_ranges(n: int, shard_rows: int) -> List[Tuple[int, int]]:
@@ -84,6 +99,19 @@ def write_sentinel(path: str, sentinel: Dict) -> None:
     _write(path, lambda fh: json.dump(sentinel, fh), mode="w")
 
 
+def publish_plane(dirpath: str, spec_name: str, spec: Dict,
+                  columns: Dict[str, np.ndarray],
+                  col_path: Callable[[str, str], str],
+                  sentinel_name: str, sentinel: Dict) -> None:
+    """The generic plane publish: spec first, every column payload, CRC
+    sentinel LAST.  A crash after any prefix leaves the plane invisible
+    (no sentinel) or complete."""
+    write_spec(os.path.join(dirpath, spec_name), spec)
+    for name, arr in columns.items():
+        write_column(col_path(dirpath, name), arr)
+    write_sentinel(os.path.join(dirpath, sentinel_name), sentinel)
+
+
 def verify_crcs(cols: Dict[str, np.ndarray],
                 shards) -> Optional[Tuple[str, int, int]]:
     """Recompute every shard CRC against the sentinel's records: None
@@ -98,5 +126,6 @@ def verify_crcs(cols: Dict[str, np.ndarray],
 
 
 def attach_column(path: str) -> np.ndarray:
-    """One column as a read-only memmap."""
-    return np.load(path, mmap_mode="r")
+    """One column as a read-only memmap (through the durable-I/O layer's
+    ``io_mmap`` fault point)."""
+    return attach_array(path, mmap_mode="r")

@@ -1,14 +1,15 @@
 """Deterministic fault injection: make the port's recovery paths testable
 on the CPU.
 
-The raise mode of the JAX package's harness (``resilience/faults.py``):
-the same plan layout, the same ``TSSPARK_FAULTS`` environment variable
-and the same claim files, so a raise-mode plan armed for either package
-fires the same way in both.  A ``FaultPlan`` arms named injection
-points; the plan travels through the environment so child processes see
-the plan the test armed in the parent.  A plan that asks for anything
-else the JAX package's harness offers (another mode, a series or path
-scope) is refused, never ignored.
+The raise and storage modes of the JAX package's harness
+(``resilience/faults.py``): the same plan layout, the same
+``TSSPARK_FAULTS`` environment variable and the same claim files, so a
+plan armed for either package fires the same way in both.  A
+``FaultPlan`` arms named injection points; the plan travels through the
+environment so child processes see the plan the test armed in the
+parent.  A plan that asks for anything else the JAX package's harness
+offers (the "exit", "flag" and "corrupt" modes, a series scope) is
+refused, never ignored.
 
 Each armed rule carries a fixed call window (``after`` skipped calls,
 then ``attempts`` firings).  Call slots are claimed by atomic
@@ -17,32 +18,68 @@ N-th matching call fires the same way no matter which process makes it.
 
 Named points wired in the port so far:
 
-  stream_poll       streaming source poll
-  qplane_publish    quantile plane publish, once per column
+  stream_poll       streaming source poll                  (raise)
+  qplane_publish    quantile plane publish, once per column (raise)
+  fplane_publish    forecast plane publish, once per column (raise)
+  delta_publish     snapshot plane delta publish, per column (raise)
+  io_write          ``io.durable`` payload write           (enospc/eio/
+                                                            shortwrite/sleep)
+  io_rename         ``io.durable`` publish rename          (enospc/eio)
+  io_fsync          ``io.durable`` durability barrier      (lost_fsync/eio)
+  io_link           ``io.durable`` hardlink copy-forward   (enospc/eio)
+  io_mmap           ``io.durable`` memmap attach           (eio/sleep)
+
+Storage modes (the disk misbehaving, not the process):
+
+  "enospc"/"eio"  — ``inject`` raises ``OSError`` with the real errno so
+                    the site's error classification runs.
+  "shortwrite"    — ``short_write`` returns a fraction; the durable-I/O
+                    layer truncates the payload it just wrote to that
+                    fraction and then reports success, the way an
+                    unchecked ``write(2)`` return tears a file.  Only the
+                    CRC-sentinel read path can catch it.
+  "lost_fsync"    — ``lost_fsync`` snapshots the target's pre-write
+                    state; the write proceeds and the caller sees
+                    success; ``_replay_lost_fsyncs`` rolls the file back,
+                    as the crash that lost the rename would.
+  "sleep"         — ``inject`` stalls ``delay_s`` seconds, then lets the
+                    call proceed (slow media).
+
+Rules may carry ``path=<substring>`` to scope a storage rule to one
+artifact family; the io layer passes every call's target path.
 
 With ``TSSPARK_FAULTS`` unset, ``inject`` is one dict lookup.
 """
 
 from __future__ import annotations
 
+import errno as _errno
 import json
 import os
+import shutil
 import tempfile
+import time
 from typing import Dict, List, Optional
 
 ENV_VAR = "TSSPARK_FAULTS"
+
+_MODES = ("raise", "sleep", "enospc", "eio", "shortwrite", "lost_fsync")
+
+# Modes that never fire from the generic ``inject`` gate: each has its
+# own hook because firing needs the artifact path.
+_HOOK_MODES = ("shortwrite", "lost_fsync")
+
+# Subdirectory of the plan's state_dir holding lost-fsync rollback
+# records (pre-write snapshots awaiting replay).
+_LOST_DIR = "lostfsync"
 
 # Guard against a runaway call counter chewing the state dir: no test
 # plan legitimately sees this many calls at one point.
 _MAX_CALLS = 100_000
 
-# A rule's keys that may hold something other than their inert value
-# (the JAX package's plans carry series/path/tag scopes and mode knobs).
-_INERT = {"mode": "raise", "series": None, "path": None}
-
 
 class FaultInjected(RuntimeError):
-    """Raised by an armed injection point."""
+    """Raised by an armed raise-mode injection point."""
 
     def __init__(self, point: str, rule_id: str):
         super().__init__(
@@ -60,6 +97,11 @@ class FaultPlan:
 
         plan = FaultPlan(state_dir=tmp).fail("stream_poll", attempts=2)
         monkeypatch.setenv(faults.ENV_VAR, plan.to_env())
+
+    ``fail(point, ...)``: ``attempts`` matching calls fire after
+    ``after`` let through; ``mode`` one of ``_MODES``; ``path`` a
+    substring scope on the call's target path; ``fraction`` the
+    surviving share of a short write; ``delay_s`` a sleep's stall.
     """
 
     def __init__(self, state_dir: Optional[str] = None):
@@ -68,15 +110,20 @@ class FaultPlan:
         )
         self.rules: List[dict] = []
 
-    def fail(self, point: str, *, attempts: int = 1,
-             after: int = 0) -> "FaultPlan":
-        """Arm ``point``: let ``after`` matching calls through, then raise
-        ``FaultInjected`` on the next ``attempts``."""
+    def fail(self, point: str, *, attempts: int = 1, after: int = 0,
+             mode: str = "raise", path: Optional[str] = None,
+             fraction: float = 0.5, delay_s: float = 0.5) -> "FaultPlan":
+        if mode not in _MODES:
+            raise ValueError(f"mode {mode!r} not in {_MODES}")
         if attempts < 1 or after < 0:
             raise ValueError("attempts must be >= 1 and after >= 0")
+        if not (0.0 <= fraction < 1.0):
+            raise ValueError("fraction must be in [0, 1)")
         self.rules.append({
             "id": f"r{len(self.rules)}_{point}", "point": point,
-            "attempts": int(attempts), "after": int(after), "mode": "raise",
+            "attempts": int(attempts), "after": int(after), "mode": mode,
+            "path": path, "fraction": float(fraction),
+            "delay_s": float(delay_s),
         })
         return self
 
@@ -86,17 +133,21 @@ class FaultPlan:
 
     @classmethod
     def from_env(cls, spec: str) -> "FaultPlan":
-        """The plan ``spec`` holds; ``ValueError`` for a rule that asks for
-        more than a raise at a call window."""
+        """The plan ``spec`` holds; ``ValueError`` for a rule that asks
+        for a mode or scope the port does not inject."""
         d = json.loads(spec)
         plan = cls(state_dir=d["state_dir"])
         for rule in d["rules"]:
-            odd = {k: rule[k] for k, v in _INERT.items()
-                   if rule.get(k, v) != v}
+            odd = {}
+            if rule.get("mode", "raise") not in _MODES:
+                odd["mode"] = rule["mode"]
+            if rule.get("series") is not None:
+                odd["series"] = rule["series"]
             if odd:
-                raise ValueError(f"fault rule {rule.get('id')}: the port "
-                                 f"injects raise-mode rules only, not {odd}")
-            plan.rules.append(rule)
+                raise ValueError(
+                    f"fault rule {rule.get('id')}: the port injects "
+                    f"raise-mode and storage-mode rules only, not {odd}")
+            plan.rules.append(dict(rule, mode=rule.get("mode", "raise")))
         return plan
 
 
@@ -111,6 +162,15 @@ def _active_plan() -> Optional[FaultPlan]:
     if plan is None:
         plan = _plan_cache[spec] = FaultPlan.from_env(spec)
     return plan
+
+
+def _matches_path(rule: dict, path: Optional[str]) -> bool:
+    scope = rule.get("path")
+    if scope is None:
+        return True
+    if path is None:
+        return False  # path-scoped rule at a pathless call site
+    return scope in os.path.abspath(path)
 
 
 def _claim_call(state_dir: str, rule: dict) -> Optional[int]:
@@ -128,16 +188,153 @@ def _claim_call(state_dir: str, rule: dict) -> Optional[int]:
     return None
 
 
-def inject(point: str) -> None:
-    """Fault injection point: raises ``FaultInjected`` when the active
-    plan arms ``point`` and this call falls in a rule's window."""
+def _armed_call(rule: dict, state_dir: str) -> bool:
+    """True when this call falls inside the rule's firing window."""
+    n = _claim_call(state_dir, rule)
+    return n is not None and rule["after"] <= n < rule["after"] + \
+        rule["attempts"]
+
+
+def _count_fault_metric(mode: str) -> None:
+    try:
+        from tsspark_tpu_torch.obs.metrics import DEFAULT as METRICS
+
+        METRICS.counter("tsspark_io_faults_fired_total").inc()
+        METRICS.counter(f"tsspark_io_fault_{mode}_total").inc()
+    except Exception:
+        pass
+
+
+def inject(point: str, *, path: Optional[str] = None) -> None:
+    """Fault injection point: raises ``FaultInjected`` (raise mode) or an
+    ``OSError`` with the real errno (enospc / eio), or stalls (sleep),
+    when the active plan arms ``point`` and this call falls in a rule's
+    window.  ``path``: the artifact the call targets (path-scoped rules
+    need it to match)."""
     plan = _active_plan()
     if plan is None:
         return
     for rule in plan.rules:
-        if rule["point"] != point:
+        if rule["point"] != point or rule["mode"] in _HOOK_MODES:
             continue
-        n = _claim_call(plan.state_dir, rule)
-        if n is not None and rule["after"] <= n < rule["after"] + \
-                rule["attempts"]:
+        if not _matches_path(rule, path):
+            continue
+        if not _armed_call(rule, plan.state_dir):
+            continue
+        mode = rule["mode"]
+        _count_fault_metric(mode)
+        if mode == "raise":
             raise FaultInjected(point, rule["id"])
+        if mode in ("enospc", "eio"):
+            num = _errno.ENOSPC if mode == "enospc" else _errno.EIO
+            raise OSError(
+                num, f"injected {mode.upper()} at {point!r} (rule "
+                f"{rule['id']}); deliberate — a FaultPlan armed this point",
+            )
+        if mode == "sleep":
+            time.sleep(float(rule.get("delay_s", 0.5)))
+
+
+def short_write(point: str, path: str) -> Optional[float]:
+    """Short-write hook: when a "shortwrite" rule at ``point`` fires, the
+    fraction of the payload that survives (the durable-I/O layer
+    truncates its temp to it and publishes as if all was well); None
+    when nothing fired."""
+    plan = _active_plan()
+    if plan is None:
+        return None
+    for rule in plan.rules:
+        if rule["point"] != point or rule["mode"] != "shortwrite":
+            continue
+        if not _matches_path(rule, path):
+            continue
+        if not _armed_call(rule, plan.state_dir):
+            continue
+        _count_fault_metric("shortwrite")
+        return float(rule.get("fraction", 0.5))
+    return None
+
+
+def lost_fsync(point: str, path: str) -> bool:
+    """Lost-fsync hook, called just before a finished temp is renamed
+    over ``path``: when a "lost_fsync" rule fires, the target's pre-write
+    state (its bytes, or its absence) is recorded for
+    ``_replay_lost_fsyncs``.  The write proceeds and the caller sees
+    success.  Returns True when a record was made."""
+    plan = _active_plan()
+    if plan is None:
+        return False
+    hit = False
+    for rule in plan.rules:
+        if rule["point"] != point or rule["mode"] != "lost_fsync":
+            continue
+        if not _matches_path(rule, path):
+            continue
+        if not _armed_call(rule, plan.state_dir):
+            continue
+        _count_fault_metric("lost_fsync")
+        try:
+            _record_lost_fsync(plan.state_dir, path)
+            hit = True
+        except OSError:
+            pass  # unwritable state dir: fail open
+    return hit
+
+
+def _record_lost_fsync(state_dir: str, path: str) -> None:
+    """Snapshot ``path``'s pre-write state for a later rollback."""
+    d = os.path.join(state_dir, _LOST_DIR)
+    os.makedirs(d, exist_ok=True)
+    target = os.path.abspath(path)
+    for n in range(_MAX_CALLS):
+        rec_path = os.path.join(d, f"rec.{n}.json")
+        try:
+            fd = os.open(rec_path, os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+        except FileExistsError:
+            continue
+        existed = os.path.exists(target)
+        if existed:
+            shutil.copy2(target, rec_path + ".bak")
+        try:
+            os.write(fd, json.dumps({"path": target,
+                                     "existed": existed}).encode())
+        finally:
+            os.close(fd)
+        return
+    raise OSError("lost-fsync record slots exhausted")
+
+
+def _replay_lost_fsyncs(state_dir: str) -> int:
+    """Roll back every recorded lost fsync: restore the pre-write bytes,
+    or remove the file that never landed.  Each record is claimed by a
+    rename to ``.done`` first, so it applies once.  Returns the number of
+    files rolled back."""
+    d = os.path.join(state_dir, _LOST_DIR)
+    try:
+        names = sorted(os.listdir(d))
+    except OSError:
+        return 0
+    replayed = 0
+    for name in names:
+        if not (name.startswith("rec.") and name.endswith(".json")):
+            continue
+        rec_path = os.path.join(d, name)
+        done_path = rec_path + ".done"
+        try:
+            os.rename(rec_path, done_path)
+        except OSError:
+            continue  # another process claimed this record
+        try:
+            with open(done_path) as fh:
+                rec = json.load(fh)
+            if rec.get("existed"):
+                shutil.copy2(rec_path + ".bak", rec["path"])
+            else:
+                try:
+                    os.remove(rec["path"])
+                except FileNotFoundError:
+                    pass
+            replayed += 1
+        except (OSError, ValueError, KeyError):
+            continue  # torn record: skip
+    return replayed

@@ -25,6 +25,13 @@ refused when it is made; any other count is served.
 ``backend.predict`` call, arrays back on the host), "scatter" (per-series
 rows for the cache) and "assemble" (each request's arrays).
 
+Deterministic groups whose horizon bucket the version's forecast plane
+(``serve/fplane.py``) covers are answered by a memmap gather from the
+plane instead of a dispatch (``EngineStats.plane_hits`` /
+``plane_misses`` count the rows each way); a torn or absent plane is
+memoized at the flip and the compute path serves.  A version flip,
+delta flips included, drops the whole cache.
+
 ``quantiles`` serves interval forecasts synchronously: from the version's
 quantile plane (``uncertainty/qplane.py``) as a memmap gather when the
 plane covers the request, else through the row-local compute fallback
@@ -47,6 +54,7 @@ import numpy as np
 from tsspark_tpu_torch.backends.registry import ForecastBackend, get_backend
 from tsspark_tpu_torch.config import SolverConfig
 from tsspark_tpu_torch.parallel.sharding import compacted_width, next_pow2
+from tsspark_tpu_torch.serve import fplane
 from tsspark_tpu_torch.serve.cache import ForecastCache
 from tsspark_tpu_torch.serve.registry import ParamRegistry, Snapshot
 from tsspark_tpu_torch.utils.spans import StageClock
@@ -206,6 +214,9 @@ class EngineStats:
     rejected: int = 0
     pumps: int = 0
     dispatches: int = 0
+    # Series-rows served straight from the forecast plane vs computed.
+    plane_hits: int = 0
+    plane_misses: int = 0
     # Interval rows answered by the quantile plane's gather vs through
     # the row-local compute fallback.
     qplane_hits: int = 0
@@ -235,6 +246,13 @@ class EngineStats:
             "rejected": self.rejected,
             "pumps": self.pumps,
             "dispatches": self.dispatches,
+            "plane_hits": self.plane_hits,
+            "plane_misses": self.plane_misses,
+            "plane_hit_rate": (
+                round(self.plane_hits
+                      / (self.plane_hits + self.plane_misses), 4)
+                if (self.plane_hits + self.plane_misses) else None
+            ),
             "qplane_hits": self.qplane_hits,
             "qplane_misses": self.qplane_misses,
             "qplane_hit_rate": (
@@ -288,8 +306,10 @@ class PredictionEngine:
         self._snapshot: Optional[Snapshot] = None
         self._manifest_key: Optional[Tuple[int, ...]] = None
         self._active_seen: Optional[int] = None
-        # Attached quantile planes, version-keyed; None memoizes an absent
-        # or refused plane, so a plane-less version costs one probe.
+        # Attached forecast and quantile planes, version-keyed; None
+        # memoizes an absent or refused plane, so a plane-less version
+        # costs one probe.
+        self._planes: Dict[int, Optional[fplane.FPlaneView]] = {}
         self._qplanes: Dict[int, Optional[object]] = {}
         self._pump_lock = threading.Lock()
         self._thread: Optional[threading.Thread] = None
@@ -323,6 +343,11 @@ class PredictionEngine:
             self.cache.invalidate(snap.version)
             self._snapshot = snap
             self._active_seen = active
+            # Probe the new version's planes at the flip (the attach CRC
+            # sweep doubles as page warming); a torn or absent plane
+            # memoizes None and compute serves.
+            self._plane_for(snap.version)
+            self._qplane_for(snap.version)
         self._manifest_key = key
         return snap
 
@@ -424,6 +449,7 @@ class PredictionEngine:
         hits: Dict[str, bool] = {}
         needed: List[str] = []          # unique cache misses, in order
         needed_set = set()
+        row_idx: Dict[str, int] = {}    # miss sid -> snapshot row
         live: List[PendingForecast] = []
         for pend in pends:
             if not pend.request.series_ids:
@@ -432,22 +458,51 @@ class PredictionEngine:
                 pend._fail(ValueError("series_ids must be non-empty"))
                 self.stats.failed += 1
                 continue
-            _, missing = snap.rows(pend.request.series_ids)
+            idx, missing = snap.rows(pend.request.series_ids)
             if missing:
                 pend._fail(UnknownSeries(missing, version))
                 self.stats.failed += 1
                 continue
             live.append(pend)
-            for sid in pend.request.series_ids:
+            # With nothing missing, rows() returns one index per id in
+            # input order, so the plane gather below reuses them.
+            for sid, r in zip(pend.request.series_ids, idx):
                 if sid in rows or sid in needed_set:
                     continue
                 val = self.cache.get((version, sid, hb, num_samples, seed))
                 if val is None:
                     needed.append(sid)
                     needed_set.add(sid)
+                    row_idx[sid] = r
                 else:
                     rows[sid] = val
                     hits[sid] = True
+        batch = None                    # (grid, gathered, pos) fast path
+        if needed:
+            # Forecast-plane fast path: a deterministic group whose
+            # bucket the plane covers is a memmap gather, no dispatch.
+            # Not inserted into the cache: the plane is the shared
+            # cache.  Other buckets and sampled requests are computed.
+            view = self._plane_for(version)
+            if view is not None and view.covers(hb, num_samples):
+                pidx = np.fromiter((row_idx[s] for s in needed),
+                                   np.int64, len(needed))
+                if not rows:
+                    # Every series of the group is answered by this one
+                    # gather: the batch arrays serve it whole.
+                    grid, gathered = fplane.plane_batch(view, snap, pidx,
+                                                        hb)
+                    batch = (grid, gathered,
+                             {s: i for i, s in enumerate(needed)})
+                else:
+                    served = fplane.plane_rows(view, snap, pidx, hb)
+                    for sid, row in zip(needed, served):
+                        rows[sid] = row
+                        hits[sid] = True
+                self.stats.plane_hits += len(needed)
+                needed = []
+            else:
+                self.stats.plane_misses += len(needed)
         if needed:
             try:
                 fresh = self._dispatch(snap, needed, hb, num_samples,
@@ -467,12 +522,19 @@ class PredictionEngine:
             results = []
             for pend in live:
                 req = pend.request
+                h = req.horizon
                 sids = req.series_ids
-                values = {
-                    k: np.stack([rows[s][k] for s in sids])[:, :req.horizon]
-                    for k in rows[sids[0]] if k != "ds"
-                }
-                ds = np.stack([rows[s]["ds"] for s in sids])[:, :req.horizon]
+                if batch is not None:
+                    grid, gathered, pos = batch
+                    sel = [pos[s] for s in sids]
+                    ds = grid[sel][:, :h]
+                    values = {k: v[sel][:, :h] for k, v in gathered.items()}
+                else:
+                    values = {
+                        k: np.stack([rows[s][k] for s in sids])[:, :h]
+                        for k in rows[sids[0]] if k != "ds"
+                    }
+                    ds = np.stack([rows[s]["ds"] for s in sids])[:, :h]
                 results.append((pend, values, ds))
         done_s = time.monotonic()
         for pend, values, ds in results:
@@ -483,7 +545,8 @@ class PredictionEngine:
                 values=values,
                 version=version,
                 latency_s=done_s - pend.submitted_s,
-                from_cache=sum(1 for s in sids if hits.get(s)),
+                from_cache=(len(sids) if batch is not None
+                            else sum(1 for s in sids if hits.get(s))),
             ))
             self.stats.completed += 1
             self.stats.latencies_s.append(done_s - pend.submitted_s)
@@ -519,6 +582,32 @@ class PredictionEngine:
                 row["ds"] = grid[i]
                 result[sid] = row
         return result
+
+    # -- forecast plane (point reads) ------------------------------------------
+
+    def _plane_for(self, version: int) -> Optional[fplane.FPlaneView]:
+        """The attached forecast plane of ``version``, or None (absent,
+        torn or corrupt: memoized, and the compute path serves)."""
+        version = int(version)
+        if version in self._planes:
+            return self._planes[version]
+        view = None
+        try:
+            vdir = self.registry.version_dir(version)
+            if fplane.has_plane(vdir):
+                view = fplane.attach(vdir)
+        except (fplane.ForecastPlaneError, OSError):
+            view = None
+        self._planes[version] = view
+        while len(self._planes) > 4:
+            self._planes.pop(next(iter(self._planes)))
+        return view
+
+    def attach_plane(self, version: int) -> bool:
+        """Re-probe ``version``'s forecast plane, dropping any memoized
+        refusal first (a publish retried after a tear is picked up)."""
+        self._planes.pop(int(version), None)
+        return self._plane_for(version) is not None
 
     # -- quantile plane (interval reads) ----------------------------------------
 

@@ -37,10 +37,10 @@ Two sampling modes, recorded in the spec:
   seasonalities: their future values are not in the registry).
 
 Logistic growth is refused: intervals for logistic configs stay on the
-sampled compute path.  ``maybe_publish`` publishes the full plane; the
-reference's delta publish (copy-forward of unchanged rows) and its
-disk-pressure ladder wait for the port's registry delta versions and
-storage fault domain.
+sampled compute path.  ``maybe_publish`` publishes the full plane, or on
+a delta version whose base has a plane a delta plane
+(``write_qplane_delta``: unchanged rows' cells are the base's bytes,
+changed rows re-sampled), and bows to the disk-pressure ladder.
 """
 
 from __future__ import annotations
@@ -53,7 +53,12 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from tsspark_tpu_torch.io.errors import BackpressureError, DiskFullError
+from tsspark_tpu_torch.io import (
+    BackpressureError,
+    DiskFullError,
+    active_ladder,
+    link_or_copy,
+)
 from tsspark_tpu_torch.plane.protocol import (
     attach_column,
     read_json,
@@ -78,7 +83,8 @@ from tsspark_tpu_torch.uncertainty import advi as advi_mod
 __all__ = [
     "QPLANE_FORMAT", "QPLANE_SPEC", "QPLANE_OK", "QCOL_PREFIX",
     "DEFAULT_QUANTILES", "DEFAULT_DRAWS", "QuantilePlaneError",
-    "QPlaneView", "permille", "compute_rows", "write_qplane", "attach",
+    "QPlaneView", "permille", "compute_rows", "write_qplane",
+    "write_qplane_delta", "attach",
     "has_qplane", "verify_qplane", "quantile_batch", "quantile_rows",
     "maybe_publish", "qplane_nbytes",
 ]
@@ -398,6 +404,83 @@ def write_qplane(vdir: str, snap, config, backend, *,
     return spec
 
 
+def write_qplane_delta(vdir: str, base_vdir: str, changed_rows,
+                       snap, config, backend, *,
+                       posterior=None,
+                       fingerprint: Optional[str] = None,
+                       numerics_rev: Optional[int] = None,
+                       base_version: Optional[int] = None) -> Dict:
+    """Copy-forward delta publish of the quantile plane, mirroring
+    ``fplane.write_plane_delta``: unchanged rows' quantile cells are
+    the base plane's bytes (their theta AND their ``(seed, row)`` draw
+    key are unchanged, so a recompute would reproduce them exactly —
+    the hardlink just skips the work); changed rows are re-sampled
+    against the NEW snapshot.  Sampling identity (quantiles, draws,
+    seed, mode) is inherited from the base spec — a delta can't
+    silently flip the recipe mid-ladder."""
+    base_spec = read_json(os.path.join(base_vdir, QPLANE_SPEC))
+    base_ok = read_json(os.path.join(base_vdir, QPLANE_OK))
+    if base_spec is None or base_ok is None:
+        raise QuantilePlaneError(
+            "absent", f"{base_vdir}: delta publish needs the base "
+            "version's quantile plane (spec + sentinel)"
+        )
+    n = int(base_spec.get("n_series", -1))
+    shard_rows = int(base_spec.get("shard_rows", DEFAULT_SHARD_ROWS))
+    buckets = tuple(int(b) for b in base_spec.get("buckets") or ())
+    qs = tuple(float(q) for q in base_spec.get("quantiles") or ())
+    draws = int(base_spec.get("draws", DEFAULT_DRAWS))
+    seed = int(base_spec.get("seed", DEFAULT_SEED))
+    if base_spec.get("mode") == "map":
+        posterior = None
+    elif posterior is None:
+        raise QuantilePlaneError(
+            "absent", f"{base_vdir}: base plane is ADVI-mode but the "
+            "delta version has no posterior — publish full instead"
+        )
+    changed = np.unique(np.asarray(changed_rows, np.int64))
+    if len(changed) and (changed[0] < 0 or changed[-1] >= n):
+        raise ValueError(f"changed rows outside [0, {n})")
+    fresh: Dict[int, Dict[int, np.ndarray]] = {}
+    if len(changed):
+        for hb in buckets:
+            fresh[hb] = compute_rows(
+                snap, config, backend, changed, hb, quantiles=qs,
+                draws=draws, seed=seed, posterior=posterior,
+            )
+    spec = dict(base_spec, fingerprint=fingerprint,
+                numerics_rev=numerics_rev,
+                delta_from=base_version, n_changed=int(len(changed)))
+    write_spec(os.path.join(vdir, QPLANE_SPEC), spec)
+    scattered: Dict[str, np.ndarray] = {}
+    for name in base_spec["columns"]:
+        src = _col_path(base_vdir, name)
+        dst = _col_path(vdir, name)
+        faults.inject("qplane_publish")
+        if not len(changed):
+            link_or_copy(src, dst)
+            continue
+        hb_tag, q_tag = name.split("_", 1)
+        base_mm = attach_column(src)
+        out = np.array(base_mm)        # copy-forward: one sequential read
+        del base_mm
+        out[changed] = np.asarray(
+            fresh[int(hb_tag[1:])][int(q_tag[1:])], out.dtype
+        )
+        write_column(dst, out)
+        scattered[name] = out
+    touched = set(np.unique(changed // shard_rows).tolist())
+    shards = []
+    for entry in base_ok.get("shards") or ():
+        lo, hi, crcs = int(entry[0]), int(entry[1]), dict(entry[2])
+        if lo // shard_rows in touched:
+            crcs.update(shard_crcs(scattered, lo, hi))
+        shards.append([lo, hi, crcs])
+    sentinel = dict(base_ok, unix=round(time.time(), 3), shards=shards)
+    write_sentinel(os.path.join(vdir, QPLANE_OK), sentinel)
+    return spec
+
+
 # ---------------------------------------------------------------------------
 # attach / verify
 # ---------------------------------------------------------------------------
@@ -592,13 +675,16 @@ def maybe_publish(registry, version: int, backend=None, *,
                   force: bool = False) -> Optional[Dict]:
     """Best-effort quantile-plane publish for ``version``: idempotent
     (``{"status": "present"}`` when a plane is there, unless ``force``),
-    killable (``$TSSPARK_QPLANE=0`` returns None), None on a storage
-    refusal (``DiskFullError``, ``BackpressureError``) and for logistic
-    growth.
+    killable (``$TSSPARK_QPLANE=0`` returns None), speculative (None
+    under the disk-pressure ladder's ``shed_spec`` state and on a storage
+    refusal, ``DiskFullError`` or ``BackpressureError``), and None for
+    logistic growth.
 
     Mode: ADVI when the version dir holds a compatible posterior
-    artifact and the config is eligible, else MAP.  ``backend=None`` is
-    the ``cuda`` backend on the card."""
+    artifact and the config is eligible, else MAP.  A delta version
+    whose base has a plane of a recipe it can follow publishes a delta
+    plane (``write_qplane_delta``).  ``backend=None`` is the ``cuda``
+    backend on the card."""
     if os.environ.get("TSSPARK_QPLANE", "1") == "0":
         return None
     version = int(version)
@@ -608,6 +694,9 @@ def maybe_publish(registry, version: int, backend=None, *,
         return None
     if has_qplane(vdir) and not force:
         return {"status": "present", "version": version}
+    lad = active_ladder(registry.root)
+    if lad is not None and not lad.allows("speculate"):
+        return None
     if backend is None:
         from tsspark_tpu_torch.backends.registry import get_backend
         from tsspark_tpu_torch.config import SolverConfig
@@ -622,17 +711,37 @@ def maybe_publish(registry, version: int, backend=None, *,
             loaded = advi_mod.load_posterior(vdir)
             if loaded is not None and loaded[0].mu.shape[0] == n:
                 posterior = loaded[0]
-        spec = write_qplane(
-            vdir, snap, config, backend, horizons=horizons,
-            quantiles=quantiles, draws=draws, seed=seed,
-            posterior=posterior,
-        )
+        info = None
+        try:
+            info = registry.delta_info(version)
+        except Exception:
+            info = None  # torn/racing manifest: publish full
+        base_v = None if not info else info.get("base_version")
+        base_ok = (base_v is not None
+                   and has_qplane(registry.version_dir(int(base_v))))
+        if base_ok:
+            base_spec = read_json(os.path.join(
+                registry.version_dir(int(base_v)), QPLANE_SPEC))
+            if (base_spec or {}).get("mode") == "advi" \
+                    and posterior is None:
+                base_ok = False  # recipe changed: publish full
+        if base_ok:
+            spec = write_qplane_delta(
+                vdir, registry.version_dir(int(base_v)),
+                info.get("changed_rows") or (), snap, config, backend,
+                posterior=posterior, base_version=int(base_v),
+            )
+            status = "published-delta"
+        else:
+            spec = write_qplane(
+                vdir, snap, config, backend, horizons=horizons,
+                quantiles=quantiles, draws=draws, seed=seed,
+                posterior=posterior,
+            )
+            status = "published"
     except (DiskFullError, BackpressureError):
-        # DiskFullError comes from the plane protocol's writes;
-        # BackpressureError only from the disk-pressure ladder, which the
-        # port does not have yet, so until then that half is dead.
         return None
-    return {"status": "published", "version": version,
+    return {"status": status, "version": version,
             "publish_s": round(time.time() - t0, 3),
             "mode": spec.get("mode"),
             "n_series": int(spec.get("n_series", 0)),

@@ -53,13 +53,28 @@ def append_line(path: str, line: str) -> None:
         os.close(fd)
 
 
-def sweep_stale_temps(root: str, max_age_s: float = STALE_TEMP_S) -> int:
-    """Remove dead writers' orphaned ``.*.tmp.<pid>`` files anywhere under
-    ``root`` (age-gated so a live writer's temp is never yanked).  Returns
-    the count removed."""
+def atomic_write_text(path: str, text: str) -> None:
+    """Atomic text-file write (sentinels, fingerprints, heartbeats)."""
+    atomic_write(path, lambda fh: fh.write(text), mode="w")
+
+
+def sweep_stale_temps(dirpath: str, max_age_s: float = STALE_TEMP_S,
+                      recursive: bool = False) -> int:
+    """Remove dead writers' orphaned ``.*.tmp.<pid>`` files in ``dirpath``
+    (age-gated so a live writer's temp is never yanked).  ``recursive``
+    walks subdirectories too: the registry keeps one directory per
+    version, and a publisher killed mid-snapshot orphans its temp inside
+    one.  Returns the count removed."""
     removed = 0
+    if recursive:
+        listing = ((d, names) for d, _sub, names in os.walk(dirpath))
+    else:
+        try:
+            listing = [(dirpath, os.listdir(dirpath))]
+        except OSError:
+            return 0
     now = time.time()
-    for d, _sub, names in os.walk(root):
+    for d, names in listing:
         for name in names:
             if not (name.startswith(".") and ".tmp." in name):
                 continue
