@@ -82,13 +82,39 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "tsspark_tpu_torch.serve.snapplane",
                 "tsspark_tpu_torch.eval.parity",
                 "tsspark_tpu_torch.obs.history",
+                "tsspark_tpu_torch.data",
                 "tsspark_tpu_torch.data.datasets",
+                "tsspark_tpu_torch.data.plane",
+                "tsspark_tpu_torch.data.ingest",
+                "tsspark_tpu_torch.data.loaders",
                 "tsspark_tpu_torch.uncertainty",
                 "tsspark_tpu_torch.uncertainty.advi",
                 "tsspark_tpu_torch.uncertainty.qplane",
                 "tsspark_tpu_torch.uncertainty.gold",
                 "tsspark_tpu_torch.uncertainty.calibrate"):
         assert mod in out["modules"]
+
+
+_DATA_PLANE_LEAN = r"""
+import json, sys
+sys.modules["jax"] = None          # any `import jax` now raises
+sys.modules["torch"] = None        # any `import torch` now raises
+from tsspark_tpu_torch.data import ingest, plane  # noqa: F401
+import tsspark_tpu_torch.data as data
+data.DatasetSpec("m5", 4, 8)
+print(json.dumps(sorted(m for m, mod in sys.modules.items()
+                        if mod is not None and m.split(".")[0]
+                        in ("torch", "jax", "pandas"))))
+"""
+
+
+def test_data_plane_imports_without_torch():
+    """The plane and the ingest (and the data package's export surface)
+    import with torch and jax blocked, and without pandas: the ingest's
+    child processes stay lean."""
+    proc = _run(_DATA_PLANE_LEAN)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
 
 
 def test_prefix_check_tells_the_two_packages_apart():

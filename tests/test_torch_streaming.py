@@ -447,17 +447,32 @@ def test_breaker_sheds_polls_once_open(tmp_path, monkeypatch):
     assert len(os.listdir(tmp_path / "f")) == 2  # no third attempt
 
 
-@pytest.mark.parametrize("rule", [{"mode": "exit"}, {"series": 3},
+@pytest.mark.parametrize("rule", [{"mode": "exit"}, {"mode": "flag"},
                                   {"mode": "corrupt"}])
 def test_fault_plan_refuses_what_the_port_does_not_inject(tmp_path,
                                                           monkeypatch, rule):
-    """A JAX-package plan that arms another mode or scope is refused when
-    the point is reached, never silently ignored."""
+    """A JAX-package plan that arms another mode is refused when the
+    point is reached, never silently ignored (a series scope is honoured:
+    ``test_series_scoped_rule_fires_on_its_range``)."""
     plan = faults.FaultPlan(state_dir=str(tmp_path / "f")).fail(
         "stream_poll")
     plan.rules[0].update(rule)
     monkeypatch.setenv(faults.ENV_VAR, plan.to_env())
     with pytest.raises(ValueError, match="raise-mode"):
+        faults.inject("stream_poll")
+
+
+def test_series_scoped_rule_fires_on_its_range(tmp_path, monkeypatch):
+    """A rule scoped to series 3 fires on calls whose ``(lo, hi)`` range
+    covers row 3 (and on calls with no range), as in the JAX package."""
+    plan = faults.FaultPlan(state_dir=str(tmp_path / "f")).fail(
+        "stream_poll", series=3, attempts=3)
+    monkeypatch.setenv(faults.ENV_VAR, plan.to_env())
+    faults.inject("stream_poll", lo=4, hi=8)
+    faults.inject("stream_poll", lo=0, hi=3)
+    with pytest.raises(faults.FaultInjected):
+        faults.inject("stream_poll", lo=0, hi=4)
+    with pytest.raises(faults.FaultInjected):
         faults.inject("stream_poll")
 
 

@@ -149,8 +149,10 @@ def test_audit_version_writes_what_the_jax_package_reads(tmp_path):
 
 
 def test_audit_version_needs_arrays(tmp_path):
+    """Without ``arrays`` the audit reads its rows off the data plane:
+    a ``data_dir`` that is no complete plane dataset is refused."""
     reg, _, _ = _demo_version(tmp_path)
-    with pytest.raises(ValueError):
+    with pytest.raises(FileNotFoundError):
         gold.audit_version(reg, str(tmp_path / "data"), version=1,
                            device="cpu")
 
@@ -166,7 +168,8 @@ def reports(tmp_path_factory):
     root = tmp_path_factory.mktemp("calibration")
     before = _jax_obs_binding()
     port = calibrate.run_calibration_smoke(str(root / "port"), seed=0,
-                                           read_probes=50, device="cpu")
+                                           read_probes=50, device="cpu",
+                                           data_root=str(root / "pdata"))
     ref = jcalibrate.run_calibration_smoke(
         str(root / "jax"), seed=0, read_probes=50,
         data_root=str(root / "data"))

@@ -10,6 +10,12 @@ process-isolated ``resilient`` route and its multi-chip ``mesh`` route):
   split into length buckets; then a rescue pass refits the series that
   exited the solver stuck (status FLOOR or STALLED) from two starts with
   the GN-diagonal metric and keeps each series' best loss.
+* ``fit_twophase``: the speed-first fit -- a shallow plain-metric phase
+  over every series, then a full-depth GN-diagonal phase over the
+  compacted unconverged tail, warm from phase 1 (no rescue pass).  The
+  reference's traced phase controls become a ``dataclasses.replace``d
+  ``SolverConfig`` and the presence of ``init`` (``phase1_dynamic_args``
+  / ``phase2_dynamic_args``).
 * ``predict`` / ``components``: a batch larger than one chunk streams
   through the model in fixed-size chunks (the last padded by repeating a
   real row, whose outputs are discarded), each chunk seeded with its own
@@ -18,7 +24,9 @@ process-isolated ``resilient`` route and its multi-chip ``mesh`` route):
 Results come back on the host: numpy arrays, and the fitted ``theta`` as
 a CPU tensor.  ``stages`` is the model's stage clock: the fit's prep,
 pack, to_device, init, solve, to_host and (this backend's) rescue; the
-forecast's prep, forecast and to_host.
+forecast's prep, forecast and to_host; ``fit_twophase`` adds ``phase1``
+and ``phase2`` around its two phases' fits (which count their own stages
+into the same clock).
 """
 
 from __future__ import annotations
@@ -216,6 +224,7 @@ class CudaBackend(ForecastBackend):
                                    device=device)
         self.device = self._model.device
         self.stages = self._model.stages
+        self.twophase: Optional[dict] = None
 
     def _sub_backend(self, solver_config=None, share_stages=False,
                      **kw) -> "CudaBackend":
@@ -462,6 +471,131 @@ class CudaBackend(ForecastBackend):
         )
         return _take_rows(state, slice(0, b))
 
+    def fit_twophase(self, ds, y, mask=None, cap=None, floor=None,
+                     regressors=None, init=None, conditions=None,
+                     phase1_iters: int = 12) -> FitState:
+        """Straggler-compacted fit: short lockstep phase, then finish only
+        the unconverged tail.
+
+        The batched solver advances every series in lockstep, so one slow
+        series makes the whole chunk pay full depth.  Phase 1 fits
+        everything with a ``phase1_iters`` cap and the plain metric;
+        phase 2 gathers the unconverged series (hardest first,
+        ``difficulty_order``) into a compacted batch padded with inert
+        all-masked rows to a multiple of ``min(chunk_size,
+        next_pow2(B))``, and continues only those, warm-started from
+        their phase-1 parameters with the GN-diagonal metric, at the
+        full ``max_iters`` depth.  Both phases run through this backend's
+        own ``fit`` settings (chunking, length buckets) without the
+        rescue pass; segmented solves take the derived phase backends
+        (``_phase1``, ``_straggler_backend``: no length buckets).
+        ``self.twophase`` holds the last call's counts (``rows``,
+        ``phase1_converged``, ``stragglers``, ``phase2_rows`` padded) and
+        ``order``, the stragglers' rows in phase 2's order.
+        """
+        segmented = self._segmented()
+        # Indicator-column pinning: phase 2 refits a SUBSET of rows, where
+        # a continuous column could look binary and flip the u8 split --
+        # decide once on the full batch and thread it through both phases
+        # (skipped where the packed path is unreachable: segmented solves).
+        u8 = (
+            _indicator_reg_cols(np.asarray(regressors))
+            if (regressors is not None and not segmented
+                and np.asarray(ds).ndim == 1) else None
+        )
+        with self.stages.span("phase1"):
+            if segmented:
+                phase1_state = self._phase1(phase1_iters).fit(
+                    ds, y, mask=mask, cap=cap, floor=floor,
+                    regressors=regressors, init=init, conditions=conditions,
+                )
+            else:
+                p1 = phase1_dynamic_args(phase1_iters, init is not None,
+                                         self.solver_config)
+                phase1_state = self._phase_backend(p1["solver_config"]).fit(
+                    ds, y, mask=mask, cap=cap, floor=floor,
+                    regressors=regressors,
+                    init=init if p1["use_init"] else None,
+                    conditions=conditions, reg_u8_cols=u8,
+                )
+        state = phase1_state
+        b = np.asarray(y).shape[0]
+        # Stragglers = unconverged only (the speed-first entry point; the
+        # stuck exits FLOOR / STALLED are plain ``fit``'s rescue pass's).
+        idx = np.flatnonzero(~np.asarray(state.converged))
+        self.twophase = {"rows": int(b),
+                         "phase1_converged": int(b - idx.size),
+                         "stragglers": int(idx.size), "phase2_rows": 0}
+        if idx.size == 0:
+            return state
+        idx = idx[difficulty_order(np.asarray(state.grad_norm)[idx])]
+        c = min(self.chunk_size, next_pow2(b))
+        pad = (-idx.size) % c
+        self.twophase.update(phase2_rows=int(idx.size + pad), order=idx)
+
+        def sub(a, fill=0.0):
+            if a is None:
+                return None
+            a = _rows(a, idx)
+            if isinstance(a, torch.Tensor):
+                a = a.numpy()
+            return np.concatenate(
+                [a, np.full((pad,) + a.shape[1:], fill, a.dtype)]
+            ) if pad else a
+
+        if segmented:
+            fit2 = self._straggler_backend().fit
+        else:
+            p2 = phase2_dynamic_args(self.solver_config)
+            fit2 = self._phase_backend(p2["solver_config"]).fit
+        kwargs = dict(
+            mask=sub(mask if mask is not None
+                     else np.isfinite(np.asarray(y)).astype(np.float32)),
+            cap=sub(cap, fill=1.0), floor=sub(floor),
+            regressors=sub(regressors),
+            init=sub(state.theta),
+            conditions=None if conditions is None else {
+                k: sub(v) for k, v in conditions.items()
+            },
+            reg_u8_cols=u8,
+        )
+        ds2 = ds if np.asarray(ds).ndim == 1 else sub(np.asarray(ds))
+        # Phase 1 already emitted the one full-batch out-of-span
+        # changepoint warning.
+        with changepoint_span_warning_suppressed(), \
+                self.stages.span("phase2"):
+            state2 = fit2(ds2, sub(y), **kwargs)
+        if pad:
+            state2 = _take_rows(state2, slice(0, idx.size))
+        return patch_state(state, idx, state2)
+
+    def _phase_backend(self, solver_config) -> "CudaBackend":
+        """This backend under a phase's solver config, its fits counted
+        into this one's stage clock; no rescue pass (the two-phase flow
+        owns the tail), its length-bucket setting kept."""
+        return self._sub_backend(solver_config, share_stages=True,
+                                 rescue=False)
+
+    def _derived(self, **solver_overrides) -> "CudaBackend":
+        """Same backend with SolverConfig fields replaced: an internal
+        phase worker of a segmented solve (no length buckets, no rescue
+        pass of its own)."""
+        return self._sub_backend(
+            dataclasses.replace(self.solver_config, **solver_overrides),
+            share_stages=True, length_buckets=1, rescue=False,
+        )
+
+    def _phase1(self, phase1_iters: int) -> "CudaBackend":
+        # The plain metric at phase 1's short depth (the GN default is
+        # the full-depth choice), as ``phase1_dynamic_args`` pins it.
+        return self._derived(max_iters=phase1_iters, precond="none")
+
+    def _straggler_backend(self) -> "CudaBackend":
+        """Full-depth backend for the compacted unconverged tail, with the
+        GN-diagonal initial metric (stragglers are the ill-conditioned
+        series the plain metric stalls on)."""
+        return self._derived(precond="gn_diag")
+
     def _host(self, out: Dict[str, torch.Tensor],
               n: int) -> Dict[str, np.ndarray]:
         with self.stages.span("to_host"):
@@ -549,3 +683,57 @@ class CudaBackend(ForecastBackend):
             return self._model.components(sub, ds_c, **kw)
 
         return self._chunked(call, state, ds, cap, regressors, conditions, c)
+
+
+def phase1_dynamic_args(phase1_iters: int, use_init: bool,
+                        solver_config) -> dict:
+    """THE shallow-phase policy, in the port's form: the reference's
+    traced triple (depth ``phase1_iters``, plain metric, ridge init
+    unless a warm start is supplied) as ``{"solver_config": ...,
+    "use_init": ...}`` -- the solver config with ``max_iters`` clamped
+    to ``min(phase1_iters, max_iters)`` and ``precond="none"``, and
+    whether the caller's ``init`` is used."""
+    return {
+        "solver_config": dataclasses.replace(
+            solver_config,
+            max_iters=min(int(phase1_iters), int(solver_config.max_iters)),
+            precond="none",
+        ),
+        "use_init": bool(use_init),
+    }
+
+
+def phase2_dynamic_args(solver_config) -> dict:
+    """THE deep-phase policy (see ``phase1_dynamic_args``): full solver
+    depth, GN-diagonal initial metric, warm-started from phase 1."""
+    return {
+        "solver_config": dataclasses.replace(solver_config,
+                                             precond="gn_diag"),
+        "use_init": True,
+    }
+
+
+def tune_phase1_depth(depth: int, frac_unconv: float,
+                      max_iters: int) -> int:
+    """THE adaptive phase-1 depth policy, applied once after a first
+    chunk: deepen only on a pathological first chunk (a quarter still
+    progressing), shallow out when virtually everything converges early.
+    One definition for every chunked two-phase path."""
+    if frac_unconv > 0.25:
+        return min(int(depth) * 2, int(max_iters))
+    if frac_unconv < 0.005 and int(depth) > 8:
+        return max(8, int(depth) * 2 // 3)
+    return int(depth)
+
+
+def difficulty_order(grad_norm: np.ndarray) -> np.ndarray:
+    """Argsort for compacting stragglers, hardest first.
+
+    Each padded sub-chunk's lockstep solve runs until ITS slowest member
+    converges, so grouping similar-difficulty series lets easy sub-chunks
+    exit early.  Phase-1 exit grad-norm is the difficulty proxy; NaN grad
+    norms (diverged series) count as hardest.  Callers patch results back
+    by index, so the reorder never changes results."""
+    g = np.asarray(grad_norm, np.float64)
+    g = np.where(np.isnan(g), np.inf, g)
+    return np.argsort(-g, kind="stable")

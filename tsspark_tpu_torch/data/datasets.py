@@ -14,9 +14,12 @@ plain numpy arrays out (the same bytes as the reference's):
   seasonality, changepoints, and holiday, price and promo effects;
 * ``wiki_logistic_like`` (eval config 4): saturating pageview series
   with a known capacity and a multiplicative weekly pattern;
-* ``demo_weekly_rows`` (the calibration smoke's workload): block-seeded
-  smooth weekly-cycle series, rows [lo, hi) the same bytes whatever
-  range they are generated in, with their ``dataset_ids``.
+* ``m5_rows`` (the data plane's M5 family: ``base``, ``irregular``,
+  ``missing_windows``, ``cold_start`` and ``hier`` scenarios) and
+  ``demo_weekly_rows`` (the calibration smoke's workload): block-seeded
+  (``SEED_BLOCK`` rows a stream), so rows [lo, hi) are the same bytes
+  whatever range they are generated in, with their ``dataset_ids`` and
+  the closed-form ``dataset_calendar``.
 """
 
 from __future__ import annotations
@@ -212,12 +215,26 @@ def wiki_logistic_like(
 #: package (a row's values depend on its block's rng alone).
 SEED_BLOCK = 1024
 
+#: M5-like hierarchy shape (store -> dept -> item): row i belongs to
+#: store i % 10, dept (i // 10) % 7, so every block mixes all stores.
+HIER_STORES = 10
+HIER_DEPTS = 7
+
 
 def _block_rng(seed: int, block: int, tag: int = 0):
     """The rng for one (seed, block) cell; ``tag`` separates streams."""
     return np.random.default_rng(
         [0x7355, int(seed) & 0xFFFFFFFF, int(block), int(tag)]
     )
+
+
+def dataset_calendar(generator: str, n_timesteps: int) -> np.ndarray:
+    """The shared float64 calendar grid of a named block generator: a
+    closed formula, so creating a dataset never generates a seed block
+    just to learn the grid (equal to the grid the row generators emit)."""
+    if generator == "demo_weekly":
+        return np.arange(n_timesteps, dtype=np.float64)
+    return 13514.0 + np.arange(n_timesteps, dtype=np.float64)
 
 
 def _zero_pad(idx: np.ndarray, width: int) -> np.ndarray:
@@ -234,12 +251,218 @@ def _zero_pad(idx: np.ndarray, width: int) -> np.ndarray:
 
 
 def dataset_ids(generator: str, lo: int, hi: int) -> np.ndarray:
-    """Series ids for rows [lo, hi) of a named block generator (the
-    ``demo_weekly`` scheme ``s0000``, else M5's ``M5_00000``)."""
+    """Series ids for rows [lo, hi) of a named block generator, by
+    formula, so a warm cache reader never regenerates data to learn
+    them: ``m5_hier``'s ``S<store>_D<dept>_I<item>``, ``demo_weekly``'s
+    ``s0000``, else M5's ``M5_00000`` (vectorized: no per-row Python)."""
     idx = np.arange(lo, hi)
+    if generator == "m5_hier":
+        store = idx % HIER_STORES
+        dept = (idx // HIER_STORES) % HIER_DEPTS
+        item = idx // (HIER_STORES * HIER_DEPTS)
+        # Width-bounded astypes: a bare astype(np.str_) defaults to U21
+        # per component and np.char.add SUMS itemsizes, which would
+        # quadruple the id columns' bytes for digits no id ever uses.
+        s_w = len(str(HIER_STORES - 1))
+        d_w = len(str(HIER_DEPTS - 1))
+        out = np.char.add("S", store.astype(f"<U{s_w}"))
+        out = np.char.add(out, "_D")
+        out = np.char.add(out, dept.astype(f"<U{d_w}"))
+        out = np.char.add(out, "_I")
+        return np.char.add(out, _zero_pad(item, 5))
     if generator == "demo_weekly":
         return np.char.add("s", _zero_pad(idx, 4))
     return np.char.add("M5_", _zero_pad(idx, 5))
+
+
+def _m5_block(rng, n_days: int, ds: np.ndarray, scenario: str,
+              seed: int, row0: int):
+    """One full SEED_BLOCK of m5-like rows (same generating process as
+    :func:`m5_like`, per-block stream).  Returns (y, mask, reg)."""
+    S = SEED_BLOCK
+    t = np.linspace(0, 1, n_days)
+    level = rng.lognormal(1.0, 1.0, (S, 1))
+    slope = rng.normal(0.2, 0.4, (S, 1))
+    n_cp = 3
+    cps = np.sort(rng.uniform(0.1, 0.9, (S, n_cp)), axis=-1)
+    deltas = rng.normal(0, 0.5, (S, n_cp))
+    trend = 1.0 + slope * t[None, :]
+    for j in range(n_cp):
+        trend += deltas[:, j:j + 1] * np.maximum(t[None, :] - cps[:, j:j + 1], 0)
+
+    dow = ds.astype(np.int64) % 7
+    wk_pattern = rng.normal(0, 0.15, (S, 7))
+    weekly = np.take_along_axis(
+        wk_pattern, np.broadcast_to(dow[None, :], (S, n_days)), axis=1
+    )
+    yearly_phase = rng.uniform(0, 2 * np.pi, (S, 1))
+    if scenario == "hier":
+        # Shared store/dept structure: level and seasonality phase are
+        # composed from per-store/per-dept tables drawn from a dedicated
+        # stream (a function of the seed only — every block must see the
+        # SAME tables).
+        trng = _block_rng(seed, 0, tag=1)
+        store_boost = trng.normal(0, 0.5, HIER_STORES)
+        dept_boost = trng.normal(0, 0.35, HIER_DEPTS)
+        store_phase = trng.uniform(0, 2 * np.pi, HIER_STORES)
+        idx = np.arange(row0, row0 + S)
+        store = idx % HIER_STORES
+        dept = (idx // HIER_STORES) % HIER_DEPTS
+        level = level * np.exp(store_boost[store] + dept_boost[dept])[:, None]
+        yearly_phase = (store_phase[store][:, None]
+                        + 0.2 * (yearly_phase - np.pi))
+    yearly = 0.2 * np.sin(2 * np.pi * ds[None, :] / 365.25 + yearly_phase)
+
+    doy = ds.astype(np.int64) % 365
+    holiday_days = np.asarray(
+        [0, 31, 59, 120, 151, 185, 243, 304, 327, 330, 358, 359]
+    )
+    is_holiday = np.isin(doy, holiday_days).astype(np.float64)
+    hol_effect = rng.normal(0.3, 0.2, (S, 1))
+
+    price = 1.0 + 0.1 * np.cumsum(rng.normal(0, 0.02, (S, n_days)), axis=1)
+    promo = (rng.uniform(size=(S, n_days)) < 0.05).astype(np.float64)
+    price_beta = rng.normal(-0.3, 0.1, (S, 1))
+    promo_beta = rng.normal(0.4, 0.15, (S, 1))
+
+    signal = (
+        trend + weekly + yearly
+        + hol_effect * is_holiday[None, :]
+        + price_beta * (price - 1.0)
+        + promo_beta * promo
+    )
+    y = level * np.maximum(signal + rng.normal(0, 0.15, (S, n_days)), 0.0)
+
+    if scenario == "cold_start":
+        # Half the block launches with only the trailing 2-30% of the
+        # calendar observed — the late-onset series a production fleet
+        # keeps gaining.
+        late = rng.uniform(size=S) < 0.5
+        launch = np.where(
+            late,
+            rng.integers(int(0.70 * n_days), max(int(0.98 * n_days), 1), S),
+            rng.integers(0, max(n_days // 3, 1), S),
+        )
+    else:
+        launch = rng.integers(0, max(n_days // 3, 1), S)
+    mask = (np.arange(n_days)[None, :] >= launch[:, None]).astype(np.float64)
+
+    if scenario == "irregular":
+        # Irregular cadence: per-series dropout of 5-40% of otherwise
+        # observed days, so the observed grid is ragged within the
+        # shared calendar (exercises the mask path end to end).
+        rate = rng.uniform(0.05, 0.4, (S, 1))
+        drop = rng.uniform(size=(S, n_days)) < rate
+        mask = np.where(drop, 0.0, mask)
+    elif scenario == "missing_windows":
+        # 1-3 contiguous outage windows per series, each ~3-10% of the
+        # calendar (sensor gaps, stockouts).
+        k = 3
+        starts = rng.integers(0, n_days, (S, k))
+        lens = rng.integers(max(n_days // 33, 2), max(n_days // 10, 3),
+                            (S, k))
+        active = rng.uniform(size=(S, k)) < 0.7
+        grid = np.arange(n_days)
+        win = ((grid[None, None, :] >= starts[:, :, None])
+               & (grid[None, None, :] < (starts + lens)[:, :, None])
+               & active[:, :, None]).any(axis=1)
+        mask = np.where(win, 0.0, mask)
+
+    y = np.where(mask > 0, y, np.nan)
+    reg = np.stack(
+        [is_holiday[None, :].repeat(S, 0), price, promo], axis=-1
+    )
+    return y, mask, reg
+
+
+_M5_SCENARIOS = {
+    "m5": "base",
+    "m5_irregular": "irregular",
+    "m5_missing_windows": "missing_windows",
+    "m5_cold_start": "cold_start",
+    "m5_hier": "hier",
+}
+
+
+def m5_rows(
+    lo: int, hi: int, n_days: int = 1941, seed: int = 2,
+    scenario: str = "base", with_regressors: bool = True,
+) -> SeriesBatch:
+    """Rows [lo, hi) of the block-seeded m5-like family.
+
+    ``m5_rows(lo, hi, ...)`` is bitwise-identical to
+    ``m5_rows(0, N, ...)`` sliced to [lo, hi) for any covering N — the
+    property the data plane's parallel shard ingestion rests on."""
+    if not 0 <= lo < hi:
+        raise ValueError(f"bad row range [{lo}, {hi})")
+    ds = 13514.0 + np.arange(n_days, dtype=np.float64)
+    ys, masks, regs = [], [], []
+    for block in range(lo // SEED_BLOCK, (hi - 1) // SEED_BLOCK + 1):
+        row0 = block * SEED_BLOCK
+        y_b, m_b, r_b = _m5_block(
+            _block_rng(seed, block), n_days, ds, scenario, seed, row0
+        )
+        s = slice(max(lo, row0) - row0, min(hi, row0 + SEED_BLOCK) - row0)
+        ys.append(y_b[s])
+        masks.append(m_b[s])
+        regs.append(r_b[s])
+    gen = next(
+        (k for k, v in _M5_SCENARIOS.items() if v == scenario), "m5"
+    )
+    return SeriesBatch(
+        ds=ds,
+        y=np.concatenate(ys, axis=0),
+        mask=np.concatenate(masks, axis=0),
+        series_ids=dataset_ids(gen, lo, hi),
+        regressors=np.concatenate(regs, axis=0) if with_regressors else None,
+        regressor_names=("holiday", "price", "promo") if with_regressors
+        else (),
+    )
+
+
+_M5_SCENARIOS = {
+    "m5": "base",
+    "m5_irregular": "irregular",
+    "m5_missing_windows": "missing_windows",
+    "m5_cold_start": "cold_start",
+    "m5_hier": "hier",
+}
+
+
+def m5_rows(
+    lo: int, hi: int, n_days: int = 1941, seed: int = 2,
+    scenario: str = "base", with_regressors: bool = True,
+) -> SeriesBatch:
+    """Rows [lo, hi) of the block-seeded m5-like family.
+
+    ``m5_rows(lo, hi, ...)`` is bitwise-identical to
+    ``m5_rows(0, N, ...)`` sliced to [lo, hi) for any covering N — the
+    property the data plane's parallel shard ingestion rests on."""
+    if not 0 <= lo < hi:
+        raise ValueError(f"bad row range [{lo}, {hi})")
+    ds = 13514.0 + np.arange(n_days, dtype=np.float64)
+    ys, masks, regs = [], [], []
+    for block in range(lo // SEED_BLOCK, (hi - 1) // SEED_BLOCK + 1):
+        row0 = block * SEED_BLOCK
+        y_b, m_b, r_b = _m5_block(
+            _block_rng(seed, block), n_days, ds, scenario, seed, row0
+        )
+        s = slice(max(lo, row0) - row0, min(hi, row0 + SEED_BLOCK) - row0)
+        ys.append(y_b[s])
+        masks.append(m_b[s])
+        regs.append(r_b[s])
+    gen = next(
+        (k for k, v in _M5_SCENARIOS.items() if v == scenario), "m5"
+    )
+    return SeriesBatch(
+        ds=ds,
+        y=np.concatenate(ys, axis=0),
+        mask=np.concatenate(masks, axis=0),
+        series_ids=dataset_ids(gen, lo, hi),
+        regressors=np.concatenate(regs, axis=0) if with_regressors else None,
+        regressor_names=("holiday", "price", "promo") if with_regressors
+        else (),
+    )
 
 
 def demo_weekly_rows(

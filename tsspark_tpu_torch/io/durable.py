@@ -26,7 +26,7 @@ import errno as _errno
 import os
 import shutil
 import time
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 
@@ -179,11 +179,13 @@ def link_or_copy(src: str, dst: str) -> None:
             _reraise_classified(e2)
 
 
-def open_memmap(path: str, *, mode: str = "r", dtype=None, shape=None):
+def open_memmap(path: str, *, mode: str = "r", dtype=None, shape=None,
+                lo: Optional[int] = None, hi: Optional[int] = None):
     """``np.lib.format.open_memmap`` behind the ``io_mmap`` fault point
-    (attach and create); classified errors."""
+    (attach and create); ``lo``/``hi``: the row range the caller writes
+    (series-scoped fault rules match it); classified errors."""
     try:
-        faults.inject(IO_MMAP, path=path)
+        faults.inject(IO_MMAP, lo=lo, hi=hi, path=path)
         if mode in ("w+",):
             _gate_budget(path)
         if dtype is None and shape is None:

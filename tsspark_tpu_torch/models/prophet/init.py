@@ -39,6 +39,11 @@ def _masked_sigma(resid: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.clamp(var, min=1e-8))
 
 
+#: Rows the ridge solve has refactored in float64 since the count was
+#: last set to 0 (their float32 Cholesky refused; see ``_ridge_solve``).
+float64_rows = 0
+
+
 def _ridge_solve(
     phi: torch.Tensor,         # (B, T, Q) design columns
     y: torch.Tensor,           # (B, T) target
@@ -70,6 +75,8 @@ def _ridge_solve(
         # days) that XLA's factors; those rows are solved in float64
         # instead, and any row that fails there too stays NaN.  Rows
         # that factor in float32 keep their float32 bits.
+        global float64_rows
+        float64_rows += int(bad.sum())
         a64, rhs64 = a[bad].double(), rhs[bad].double()
         chol64, info64 = torch.linalg.cholesky_ex(a64)
         chol64 = torch.where((info64 != 0)[:, None, None], torch.nan,

@@ -1,26 +1,37 @@
 """Trace context: one trace id for a run's span log.
 
 The part of the JAX package's ``obs/context.py`` that the port's
-streaming driver records through: a *run* binds a (trace_id,
-spans_path) pair process-globally (``start_run``), and ``record``
-appends one span as a JSON line to ``spans.jsonl``
+streaming driver and data plane record through: a *run* binds a
+(trace_id, spans_path) pair process-globally (``start_run``); the
+*current span* rides a contextvar so nested spans parent correctly
+(``span``, ``open_span`` / ``close_span``, ``record``, ``event``); and
+the binding crosses into a child process through the ``TSSPARK_TRACE``
+environment variable (``inject_env`` in the spawner, ``adopt_env`` at
+the child's entry: the data plane's ingest driver and its shard pool).
+Each record is one JSON line of ``spans.jsonl``
 (``utils.atomic.append_line``: one ``O_APPEND`` write a line, so
-concurrent writers never interleave).  The same record layout as the
-JAX package's, so one reader (``read_records``) takes both.  Nested
-spans, point events and the cross-process propagation come with the
-port's orchestrator.
+concurrent writers never interleave), in the JAX package's layout, so
+one reader (``read_records``) takes both.  Long-lived spans are written
+twice: an ``open`` record at begin and a completion record with the
+same span id at end.  The serve daemon's request envelopes
+(``remote_context``) come with the port's serve daemon.
 
-With no run bound, ``record`` is a no-op costing one ``None`` check.
+With no run bound, every function here is a no-op costing one ``None``
+check.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import json
 import os
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Iterator, List, Optional
 
 from tsspark_tpu_torch.utils.atomic import append_line
+
+ENV_VAR = "TSSPARK_TRACE"
 
 #: File name convention for the per-run span log (one per run dir).
 SPANS_FILE = "spans.jsonl"
@@ -45,6 +56,11 @@ class Run:
 
 
 _RUN: Optional[Run] = None
+# Current span id (parent for children): a contextvar, so a background
+# thread never clobbers the main thread's position in the tree.
+_SPAN: contextvars.ContextVar = contextvars.ContextVar(
+    "tsspark_obs_span", default=None
+)
 
 
 def new_id() -> str:
@@ -74,6 +90,9 @@ def start_run(spans_path: Optional[str] = None,
         except OSError:
             spans_path = None
     _RUN = Run(trace_id or new_id(), spans_path)
+    # Fresh run, fresh tree: a span position left from a previous
+    # binding must not become this run's phantom root parent.
+    _SPAN.set(None)
     return prev
 
 
@@ -81,6 +100,38 @@ def end_run(prev: Optional[Run] = None) -> None:
     """Restore the previous binding (or unbind)."""
     global _RUN
     _RUN = prev
+
+
+def inject_env(env: Dict[str, str],
+               parent_id: Optional[str] = None) -> None:
+    """Propagate the active run into a child process's environment.
+    ``parent_id`` overrides the current span as the child's parent
+    (spawners that allocate a per-attempt span pass it explicitly)."""
+    if _RUN is None:
+        return
+    env[ENV_VAR] = json.dumps({
+        "trace_id": _RUN.trace_id,
+        "parent_span_id": parent_id or _SPAN.get(),
+        "spans_path": _RUN.spans_path,
+    })
+
+
+def adopt_env() -> bool:
+    """Child-process entry: bind the run the spawner injected (no-op
+    when none was).  The injected parent span becomes the current span,
+    so everything this process records parents across the boundary."""
+    spec = os.environ.get(ENV_VAR)
+    if not spec:
+        return False
+    try:
+        d = json.loads(spec)
+    except ValueError:
+        return False
+    start_run(spans_path=d.get("spans_path"),
+              trace_id=d.get("trace_id"))
+    if d.get("parent_span_id"):
+        _SPAN.set(d["parent_span_id"])
+    return True
 
 
 # ---------------------------------------------------------------------------
@@ -101,15 +152,84 @@ def _span_rec(name: str, span_id: str, parent_id: Optional[str],
     }
 
 
-def record(name: str, t0: float, dur_s: float,
-           **attrs: Any) -> Optional[str]:
-    """Record a completed span with caller-supplied timings (the
-    streaming driver's micro-batch wall).  Returns the span id."""
+@contextlib.contextmanager
+def span(name: str, **attrs: Any) -> Iterator[Optional[str]]:
+    """Record a span around a block; yields the span id (None when no
+    run is bound).  Exceptions mark the span ``err`` and propagate."""
+    if _RUN is None:
+        yield None
+        return
+    sid = new_id()
+    parent = _SPAN.get()
+    tok = _SPAN.set(sid)
+    t0 = time.time()
+    m0 = time.monotonic()
+    status = "ok"
+    try:
+        yield sid
+    except BaseException:
+        status = "err"
+        raise
+    finally:
+        _SPAN.reset(tok)
+        _RUN.write(_span_rec(name, sid, parent, t0,
+                             time.monotonic() - m0, status, attrs))
+
+
+def record(name: str, t0: float, dur_s: float, *,
+           span_id: Optional[str] = None,
+           parent_id: Optional[str] = None,
+           status: str = "ok", **attrs: Any) -> Optional[str]:
+    """Record a completed span with caller-supplied timings (for sites
+    that already own the clock: the fit worker's chunk wall, the
+    engine's request latency).  Returns the span id."""
     if _RUN is None:
         return None
-    sid = new_id()
-    _RUN.write(_span_rec(name, sid, None, t0, dur_s, "ok", attrs))
+    sid = span_id or new_id()
+    if parent_id is None:
+        parent_id = _SPAN.get()
+    _RUN.write(_span_rec(name, sid, parent_id, t0, dur_s, status, attrs))
     return sid
+
+
+def open_span(name: str, *, span_id: Optional[str] = None,
+              parent_id: Optional[str] = None,
+              make_current: bool = False, **attrs: Any) -> Optional[str]:
+    """Write an ``open`` record NOW (crash-safe parent: a process killed
+    mid-span leaves this behind, so children never orphan).  Close with
+    ``close_span`` using the returned id."""
+    if _RUN is None:
+        return None
+    sid = span_id or new_id()
+    if parent_id is None:
+        parent_id = _SPAN.get()
+    _RUN.write(_span_rec(name, sid, parent_id, time.time(), None,
+                         "open", attrs))
+    if make_current:
+        _SPAN.set(sid)
+    return sid
+
+
+def close_span(span_id: Optional[str], name: str, t0: float, *,
+               status: str = "ok", **attrs: Any) -> None:
+    """Completion record for an ``open_span`` (same span id; the ledger
+    keeps the completed record)."""
+    if _RUN is None or span_id is None:
+        return
+    _RUN.write(_span_rec(name, span_id, None, t0, time.time() - t0,
+                         status, attrs))
+
+
+def event(name: str, **attrs: Any) -> None:
+    """Point annotation on the current span (fault firings, recovery
+    marks).  Standalone when no span is active — still joined by trace."""
+    if _RUN is None:
+        return
+    _RUN.write({
+        "kind": "event", "trace_id": trace_id(), "span_id": _SPAN.get(),
+        "name": name, "t": round(time.time(), 6), "pid": os.getpid(),
+        "attrs": attrs,
+    })
 
 
 # ---------------------------------------------------------------------------

@@ -7,9 +7,8 @@ The raise and storage modes of the JAX package's harness
 plan armed for either package fires the same way in both.  A
 ``FaultPlan`` arms named injection points; the plan travels through the
 environment so child processes see the plan the test armed in the
-parent.  A plan that asks for anything else the JAX package's harness
-offers (the "exit", "flag" and "corrupt" modes, a series scope) is
-refused, never ignored.
+parent.  A plan that asks for another mode the JAX package's harness
+offers ("exit", "flag", "corrupt") is refused, never ignored.
 
 Each armed rule carries a fixed call window (``after`` skipped calls,
 then ``attempts`` firings).  Call slots are claimed by atomic
@@ -46,7 +45,9 @@ Storage modes (the disk misbehaving, not the process):
                     call proceed (slow media).
 
 Rules may carry ``path=<substring>`` to scope a storage rule to one
-artifact family; the io layer passes every call's target path.
+artifact family (the io layer passes every call's target path), and
+``series=<row>`` to fire only on calls whose ``(lo, hi)`` series range
+covers that row (the data plane's shard writes pass theirs).
 
 With ``TSSPARK_FAULTS`` unset, ``inject`` is one dict lookup.
 """
@@ -99,9 +100,10 @@ class FaultPlan:
         monkeypatch.setenv(faults.ENV_VAR, plan.to_env())
 
     ``fail(point, ...)``: ``attempts`` matching calls fire after
-    ``after`` let through; ``mode`` one of ``_MODES``; ``path`` a
-    substring scope on the call's target path; ``fraction`` the
-    surviving share of a short write; ``delay_s`` a sleep's stall.
+    ``after`` let through; ``mode`` one of ``_MODES``; ``series`` fires
+    only on calls whose ``(lo, hi)`` range covers that series index;
+    ``path`` a substring scope on the call's target path; ``fraction``
+    the surviving share of a short write; ``delay_s`` a sleep's stall.
     """
 
     def __init__(self, state_dir: Optional[str] = None):
@@ -111,8 +113,9 @@ class FaultPlan:
         self.rules: List[dict] = []
 
     def fail(self, point: str, *, attempts: int = 1, after: int = 0,
-             mode: str = "raise", path: Optional[str] = None,
-             fraction: float = 0.5, delay_s: float = 0.5) -> "FaultPlan":
+             mode: str = "raise", series: Optional[int] = None,
+             path: Optional[str] = None, fraction: float = 0.5,
+             delay_s: float = 0.5) -> "FaultPlan":
         if mode not in _MODES:
             raise ValueError(f"mode {mode!r} not in {_MODES}")
         if attempts < 1 or after < 0:
@@ -122,7 +125,7 @@ class FaultPlan:
         self.rules.append({
             "id": f"r{len(self.rules)}_{point}", "point": point,
             "attempts": int(attempts), "after": int(after), "mode": mode,
-            "path": path, "fraction": float(fraction),
+            "series": series, "path": path, "fraction": float(fraction),
             "delay_s": float(delay_s),
         })
         return self
@@ -138,15 +141,11 @@ class FaultPlan:
         d = json.loads(spec)
         plan = cls(state_dir=d["state_dir"])
         for rule in d["rules"]:
-            odd = {}
             if rule.get("mode", "raise") not in _MODES:
-                odd["mode"] = rule["mode"]
-            if rule.get("series") is not None:
-                odd["series"] = rule["series"]
-            if odd:
                 raise ValueError(
                     f"fault rule {rule.get('id')}: the port injects "
-                    f"raise-mode and storage-mode rules only, not {odd}")
+                    f"raise-mode and storage-mode rules only, not mode "
+                    f"{rule['mode']!r}")
             plan.rules.append(dict(rule, mode=rule.get("mode", "raise")))
         return plan
 
@@ -173,6 +172,15 @@ def _matches_path(rule: dict, path: Optional[str]) -> bool:
     return scope in os.path.abspath(path)
 
 
+def _matches(rule: dict, lo: Optional[int], hi: Optional[int]) -> bool:
+    s = rule.get("series")
+    if s is None:
+        return True
+    if lo is None:
+        return True  # series-targeted rule at a context-free call site
+    return lo <= s < (hi if hi is not None else lo + 1)
+
+
 def _claim_call(state_dir: str, rule: dict) -> Optional[int]:
     """Atomically claim this call's global 0-based sequence number for
     ``rule`` (cross-process: first O_CREAT|O_EXCL success wins a slot)."""
@@ -188,8 +196,11 @@ def _claim_call(state_dir: str, rule: dict) -> Optional[int]:
     return None
 
 
-def _armed_call(rule: dict, state_dir: str) -> bool:
+def _armed_call(rule: dict, state_dir: str, lo: Optional[int] = None,
+                hi: Optional[int] = None) -> bool:
     """True when this call falls inside the rule's firing window."""
+    if not _matches(rule, lo, hi):
+        return False
     n = _claim_call(state_dir, rule)
     return n is not None and rule["after"] <= n < rule["after"] + \
         rule["attempts"]
@@ -205,12 +216,14 @@ def _count_fault_metric(mode: str) -> None:
         pass
 
 
-def inject(point: str, *, path: Optional[str] = None) -> None:
+def inject(point: str, *, lo: Optional[int] = None,
+           hi: Optional[int] = None, path: Optional[str] = None) -> None:
     """Fault injection point: raises ``FaultInjected`` (raise mode) or an
     ``OSError`` with the real errno (enospc / eio), or stalls (sleep),
     when the active plan arms ``point`` and this call falls in a rule's
-    window.  ``path``: the artifact the call targets (path-scoped rules
-    need it to match)."""
+    window.  ``lo``/``hi``: the series range the call operates on
+    (series-scoped rules match against it); ``path``: the artifact the
+    call targets (path-scoped rules need it to match)."""
     plan = _active_plan()
     if plan is None:
         return
@@ -219,7 +232,7 @@ def inject(point: str, *, path: Optional[str] = None) -> None:
             continue
         if not _matches_path(rule, path):
             continue
-        if not _armed_call(rule, plan.state_dir):
+        if not _armed_call(rule, plan.state_dir, lo, hi):
             continue
         mode = rule["mode"]
         _count_fault_metric(mode)

@@ -11,8 +11,8 @@ data, per horizon bucket, of the plane's own served columns:
 for the outer-quantile interval, per-quantile gaps beside it.
 
 ``run_calibration_smoke`` runs the whole ladder in one process: the demo
-workload (``data.datasets.demo_weekly_rows``, in the float32 columns the
-reference's data plane stores) with the last ``holdout`` days withheld,
+workload (``demo_weekly``, read off the data plane under ``data_root``)
+with the last ``holdout`` days withheld,
 the MAP fit, the ADVI advance, the quantile plane's publish, the coverage
 eval, interval-read probes and a small HMC gold audit on the same
 truncated data.  It runs on the card unless ``device="cpu"``.  The
@@ -147,11 +147,14 @@ def _report_identity(registry, device) -> dict:
 def run_calibration_smoke(scratch: str, *, n_series: int = 24,
                           seed: int = 0, holdout: int = DEFAULT_HOLDOUT,
                           horizons: Sequence[int] = (7, 14, 28),
+                          data_root: Optional[str] = None,
                           gold_audit: bool = True, read_probes: int = 200,
                           device=None) -> Dict:
     """The end-to-end uncertainty smoke: fit-minus-holdout, ADVI advance,
     quantile-plane publish, coverage eval, read-latency probes, gold
-    audit.  Returns the ``kind="calibration-eval"`` report dict."""
+    audit.  ``data_root``: the data plane's root the demo dataset is
+    ingested under and read from (``None``: ``plane.default_root()``).
+    Returns the ``kind="calibration-eval"`` report dict."""
     import torch
 
     from tsspark_tpu_torch.backends.registry import get_backend
@@ -162,7 +165,7 @@ def run_calibration_smoke(scratch: str, *, n_series: int = 24,
         SeasonalityConfig,
         SolverConfig,
     )
-    from tsspark_tpu_torch.data.datasets import demo_weekly_rows
+    from tsspark_tpu_torch.data import plane
     from tsspark_tpu_torch.device import resolve_device
     from tsspark_tpu_torch.models.prophet.design import prepare_fit_data
     from tsspark_tpu_torch.serve.registry import ParamRegistry
@@ -181,15 +184,19 @@ def run_calibration_smoke(scratch: str, *, n_series: int = 24,
         seasonalities=(SeasonalityConfig("weekly", 7.0, 2),),
         n_changepoints=3,
     )
-    batch = demo_weekly_rows(0, int(n_series), n_steps=180, seed=int(seed))
+    spec = plane.DatasetSpec(
+        generator="demo_weekly", n_series=int(n_series),
+        n_timesteps=180, seed=int(seed),
+    )
+    batch = plane.open_batch(plane.ensure(spec, root=data_root))
     ds = np.asarray(batch.ds, np.float64)
-    # The reference's data plane stores float32 columns.
-    y = np.nan_to_num(batch.y).astype(np.float32)
-    mask = np.asarray(batch.mask, np.float32)
+    y = np.asarray(batch.y)
+    mask = None if batch.mask is None else np.asarray(batch.mask)
     cut = len(ds) - int(holdout)
     if cut < 8:
         raise ValueError(f"holdout {holdout} leaves only {cut} fit points")
-    ds_fit, y_fit, mask_fit = ds[:cut], y[:, :cut], mask[:, :cut]
+    ds_fit, y_fit = ds[:cut], y[:, :cut]
+    mask_fit = None if mask is None else mask[:, :cut]
 
     backend = get_backend("cuda", config, SolverConfig(max_iters=25),
                           device=dev)
@@ -223,7 +230,8 @@ def run_calibration_smoke(scratch: str, *, n_series: int = 24,
         raise RuntimeError("calibration smoke: qplane publish refused")
 
     calib = evaluate_version(registry, int(v), ds[cut:], y[:, cut:],
-                             mask_future=mask[:, cut:])
+                             mask_future=None if mask is None
+                             else mask[:, cut:])
     if calib is None:
         raise RuntimeError("calibration smoke: no scorable plane")
 

@@ -123,11 +123,13 @@ def audit_version(registry, data_dir: Optional[str] = None,
                   device=None) -> Optional[dict]:
     """Audit one registry version's ADVI posterior against HMC.
 
-    Loads the version's posterior and snapshot, takes the audit rows of
-    ``arrays=(ds, y, mask, cap)`` (the data the version was fitted on),
-    runs the chains from the MAP theta on ``device`` (``None``: the card)
-    and writes ``gold_audit.json`` into the version dir.  Returns the
-    report, or None when the version has no usable ADVI posterior."""
+    Loads the version's posterior and snapshot, gathers the audit rows'
+    data off the data plane (``data_dir``, a complete plane dataset; or
+    ``arrays=(ds, y, mask, cap)`` directly, e.g. the holdout-truncated
+    arrays the version was fitted on), runs the chains from the MAP
+    theta on ``device`` (``None``: the card) and writes
+    ``gold_audit.json`` into the version dir.  Returns the report, or
+    None when the version has no usable ADVI posterior."""
     from tsspark_tpu_torch.device import resolve_device
     from tsspark_tpu_torch.models.prophet.design import (
         fitdata_to_device,
@@ -149,12 +151,15 @@ def audit_version(registry, data_dir: Optional[str] = None,
     n = len(snap.series_ids)
     if int(np.asarray(post.mu).shape[0]) != n:
         return None
-    if arrays is None:
-        raise ValueError(
-            "audit_version reads its rows from arrays=(ds, y, mask, cap); "
-            f"the data-plane route ({data_dir!r}) needs the data plane")
     rows = select_rows(n, int(version), max_series=max_series, seed=seed)
-    ds, y, mask, cap = arrays
+    if arrays is None:
+        from tsspark_tpu_torch.data import plane
+
+        batch = plane.open_batch(data_dir)
+        ds, y = np.asarray(batch.ds), batch.y
+        mask, cap = batch.mask, batch.cap
+    else:
+        ds, y, mask, cap = arrays
     sub = lambda a: (None if a is None  # noqa: E731
                      else np.ascontiguousarray(np.asarray(a)[rows]))
     data, _meta = prepare_fit_data(
