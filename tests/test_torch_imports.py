@@ -91,7 +91,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "tsspark_tpu_torch.uncertainty.advi",
                 "tsspark_tpu_torch.uncertainty.qplane",
                 "tsspark_tpu_torch.uncertainty.gold",
-                "tsspark_tpu_torch.uncertainty.calibrate"):
+                "tsspark_tpu_torch.uncertainty.calibrate",
+                "tsspark_tpu_torch.orchestrate",
+                "tsspark_tpu_torch.resilience",
+                "tsspark_tpu_torch.resilience.integrity",
+                "tsspark_tpu_torch.resilience.report",
+                "tsspark_tpu_torch.perf",
+                "tsspark_tpu_torch.perf.recorder",
+                "tsspark_tpu_torch.backends.registry",
+                "tsspark_tpu_torch.kernels.build"):
         assert mod in out["modules"]
 
 

@@ -447,18 +447,20 @@ def test_breaker_sheds_polls_once_open(tmp_path, monkeypatch):
     assert len(os.listdir(tmp_path / "f")) == 2  # no third attempt
 
 
-@pytest.mark.parametrize("rule", [{"mode": "exit"}, {"mode": "flag"},
-                                  {"mode": "corrupt"}])
+@pytest.mark.parametrize("rule", [{"mode": "hang"}, {"mode": "kill"},
+                                  {"mode": "tear"}])
 def test_fault_plan_refuses_what_the_port_does_not_inject(tmp_path,
                                                           monkeypatch, rule):
-    """A JAX-package plan that arms another mode is refused when the
-    point is reached, never silently ignored (a series scope is honoured:
+    """A plan that arms a mode the harness does not know is refused when
+    the point is reached, never silently ignored (the JAX package's
+    exit, flag and corrupt modes are injected since the orchestrator's
+    port: ``tests/test_torch_resilience.py``; a series scope is honoured:
     ``test_series_scoped_rule_fires_on_its_range``)."""
     plan = faults.FaultPlan(state_dir=str(tmp_path / "f")).fail(
         "stream_poll")
     plan.rules[0].update(rule)
     monkeypatch.setenv(faults.ENV_VAR, plan.to_env())
-    with pytest.raises(ValueError, match="raise-mode"):
+    with pytest.raises(ValueError, match="not one the harness injects"):
         faults.inject("stream_poll")
 
 

@@ -2,7 +2,7 @@
 bound device memory.
 
 The counterpart of the JAX package's ``TpuBackend`` (without its
-process-isolated ``resilient`` route and its multi-chip ``mesh`` route):
+multi-chip ``mesh`` route):
 
 * ``fit``: batches larger than one chunk (8,192 series by default) are
   fitted chunk by chunk, every chunk padded to a power of two (32-row
@@ -16,6 +16,18 @@ process-isolated ``resilient`` route and its multi-chip ``mesh`` route):
   reference's traced phase controls become a ``dataclasses.replace``d
   ``SolverConfig`` and the presence of ``init`` (``phase1_dynamic_args``
   / ``phase2_dynamic_args``).
+* ``resilient=True``: ``fit`` of an eligible batch (a shared 1-D ``ds``
+  grid, an exact 0/1 mask or none, no ``init``, no ``conditions``) runs
+  through ``orchestrate.fit_resilient``: process-isolated fit workers on
+  this backend's device, chunk files fenced by leases and stamped with a
+  CRC, a worker's crash costing a respawn and a resume, not the run.  It
+  serves ``fit_twophase`` semantics: no rescue pass and no length
+  buckets, whatever ``rescue`` / ``length_buckets`` say (announced once
+  with a ``ResilienceWarning`` and noted on each returned state's
+  ``resilience`` report).  ``resilient_opts`` go to ``fit_resilient``
+  (``scratch_dir``, ``phase1_iters``, ``retry_policy``, ...); an
+  ineligible batch falls back to the in-process fit with one warning
+  naming the failed checks.
 * ``predict`` / ``components``: a batch larger than one chunk streams
   through the model in fixed-size chunks (the last padded by repeating a
   real row, whose outputs are discarded), each chunk seeded with its own
@@ -32,6 +44,7 @@ into the same clock).
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Dict, Optional
 
 import numpy as np
@@ -44,6 +57,7 @@ from tsspark_tpu_torch.backends.registry import (
 from tsspark_tpu_torch.models.prophet.design import (
     _indicator_reg_cols,
     changepoint_span_warning_suppressed,
+    packable_batch,
     warn_out_of_span_changepoints,
 )
 from tsspark_tpu_torch.models.prophet.model import (
@@ -54,6 +68,36 @@ from tsspark_tpu_torch.models.prophet.model import (
 )
 from tsspark_tpu_torch.ops import lbfgs
 from tsspark_tpu_torch.parallel.sharding import next_pow2
+from tsspark_tpu_torch.resilience.report import (
+    ResilienceWarning,
+    add_warning,
+)
+
+# One-time flag for the resilient gate's semantic-switch warning: every
+# eligible fit after the first stays quiet (the note still rides each
+# returned state's resilience report).
+_RESILIENT_GATE_WARNED = False
+
+# One-time flag for the opposite edge of the same gate: resilient=True
+# was requested but the batch is INELIGIBLE for the worker path, so the
+# fit loses process isolation and crash resume.  Announced once, naming
+# the failed eligibility check(s).
+_RESILIENT_FALLBACK_WARNED = False
+
+
+def _resilient_ineligibility(init, conditions, packable):
+    """Human-readable list of the eligibility checks a resilient=True fit
+    failed (empty = eligible for the worker path)."""
+    failed = []
+    if init is not None:
+        failed.append("an explicit warm start (init=) was passed")
+    if conditions is not None:
+        failed.append("conditional-seasonality data (conditions=) was "
+                      "passed")
+    if not packable:
+        failed.append("the batch is not packable (needs a shared 1-D ds "
+                      "grid and an exact 0/1 mask)")
+    return failed
 
 
 def _slice_repeat_pad(a, lo: int, hi: int, c: int):
@@ -190,7 +234,8 @@ class CudaBackend(ForecastBackend):
     def __init__(self, *args, chunk_size: int = 8192, device=None,
                  iter_segment: Optional[int] = None, on_segment=None,
                  length_buckets: Optional[int] = None, rescue: bool = True,
-                 compact: bool = True, **kwargs):
+                 compact: bool = True, resilient: bool = False,
+                 resilient_opts: Optional[dict] = None, **kwargs):
         """``chunk_size`` bounds series per model call; ``device=None``
         is the card (and raises without one).
 
@@ -212,8 +257,14 @@ class CudaBackend(ForecastBackend):
         those series (warm from their stuck point AND fresh from the ridge
         init) and keeps each series' best loss, original included, by
         more than ``KEEP_BEST_MARGIN`` — so the pass can only improve.
+
+        ``resilient`` routes eligible ``fit`` calls through
+        ``orchestrate.fit_resilient`` with ``resilient_opts`` (see the
+        module docstring).
         """
         super().__init__(*args, **kwargs)
+        self.resilient = resilient
+        self.resilient_opts = dict(resilient_opts or {})
         self.chunk_size = chunk_size
         self.iter_segment = iter_segment
         self.on_segment = on_segment
@@ -309,6 +360,26 @@ class CudaBackend(ForecastBackend):
     def fit(self, ds, y, mask=None, cap=None, floor=None, regressors=None,
             init=None, conditions=None, reg_u8_cols=None) -> FitState:
         """Fit a (B, T) batch of series; returns a FitState on the host."""
+        if self.resilient:
+            if (init is None and conditions is None
+                    and packable_batch(ds, mask)):
+                return self._fit_resilient(ds, y, mask, cap, floor,
+                                           regressors)
+            # The gate declined this batch: the fit proceeds in-process,
+            # WITHOUT process isolation or crash resume — announce once
+            # which eligibility check failed.
+            global _RESILIENT_FALLBACK_WARNED
+            if not _RESILIENT_FALLBACK_WARNED:
+                _RESILIENT_FALLBACK_WARNED = True
+                failed = _resilient_ineligibility(
+                    init, conditions, packable_batch(ds, mask))
+                warnings.warn(
+                    "CudaBackend(resilient=True): this fit is INELIGIBLE "
+                    "for the process-isolated worker path and falls back "
+                    "to the in-process fit (no crash isolation/resume). "
+                    "Failed eligibility check(s): " + "; ".join(failed),
+                    ResilienceWarning, stacklevel=2,
+                )
         segmented = self._segmented()
         # Indicator-column split decided ONCE for the main fit and the
         # rescue pass (an O(B*T*R) host scan; unused when segmented).
@@ -333,6 +404,39 @@ class CudaBackend(ForecastBackend):
                 state, ds, y, mask, cap, floor, regressors, conditions,
                 reg_u8_cols,
             )
+
+    def _fit_resilient(self, ds, y, mask, cap, floor, regressors):
+        """The process-isolated route (``orchestrate.fit_resilient``) on
+        this backend's device and chunk width.  It serves fit_twophase
+        semantics: no rescue pass, no length buckets.  With rescue on
+        (the default) or length buckets set, two calls differing only in
+        eligibility would return different-quality stuck tails with no
+        signal, so the switch is announced once and noted on the state."""
+        from tsspark_tpu_torch import orchestrate
+
+        note = None
+        if self.rescue or self.length_buckets not in (None, 1):
+            note = (
+                "CudaBackend(resilient=True): this fit is served by the "
+                "two-phase worker path, which ignores "
+                f"rescue={self.rescue!r} and length_buckets="
+                f"{self.length_buckets!r}; ineligible batches (fractional "
+                "mask, 2-D ds, conditions, init) fall back to the "
+                "in-process fit WITH those features"
+            )
+            global _RESILIENT_GATE_WARNED
+            if not _RESILIENT_GATE_WARNED:
+                _RESILIENT_GATE_WARNED = True
+                warnings.warn(note, ResilienceWarning, stacklevel=3)
+        opts = dict(chunk=self.chunk_size, device=self.device.type)
+        if self.iter_segment:
+            opts["segment"] = self.iter_segment
+        opts.update(self.resilient_opts)
+        state = orchestrate.fit_resilient(
+            self.config, self.solver_config, ds, y, mask=mask,
+            regressors=regressors, cap=cap, floor=floor, **opts,
+        )
+        return add_warning(state, note) if note else state
 
     def _rescue_pass(self, state, ds, y, mask, cap, floor, regressors,
                      conditions, u8):

@@ -8,7 +8,8 @@ Built-ins:
     line-search passes are hand-written CUDA kernels (``device="cpu"``
     runs their plain PyTorch versions instead).
   * "cpu" — per-series scipy L-BFGS-B on the plain loss: the parity
-    oracle of the batched fit.
+    oracle of the batched fit, and the resilient route's degradation
+    backend (``degraded_backend``).
 """
 
 from __future__ import annotations
@@ -79,6 +80,25 @@ def get_backend(
         solver_config=solver_config or SolverConfig(),
         **kwargs,
     )
+
+
+#: Where resilient fits degrade to when the card path's retry budget is
+#: exhausted: the per-series scipy oracle — slow, but it has no device
+#: runtime and no lockstep batch to poison, so it finishes runs the
+#: batched path cannot.
+DEGRADED_BACKEND = "cpu"
+
+
+def degraded_backend(
+    config: Optional[ProphetConfig] = None,
+    solver_config: Optional[SolverConfig] = None,
+    **kwargs,
+) -> ForecastBackend:
+    """The graceful-degradation backend (see ``DEGRADED_BACKEND``): the
+    which-backend-degrades-to-what decision sits with the registry;
+    ``orchestrate.fit_resilient`` calls this after exhausting the card
+    path, with a loud ``ResilienceWarning``."""
+    return get_backend(DEGRADED_BACKEND, config, solver_config, **kwargs)
 
 
 def list_backends():

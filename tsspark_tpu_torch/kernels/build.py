@@ -107,6 +107,12 @@ _lib: Optional[ctypes.CDLL] = None
 #: each source (registers, shared memory, spills).
 build_seconds: Optional[float] = None
 ptxas_log: Dict[str, str] = {}
+#: Loads of the library into this process (0 or 1) and, of them, those
+#: that had to run ``nvcc`` first (another process's build, or an earlier
+#: one, left nothing to load): what ``perf.CompileWatch`` counts, the
+#: port's stand-in for the JAX package's trace compiles.
+loads = 0
+builds = 0
 
 
 def _nvcc() -> str:
@@ -178,7 +184,7 @@ def _compile(nvcc: str, sources: List[str], lib_path: str) -> None:
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
-    global _lib, build_seconds
+    global _lib, build_seconds, loads, builds
     with _lock:
         if _lib is not None:
             return _lib
@@ -193,6 +199,7 @@ def library() -> ctypes.CDLL:
             try:
                 if not os.path.exists(lib_path):
                     _compile(_nvcc(), sources, lib_path)
+                    builds += 1
             finally:
                 fcntl.flock(lock_fh, fcntl.LOCK_UN)
         lib = ctypes.CDLL(lib_path)
@@ -205,6 +212,7 @@ def library() -> ctypes.CDLL:
         lib.tsspark_error_string.argtypes = [ctypes.c_int]
         lib.tsspark_error_string.restype = ctypes.c_char_p
         build_seconds = time.perf_counter() - t0
+        loads += 1
         _lib = lib
         return lib
 

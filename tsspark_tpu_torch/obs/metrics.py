@@ -1,19 +1,34 @@
-"""Process-local metrics registry: counters and pow-2 histograms.
+"""Process-local metrics registry: counters, gauges, pow-2 histograms.
 
-The part of the JAX package's ``obs/metrics.py`` that the port's
-streaming driver records through, with the same names and buckets:
-``tsspark_<subsystem>_<what>_<unit>`` names, one locked increment on the
-hot path.  Histograms bucket on the pow-2 ladder as ``{exponent: count}``
-with exact sum/count/min/max alongside.  Gauges hold the storage layer's
-headroom and ladder state (``io/budget.py``, ``io/ladder.py``).  Labels
-and the snapshot export come with their first caller.
+A copy of the JAX package's ``obs/metrics.py`` without its Prometheus
+text rendering: ``tsspark_<subsystem>_<what>_<unit>`` names, labels baked
+into the handle at registration (``counter("...", result="shed")``), so
+the hot path is one locked increment with no formatting.  Histograms
+bucket on the pow-2 ladder as ``{exponent: count}`` with exact
+sum/count/min/max alongside, so a snapshot stays a few dozen ints.
+
+``MetricsRegistry.export`` writes an atomic JSON snapshot
+(``metrics_*.json`` next to a run's other artifacts; a trace id keys it
+into the run ledger): the orchestrator's fit workers export theirs at a
+clean exit.
 """
 
 from __future__ import annotations
 
+import json
 import math
+import os
 import threading
-from typing import Dict, Optional
+import time
+from typing import Any, Dict, Optional, Tuple
+
+from tsspark_tpu_torch.utils.atomic import atomic_write
+
+_LabelKey = Tuple[Tuple[str, str], ...]
+
+
+def _labelkey(labels: Dict[str, Any]) -> _LabelKey:
+    return tuple(sorted((k, str(v)) for k, v in labels.items()))
 
 
 class Counter:
@@ -30,6 +45,10 @@ class Counter:
         with self._lock:
             self.value += n
 
+    def _reset(self) -> None:
+        with self._lock:
+            self.value = 0
+
 
 class Gauge:
     """Last-value gauge."""
@@ -41,6 +60,9 @@ class Gauge:
 
     def set(self, v: float) -> None:
         self.value = float(v)
+
+    def _reset(self) -> None:
+        self.value = 0.0
 
 
 #: Exponent clamp: 2**-30 s ≈ 1 ns and 2**30 ≈ 34 years/1G — everything
@@ -75,28 +97,101 @@ class Histogram:
             self.vmin = v if self.vmin is None else min(self.vmin, v)
             self.vmax = v if self.vmax is None else max(self.vmax, v)
 
+    def _reset(self) -> None:
+        with self._lock:
+            self.buckets.clear()
+            self.count = 0
+            self.total = 0.0
+            self.vmin = self.vmax = None
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "buckets": {str(e): n for e, n in sorted(self.buckets.items())},
+            "count": self.count,
+            "sum": round(self.total, 6),
+            "min": self.vmin, "max": self.vmax,
+        }
+
 
 class MetricsRegistry:
     """Named metric handles, one registry per process (``DEFAULT``)."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
-        self._counters: Dict[str, Counter] = {}
+        self._counters: Dict[Tuple[str, _LabelKey], Counter] = {}
+        self._gauges: Dict[Tuple[str, _LabelKey], Gauge] = {}
         self._hists: Dict[str, Histogram] = {}
-        self._gauges: Dict[str, Gauge] = {}
 
-    def counter(self, name: str) -> Counter:
+    def counter(self, name: str, **labels: Any) -> Counter:
+        key = (name, _labelkey(labels))
         with self._lock:
-            return self._counters.setdefault(name, Counter())
+            c = self._counters.get(key)
+            if c is None:
+                c = self._counters[key] = Counter()
+        return c
+
+    def gauge(self, name: str, **labels: Any) -> Gauge:
+        key = (name, _labelkey(labels))
+        with self._lock:
+            g = self._gauges.get(key)
+            if g is None:
+                g = self._gauges[key] = Gauge()
+        return g
 
     def histogram(self, name: str) -> Histogram:
         with self._lock:
-            return self._hists.setdefault(name, Histogram())
+            h = self._hists.get(name)
+            if h is None:
+                h = self._hists[name] = Histogram()
+        return h
 
-    def gauge(self, name: str) -> Gauge:
+    def reset(self) -> None:
+        """Zero every metric IN PLACE (handles cached by subsystems stay
+        live), so a second run in one process does not export the first
+        run's counts under its own trace id."""
         with self._lock:
-            return self._gauges.setdefault(name, Gauge())
+            handles = (list(self._counters.values())
+                       + list(self._gauges.values())
+                       + list(self._hists.values()))
+        for h in handles:
+            h._reset()
+
+    # -- export ---------------------------------------------------------------
+
+    def snapshot(self) -> Dict[str, Any]:
+        with self._lock:
+            counters = [
+                {"name": n, "labels": dict(lk), "value": c.value}
+                for (n, lk), c in sorted(self._counters.items())
+            ]
+            gauges = [
+                {"name": n, "labels": dict(lk), "value": g.value}
+                for (n, lk), g in sorted(self._gauges.items())
+            ]
+            hists = [
+                {"name": n, **h.to_dict()}
+                for n, h in sorted(self._hists.items())
+            ]
+        return {"counters": counters, "gauges": gauges,
+                "histograms": hists}
+
+    def export(self, path: str,
+               trace_id: Optional[str] = None) -> Dict[str, Any]:
+        """Atomic snapshot file (readers never see a torn JSON); the
+        trace id keys it into the run ledger."""
+        snap = {
+            "kind": "metrics-snapshot",
+            "unix": round(time.time(), 3),
+            "trace_id": trace_id,
+            "pid": os.getpid(),
+            "metrics": self.snapshot(),
+        }
+        atomic_write(path, lambda fh: json.dump(snap, fh, indent=1),
+                     mode="w")
+        return snap
 
 
-#: The process's registry.
+#: The process's registry.  Subsystems grab handles at init and bump
+#: them unconditionally — a handle costs one int add, and the snapshot
+#: is only exported when a caller asks for it.
 DEFAULT = MetricsRegistry()

@@ -1,22 +1,30 @@
 """Deterministic fault injection: make the port's recovery paths testable
 on the CPU.
 
-The raise and storage modes of the JAX package's harness
-(``resilience/faults.py``): the same plan layout, the same
-``TSSPARK_FAULTS`` environment variable and the same claim files, so a
-plan armed for either package fires the same way in both.  A
-``FaultPlan`` arms named injection points; the plan travels through the
-environment so child processes see the plan the test armed in the
-parent.  A plan that asks for another mode the JAX package's harness
-offers ("exit", "flag", "corrupt") is refused, never ignored.
+A copy of the JAX package's harness (``resilience/faults.py``): the same
+modes, the same plan layout, the same ``TSSPARK_FAULTS`` environment
+variable and the same claim files, so a plan armed for either package
+fires the same way in both.  A ``FaultPlan`` arms named injection points;
+the plan travels through the environment so the orchestrator's CHILD
+PROCESSES see the plan the test armed in the parent.  A plan that asks
+for a mode the harness does not know is refused, never ignored.
 
 Each armed rule carries a fixed call window (``after`` skipped calls,
 then ``attempts`` firings).  Call slots are claimed by atomic
 ``O_CREAT|O_EXCL`` file creation under the plan's ``state_dir``, so the
-N-th matching call fires the same way no matter which process makes it.
+N-th matching call fires the same way no matter which process makes it,
+and a respawned worker does not reset the count.
 
-Named points wired in the port so far:
+Named points wired in the port:
 
+  worker_spawn      orchestrator parent, before a child    (flag)
+  device_probe      ``orchestrate.tunnel_preflight``       (flag)
+  fit_worker_start  fit worker entry                       (exit/raise)
+  kernel_build      fit worker, loading the kernel library (sleep/raise)
+  fit_chunk         fit worker, before a chunk's solve     (exit/raise)
+  fit_worker_chunk  fit worker, after a chunk save         (exit/raise)
+  chunk_save        after ``save_chunk_atomic``'s rename   (corrupt)
+  prep_save         after ``save_prep_atomic``'s rename    (corrupt)
   stream_poll       streaming source poll                  (raise)
   qplane_publish    quantile plane publish, once per column (raise)
   fplane_publish    forecast plane publish, once per column (raise)
@@ -27,6 +35,16 @@ Named points wired in the port so far:
   io_fsync          ``io.durable`` durability barrier      (lost_fsync/eio)
   io_link           ``io.durable`` hardlink copy-forward   (enospc/eio)
   io_mmap           ``io.durable`` memmap attach           (eio/sleep)
+
+Process modes:
+
+  "raise"         — ``inject`` raises ``FaultInjected``.
+  "exit"          — ``inject`` kills the process (``os._exit(rc)``), a
+                    worker death; recorded lost fsyncs are replayed first.
+  "flag"          — ``inject`` returns True and the site fails soft (a
+                    probe returning False, a spawn that never started).
+  "corrupt"       — ``corrupt_file`` flips bytes in the file the site
+                    just wrote (silent media corruption of a checkpoint).
 
 Storage modes (the disk misbehaving, not the process):
 
@@ -64,11 +82,13 @@ from typing import Dict, List, Optional
 
 ENV_VAR = "TSSPARK_FAULTS"
 
-_MODES = ("raise", "sleep", "enospc", "eio", "shortwrite", "lost_fsync")
+_MODES = ("raise", "exit", "flag", "corrupt", "sleep",
+          "enospc", "eio", "shortwrite", "lost_fsync")
 
 # Modes that never fire from the generic ``inject`` gate: each has its
-# own hook because firing needs the artifact path.
-_HOOK_MODES = ("shortwrite", "lost_fsync")
+# own hook (``corrupt_file``, ``short_write``, ``lost_fsync``) because
+# firing needs the artifact path.
+_HOOK_MODES = ("corrupt", "shortwrite", "lost_fsync")
 
 # Subdirectory of the plan's state_dir holding lost-fsync rollback
 # records (pre-write snapshots awaiting replay).
@@ -96,14 +116,19 @@ class FaultPlan:
 
     Usage (tests)::
 
-        plan = FaultPlan(state_dir=tmp).fail("stream_poll", attempts=2)
+        plan = (FaultPlan(state_dir=tmp)
+                .fail("fit_worker_chunk", after=1, attempts=2, mode="exit")
+                .fail("chunk_save", series=40, mode="corrupt"))
         monkeypatch.setenv(faults.ENV_VAR, plan.to_env())
 
     ``fail(point, ...)``: ``attempts`` matching calls fire after
     ``after`` let through; ``mode`` one of ``_MODES``; ``series`` fires
-    only on calls whose ``(lo, hi)`` range covers that series index;
-    ``path`` a substring scope on the call's target path; ``fraction``
-    the surviving share of a short write; ``delay_s`` a sleep's stall.
+    only on calls whose ``(lo, hi)`` range covers that series index (a
+    poison series: the chunk holding it dies wherever it lands);
+    ``path`` a substring scope on the call's target path; ``rc`` the
+    exit code of "exit" mode; ``delay_s`` a sleep's stall; ``fraction``
+    the surviving share of a short write; ``tag`` a free-form label on
+    the observability event a firing emits.
     """
 
     def __init__(self, state_dir: Optional[str] = None):
@@ -114,8 +139,9 @@ class FaultPlan:
 
     def fail(self, point: str, *, attempts: int = 1, after: int = 0,
              mode: str = "raise", series: Optional[int] = None,
-             path: Optional[str] = None, fraction: float = 0.5,
-             delay_s: float = 0.5) -> "FaultPlan":
+             rc: int = 23, delay_s: float = 0.5,
+             tag: Optional[str] = None, path: Optional[str] = None,
+             fraction: float = 0.5) -> "FaultPlan":
         if mode not in _MODES:
             raise ValueError(f"mode {mode!r} not in {_MODES}")
         if attempts < 1 or after < 0:
@@ -125,8 +151,8 @@ class FaultPlan:
         self.rules.append({
             "id": f"r{len(self.rules)}_{point}", "point": point,
             "attempts": int(attempts), "after": int(after), "mode": mode,
-            "series": series, "path": path, "fraction": float(fraction),
-            "delay_s": float(delay_s),
+            "series": series, "rc": int(rc), "delay_s": float(delay_s),
+            "tag": tag, "path": path, "fraction": float(fraction),
         })
         return self
 
@@ -137,15 +163,14 @@ class FaultPlan:
     @classmethod
     def from_env(cls, spec: str) -> "FaultPlan":
         """The plan ``spec`` holds; ``ValueError`` for a rule that asks
-        for a mode or scope the port does not inject."""
+        for a mode the harness does not know."""
         d = json.loads(spec)
         plan = cls(state_dir=d["state_dir"])
         for rule in d["rules"]:
             if rule.get("mode", "raise") not in _MODES:
                 raise ValueError(
-                    f"fault rule {rule.get('id')}: the port injects "
-                    f"raise-mode and storage-mode rules only, not mode "
-                    f"{rule['mode']!r}")
+                    f"fault rule {rule.get('id')}: mode {rule['mode']!r} "
+                    f"is not one the harness injects ({_MODES})")
             plan.rules.append(dict(rule, mode=rule.get("mode", "raise")))
         return plan
 
@@ -216,17 +241,41 @@ def _count_fault_metric(mode: str) -> None:
         pass
 
 
+def _obs_fault(rule: dict, point: str, lo: Optional[int],
+               hi: Optional[int], path: Optional[str] = None) -> None:
+    """Span-ledger annotation for one firing: the moment a fault was
+    injected becomes readable off the trace.  Best-effort; never breaks
+    the site."""
+    try:
+        from tsspark_tpu_torch.obs import context as obs
+
+        attrs = {"point": point, "rule": rule["id"],
+                 "mode": rule["mode"], "tag": rule.get("tag")}
+        if lo is not None:
+            attrs["lo"], attrs["hi"] = lo, hi
+        if path is not None:
+            attrs["path"] = os.path.basename(path)
+        obs.event("fault", **attrs)
+    except Exception:
+        pass
+
+
 def inject(point: str, *, lo: Optional[int] = None,
-           hi: Optional[int] = None, path: Optional[str] = None) -> None:
-    """Fault injection point: raises ``FaultInjected`` (raise mode) or an
-    ``OSError`` with the real errno (enospc / eio), or stalls (sleep),
-    when the active plan arms ``point`` and this call falls in a rule's
-    window.  ``lo``/``hi``: the series range the call operates on
-    (series-scoped rules match against it); ``path``: the artifact the
-    call targets (path-scoped rules need it to match)."""
+           hi: Optional[int] = None, path: Optional[str] = None) -> bool:
+    """Fault injection point.  No-op (False) unless a plan arms ``point``
+    and this call falls in a rule's window.
+
+    ``lo``/``hi``: the series range the call operates on (series-scoped
+    rules match against it); ``path``: the artifact the call targets
+    (path-scoped rules need it to match).  Returns True when a "flag"
+    rule fires (the caller fails soft); "raise" raises
+    ``FaultInjected``; "exit" kills the process like a real worker death;
+    "enospc" / "eio" raise ``OSError`` with the real errno; "sleep"
+    stalls, then lets the call proceed."""
     plan = _active_plan()
     if plan is None:
-        return
+        return False
+    flagged = False
     for rule in plan.rules:
         if rule["point"] != point or rule["mode"] in _HOOK_MODES:
             continue
@@ -235,7 +284,14 @@ def inject(point: str, *, lo: Optional[int] = None,
         if not _armed_call(rule, plan.state_dir, lo, hi):
             continue
         mode = rule["mode"]
+        _obs_fault(rule, point, lo, hi, path)
         _count_fault_metric(mode)
+        if mode == "exit":
+            # A kill point is where un-fsynced renames die with the
+            # process: replay recorded lost-fsync rollbacks first so the
+            # survivor observes the pre-crash on-disk truth.
+            _replay_lost_fsyncs(plan.state_dir)
+            os._exit(int(rule.get("rc", 23)))
         if mode == "raise":
             raise FaultInjected(point, rule["id"])
         if mode in ("enospc", "eio"):
@@ -245,7 +301,47 @@ def inject(point: str, *, lo: Optional[int] = None,
                 f"{rule['id']}); deliberate — a FaultPlan armed this point",
             )
         if mode == "sleep":
+            # A stall, not a failure: the call proceeds (not flagged).
             time.sleep(float(rule.get("delay_s", 0.5)))
+            continue
+        flagged = True
+    return flagged
+
+
+def corrupt_file(point: str, path: str, *, lo: Optional[int] = None,
+                 hi: Optional[int] = None) -> bool:
+    """Corruption hook: when a "corrupt" rule at ``point`` fires, flip
+    bytes across ``path`` (silent media corruption of a just-written
+    checkpoint).  Returns True when corruption was applied."""
+    plan = _active_plan()
+    if plan is None:
+        return False
+    hit = False
+    for rule in plan.rules:
+        if rule["point"] != point or rule["mode"] != "corrupt":
+            continue
+        if not _matches_path(rule, path):
+            continue
+        if not _armed_call(rule, plan.state_dir, lo, hi):
+            continue
+        _obs_fault(rule, point, lo, hi, path)
+        _count_fault_metric("corrupt")
+        try:
+            size = os.path.getsize(path)
+            with open(path, "r+b") as fh:
+                # 16 bytes at seven offsets across the file: a single
+                # mid-file flip can land in npz/zip alignment padding no
+                # loader parses, which would make it benign.
+                for k in range(1, 8):
+                    off = size * k // 8
+                    fh.seek(off)
+                    chunk = fh.read(16)
+                    fh.seek(off)
+                    fh.write(bytes(b ^ 0xFF for b in chunk))
+            hit = True
+        except OSError:
+            pass
+    return hit
 
 
 def short_write(point: str, path: str) -> Optional[float]:

@@ -1,19 +1,25 @@
-"""Unified retry policy and circuit breaker (a copy of the JAX package's
-``resilience/policy.py``, the same schedules and the same semantics).
+"""Unified retry policy and circuit breaker: a copy of the JAX package's
+``resilience/policy.py``, field for field, with the same schedules.
 
-``RetryPolicy`` expresses a retry loop as data (attempts and backoff),
-so call sites accept a policy and tests and operators tune recovery
-without editing control flow.  ``CircuitBreaker`` remembers failures
-across calls.  ``STREAM_POLL`` is the JAX package's streaming-poll
-schedule, the default of the port's ``streaming.source.ResilientSource``.
-The JAX package's jitter, per-attempt deadlines and total budget come
-with their first caller in the port.
+``RetryPolicy`` expresses a retry loop as data (attempts, exponential
+backoff with deterministic jitter, per-attempt deadlines, a total
+budget), so call sites accept a policy and tests and operators tune
+recovery without editing control flow.  ``CircuitBreaker`` remembers
+failures across calls.  The named schedules below are the reference's:
+``WORKER_RETRY`` (the orchestrator's respawns), ``PROBE`` (its
+accelerator probe) and ``STREAM_POLL`` (the streaming poll).
+
+Jitter is deterministic: it is derived from ``(seed, attempt)``, never
+from global RNG state or wall-clock entropy, so a replayed run sleeps
+the same intervals, which the fault-injection harness (``faults.py``)
+relies on to make recovery paths reproducible.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import random
 import threading
 import time
 from typing import Callable, Optional, Tuple, Type
@@ -122,46 +128,100 @@ class CircuitBreaker:
 class RetryPolicy:
     """How many times to try, how long to wait, and when to give up.
 
-    ``max_attempts``: total attempts allowed (``None`` = unbounded).
-    ``allows(n)`` answers "may attempt number ``n`` (0-based
+    ``max_attempts``: total attempts allowed (``None`` = unbounded; the
+    probe loop uses this — a wedged runtime recovers on its own
+    schedule).  ``allows(n)`` answers "may attempt number ``n`` (0-based
     count of attempts already made) start?".
 
-    ``base_delay_s`` / ``backoff`` / ``max_delay_s``: the sleep before
-    retry ``k`` (0-based) is ``min(base * backoff**k, max_delay)``.
+    ``base_delay_s`` / ``backoff`` / ``max_delay_s`` / ``jitter``: the
+    sleep before retry ``k`` (0-based) is
+    ``min(base * backoff**k, max_delay)``, scaled by a deterministic
+    jitter factor in ``[1 - jitter, 1 + jitter]`` drawn from
+    ``(seed, k)``.
+
+    ``attempt_timeout_s`` (+ ``attempt_timeout_step_s``, capped at
+    ``attempt_timeout_max_s``): per-attempt deadline, escalating with
+    consecutive failures — a healthy-but-slow dependency must not fail
+    every probe forever, so each failure buys the next attempt more
+    patience.
+
+    ``total_budget_s``: overall wall budget across all attempts
+    (``deadline_from(start)`` converts it to an absolute deadline).
     """
 
     max_attempts: Optional[int] = 9
     base_delay_s: float = 10.0
     backoff: float = 1.0
     max_delay_s: float = 30.0
+    jitter: float = 0.0
+    attempt_timeout_s: Optional[float] = None
+    attempt_timeout_step_s: float = 0.0
+    attempt_timeout_max_s: Optional[float] = None
+    total_budget_s: Optional[float] = None
+    seed: int = 0
 
     def allows(self, attempts_made: int) -> bool:
         """True if another attempt may start after ``attempts_made``."""
         return self.max_attempts is None or attempts_made < self.max_attempts
 
     def delay_s(self, retry: int) -> float:
-        """Sleep before 0-based retry number ``retry``."""
-        return max(0.0, min(
+        """Sleep before 0-based retry number ``retry`` (deterministic)."""
+        d = min(
             self.base_delay_s * (self.backoff ** max(0, retry)),
             self.max_delay_s,
-        ))
+        )
+        if self.jitter:
+            # String seeding: deterministic across processes and Python
+            # versions (tuple seeds are hash-based and deprecated).
+            u = random.Random(f"{self.seed}:{retry}").uniform(-1.0, 1.0)
+            d *= 1.0 + self.jitter * u
+        return max(0.0, d)
+
+    def attempt_timeout(self, consecutive_failures: int = 0
+                        ) -> Optional[float]:
+        """Per-attempt deadline after ``consecutive_failures`` failures."""
+        if self.attempt_timeout_s is None:
+            return None
+        t = (self.attempt_timeout_s
+             + self.attempt_timeout_step_s * max(0, consecutive_failures))
+        if self.attempt_timeout_max_s is not None:
+            t = min(t, self.attempt_timeout_max_s)
+        return t
+
+    def deadline_from(self, start: float) -> Optional[float]:
+        """Absolute deadline for the whole retry loop, or None."""
+        if self.total_budget_s is None:
+            return None
+        return start + self.total_budget_s
+
+    def sleep(self, retry: int, deadline: Optional[float] = None) -> float:
+        """Sleep ``delay_s(retry)``, clamped to ``deadline``; returns the
+        seconds actually slept."""
+        d = self.delay_s(retry)
+        if deadline is not None:
+            d = max(0.0, min(d, deadline - time.time()))
+        if d > 0:
+            time.sleep(d)
+        return d
 
     def call(self, fn: Callable, *,
              retry_on: Tuple[Type[BaseException], ...] = (Exception,),
              on_retry: Optional[Callable[[int, BaseException], None]] = None,
              breaker: Optional["CircuitBreaker"] = None):
         """Run ``fn()`` under this policy: retry on ``retry_on`` with the
-        backoff schedule until an attempt succeeds or the attempt budget
-        is exhausted — then re-raise the last error.  The streaming poll loops ride this helper.
+        backoff schedule until an attempt succeeds, the attempt budget is
+        exhausted, or the total budget runs out — then re-raise the last
+        error.  The streaming poll loops ride this helper.
 
         ``breaker``: a ``CircuitBreaker`` consulted before EVERY attempt
         and fed every outcome.  A call that starts against an open
         breaker raises ``CircuitOpen`` without attempting anything — a
         dependency that has been failing across calls is shed fast
-        instead of retried to its last attempt.  A breaker that OPENS
+        instead of retried to the deadline.  A breaker that OPENS
         mid-call stops the retry loop but re-raises the underlying
         error (the real failure must not be masked by the gate that
         merely reacted to it)."""
+        deadline = self.deadline_from(time.time())
         for attempt in itertools.count():
             if breaker is not None and not breaker.allow():
                 raise CircuitOpen(breaker.name, breaker.retry_after_s())
@@ -171,15 +231,18 @@ class RetryPolicy:
                 if breaker is not None:
                     breaker.record_failure()
                 out_of_attempts = not self.allows(attempt + 1)
+                out_of_budget = (
+                    deadline is not None and time.time() >= deadline
+                )
                 breaker_tripped = (
                     breaker is not None
                     and breaker.state != CircuitBreaker.CLOSED
                 )
-                if out_of_attempts or breaker_tripped:
+                if out_of_attempts or out_of_budget or breaker_tripped:
                     raise
                 if on_retry is not None:
                     on_retry(attempt, e)
-                time.sleep(self.delay_s(attempt))
+                self.sleep(attempt, deadline)
             except BaseException:
                 # Non-retryable escape (caller bug, KeyboardInterrupt):
                 # the attempt still has to resolve the breaker's
@@ -193,6 +256,27 @@ class RetryPolicy:
                     breaker.record_success()
                 return result
 
+
+# The pre-existing schedules, named.  Call sites default to these so the
+# refactor preserves behavior exactly; callers override per run.
+
+#: orchestrate.run_resilient's post-crash schedule: fixed 10 s sleep
+#: between worker respawns, give up after 9 consecutive zero-progress
+#: deaths (the old ``max_fruitless_retries=8`` semantics: raise when the
+#: count EXCEEDS 8).
+WORKER_RETRY = RetryPolicy(
+    max_attempts=9, base_delay_s=10.0, backoff=1.0, max_delay_s=10.0,
+)
+
+#: The accelerator probe loop: 5 s sleeps escalating x1.5 to a 30 s cap
+#: between failed probes (reset on success), per-probe patience
+#: 30 + 15*consec capped at 90 s, never giving up (a wedged runtime
+#: recovers on its own schedule).
+PROBE = RetryPolicy(
+    max_attempts=None, base_delay_s=5.0, backoff=1.5, max_delay_s=30.0,
+    attempt_timeout_s=30.0, attempt_timeout_step_s=15.0,
+    attempt_timeout_max_s=90.0,
+)
 
 #: Streaming micro-batch poll: transient source errors (broker hiccup,
 #: network blip) retried with 1 s -> x2 -> 30 s backoff, five attempts.
