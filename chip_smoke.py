@@ -104,9 +104,9 @@ the script exits non-zero without printing the final line:
    must fail there), and K1 on its 50 x 14 forecast chunk, against their
    plain versions.  The JAX package's recorded CPU reading beside it.
 11. stream_fleet — the same generator, model and schedule at the M5
-   fleet's 30,490 series: the warm run, a replay of its last
-   micro-batch, the cold run (the first 8,192 series and the subset's:
-   ``FLEET_COLD_CUT``); per micro-batch its wall, the driver's and
+   fleet's scale, cut to the first 8,192 of its 30,490 series and the
+   subset's (``FLEET_CUT``: 8,239 series): the warm run, a replay of its
+   last micro-batch, the cold run; per micro-batch its wall, the driver's and
    the backend's stages, warm and cold starts and K3/K4 launches (counts
    set to 0 just before each, read just after); the forecasts' sMAPE
    (K1), one 256-sample forecast (K2), K3 (both modes), K4, K1 and K2
@@ -150,7 +150,8 @@ the script exits non-zero without printing the final line:
    and served by compute.
 14. stream_fleet_m5 — a retail-conditioned fleet cell beside
    stream_fleet: ``m5_like(30490, 730, seed=2, with_regressors=False)`` as
-   a long frame (unobserved cells dropped), config 5's model and schedule,
+   a long frame (unobserved cells dropped), cut as stream_fleet is
+   (``FLEET_CUT``), config 5's model and schedule,
    the warm run only (each micro-batch's wall, stages, starts and
    launches), one deterministic forecast (K1); K3 (both modes) and K4 on
    every 8,192-row chunk of the last micro-batch at the warm optimum
@@ -209,7 +210,35 @@ the script exits non-zero without printing the final line:
    phase 1 converged and each straggler's loss within ``RS_LOSS_TOL``
    (which one chunk assembled one row off must fail), and the fleet
    subset's forecasts within the dataplane budget of the scipy oracle.
-18. kernels — each kernel at its main path's shapes, on the main path's
+18. frontend — the user front end on phase fit's batch, config 3's
+   model as a user builds it for a long frame (the holiday a ``Holiday``
+   from a holidays frame, after the price and promo columns): (a)
+   ``Forecaster.fit`` of a long frame of the first 8,192 series (one
+   chunk) on days [0, 1746), ``predict(future_df=)`` over the 195
+   holdout days, ``components`` over 28 of them, ``make_future_frame``;
+   the pivot bitwise the generator's arrays; what the Forecaster hands
+   ``CudaBackend.fit``, ``predict`` and ``components`` (recorded by
+   ``BackendCalls``) the generator's arrays bitwise, on the backend a
+   user of the array path builds, and its state, forecast frame and
+   components those calls' returns bitwise; the same Forecaster on 64
+   series on the plain CPU path (a ``ParityFits`` worker) within the fit
+   budget; (b) ``diagnostics.cross_validation`` of 1,024 series x 1,941
+   days at three cutoffs (3,072 rows, the card's length buckets) and
+   ``performance_metrics``: its ``backtest.cross_validation`` call handed
+   the generator's arrays, the frame that call's result bitwise, and K3
+   (both modes) and K4 held against their plain versions on each length
+   bucket of the CV's fit at its fitted theta (``dp_held``: observed rows
+   by ``hold_observed``, rows with nothing observed before their cutoff
+   by ``hold_inert``); (c) ``mcmc_samples=300``
+   on 256 series: ``predict``, ``predictive_samples(num_samples=100)``,
+   ``mcmc_diagnostics`` (finite, lower <= yhat <= upper); (d) ``python -m
+   tsspark_tpu_torch`` forecast, fit, predict (from the checkpoint) and
+   backtest on a CSV of 256 series in child processes on the card, beside
+   legs (b) and (c), each output bitwise the same command run in this
+   process, each child loading the built kernel library (no rebuild).
+   Launch counts (K1, K2, K3 per mode, K4, K6) set to 0 before each leg,
+   read after; walls (pivot, fit, predict, scatter to long), peak memory.
+19. kernels — each kernel at its main path's shapes, on the main path's
    inputs (K3 and K4 at 8192x1746 on config 3's first chunk; K3's
    logistic branch at 8192x1080; K3's trial-stack layout on config 4's
    21 x 8192 line-search stack and on one of flat growth over config 3's
@@ -225,14 +254,16 @@ the script exits non-zero without printing the final line:
    bound and gaps, and K7's entry joins from phase uncertainty; K1, K3
    and K4 their launches and checks on phases stream_fleet_m5, eval12,
    planes and dataplane; K3 and K4 their launches in phase resilient's
-   worker processes.
+   worker processes; K1-K4 and K6 their launches on phase frontend, and
+   K3 and K4 their checks on its CV buckets.
 
 The CPU parity fits of phases fit and fit_logistic (the scipy oracle and
 the port's plain fit on their subsets), the CPU streaming runs of phases
 stream5, stream_fleet and stream_fleet_m5 and phase eval12's scipy fits
 run in three worker processes (``ParityFits``), started with the data
 before phase forward, beside the card's phases; each phase waits for its
-own.  Phase dataplane's ingest (``DataplaneIngest``) starts there too,
+own (phase frontend's CPU leg is submitted right after them).  Phase
+dataplane's ingest (``DataplaneIngest``) starts there too,
 and hands the pool its oracle fits as their shards land.  Phase uncertainty hands the
 pool its CPU ADVI fit once its MAP fit is done.
 
@@ -2045,8 +2076,9 @@ def phase_eval12(device, batches, gen_s, parity) -> dict:
 
 # Continuous refit (eval config 5): ``StreamingForecaster`` over a 510-day
 # base batch and three 73-day micro-batches, at config 5's published 50
-# series (phase stream5) and at the M5 fleet's 30,490 (phase
-# stream_fleet).  At config 5's scale a series' forecast sMAPE (percent,
+# series (phase stream5) and at the M5 fleet's scale (phase
+# stream_fleet, cut to FLEET_CUT's rows).  At config 5's scale a series'
+# forecast sMAPE (percent,
 # 14 days against the noise-free generator) is held per series against
 # the port's plain CPU run of the same series at STREAM_SMAPE_TOL.  Readings at config 5's 50
 # series on the CPU (tests/test_torch_stream5.py ``-m slow`` prints them):
@@ -2081,16 +2113,27 @@ NOISE5 = 0.5
 FLEET_NOISE_TOL = 40.0
 FLEET_SERIES = 30490
 FLEET_SUBSET = 64
-# The cold run repeats the warm run's K3/K4 shapes, so it runs at a smaller
-# depth (room for phase resilient within the script's time: the whole
-# script read 982.6 s on an H100 with it, against the 1,000 s aim): the
-# first FLEET_COLD_CUT series and the fleet subset's, whose check stays
-# whole.
-FLEET_COLD_CUT = 8192
+# Continuous refit at the fleet's scale (its two cells, phases
+# stream_fleet and stream_fleet_m5) is the one path run at a smaller
+# depth than the fleet's FLEET_SERIES, room for phases resilient and
+# frontend within the script's time (the whole script read 982.6 s on an
+# H100 with the cold run alone cut, and 1,144.5 s with phase frontend
+# added and both cells whole, against the 1,000 s aim and the 1,200 s
+# limit): the first FLEET_CUT series and the fleet subset's (8,239), so
+# every chunk keeps the fleet's 8,192-row shape and the subset's checks
+# stay whole, on the same series.  Every other phase runs at its path's
+# full depth.
+FLEET_CUT = 8192
 
 
 def fleet_subset() -> np.ndarray:
     return np.linspace(0, FLEET_SERIES - 1, FLEET_SUBSET).astype(np.int64)
+
+
+def fleet_rows() -> np.ndarray:
+    """The rows the fleet cells run: the first FLEET_CUT series and the
+    fleet subset's, ascending."""
+    return np.union1d(np.arange(FLEET_CUT), fleet_subset())
 
 
 def planted_transfer(name: str):
@@ -2556,10 +2599,10 @@ def _noise_summary(d) -> dict:
 
 
 def phase_stream_fleet(device, frame, gen_s, parity) -> dict:
-    """Config 5's generator and model at the M5 fleet's 30,490 series
-    (``frame``, built in ``gen_s``): the warm run, a replay of its last
-    micro-batch, the cold run (the first FLEET_COLD_CUT series and the
-    subset's), each micro-batch's wall, stages, starts
+    """Config 5's generator and model at the M5 fleet's scale, on the
+    first FLEET_CUT series and the subset's (``frame``, built in
+    ``gen_s``): the warm run, a replay of its last micro-batch, the cold
+    run, each micro-batch's wall, stages, starts
     and launches; the forecasts' sMAPE, one S = 256 forecast, the path's
     kernels against their plain versions, and the 64-series subset's
     forecasts against the same series streamed on the CPU plain path, in
@@ -2573,7 +2616,8 @@ def phase_stream_fleet(device, frame, gen_s, parity) -> dict:
     t_phase = time.perf_counter()
     n_days = configs.config5_size(1.0)[1]
     batches = configs.config5_batches(frame, n_days)
-    sids = [f"s{i}" for i in range(FLEET_SERIES)]
+    rows = fleet_rows()
+    sids = [f"s{i}" for i in rows]
     torch.cuda.reset_peak_memory_stats()
 
     sf = StreamingForecaster(configs.CONFIG5, configs.SOLVER5, device=device)
@@ -2599,11 +2643,8 @@ def phase_stream_fleet(device, frame, gen_s, parity) -> dict:
     yh_replay, sm_replay, _, _ = _stream_forecast(sf, sids)
     replay_delta = abs(float(sm_replay.mean()) - float(sm_warm.mean()))
 
-    idx = fleet_subset()
-    cold_idx = np.union1d(np.arange(FLEET_COLD_CUT), idx)
-    cold_sids = [sids[i] for i in cold_idx]
-    keep = set(cold_sids)
-    cold_batches = [b[b.series_id.isin(keep)] for b in batches]
+    pos = np.searchsorted(rows, fleet_subset())
+    cold_sids, cold_batches = sids, batches
     sf_cold = StreamingForecaster(configs.CONFIG5, configs.SOLVER5,
                                   device=device, warm_start=False)
     t0 = time.perf_counter()
@@ -2615,15 +2656,16 @@ def phase_stream_fleet(device, frame, gen_s, parity) -> dict:
     # CPU plain path, and the rolled fault there against the sound run.
     plain = parity.get_stream("plain", "fleet")
     rolled = parity.get_stream("rolled", "fleet")
-    noise = {"warm": _noise_gap(yh_warm[idx], plain["yhat_warm"]),
-             "replay": _noise_gap(yh_replay[idx], plain["yhat_replay"]),
-             "cold": _noise_gap(yh_cold[np.searchsorted(cold_idx, idx)],
-                                plain["yhat_cold"])}
+    noise = {"warm": _noise_gap(yh_warm[pos], plain["yhat_warm"]),
+             "replay": _noise_gap(yh_replay[pos], plain["yhat_replay"]),
+             "cold": _noise_gap(yh_cold[pos], plain["yhat_cold"])}
     replay_noise = _noise_gap(yh_replay, yh_warm)
     fault_noise = _noise_gap(rolled["yhat_warm"], plain["yhat_warm"])
-    levels = configs.config5_truth(idx, 0.0)
+    levels = configs.config5_truth(fleet_subset(), 0.0)
     res = {
-        "phase": "stream_fleet", "series": FLEET_SERIES, "days": n_days,
+        "phase": "stream_fleet", "series": len(sids), "days": n_days,
+        "cut": f"the first {FLEET_CUT} of {FLEET_SERIES} series and the "
+               "subset's (FLEET_CUT)",
         "frame_s": gen_s,
         "warm": {"wall_s": warm_wall, "micro_batches": warm_rows,
                  "warm_starts": n_warm, "cold_starts": n_cold,
@@ -2654,7 +2696,7 @@ def phase_stream_fleet(device, frame, gen_s, parity) -> dict:
         "phase_s": time.perf_counter() - t_phase,
     }
     emit(res)
-    require((n_warm, n_cold) == (3 * FLEET_SERIES, FLEET_SERIES),
+    require((n_warm, n_cold) == (3 * len(sids), len(sids)),
             f"fleet warm run starts: {n_warm}, {n_cold}")
     require(sf_cold.stats.warm_starts == 0
             and sf_cold.stats.cold_starts == 4 * len(cold_sids),
@@ -2665,7 +2707,7 @@ def phase_stream_fleet(device, frame, gen_s, parity) -> dict:
     require(replay_delta < REPLAY_TOL, f"fleet replay: {replay_delta}")
     require(replay_noise.max() <= FLEET_NOISE_TOL,
             f"fleet replay per series: {_noise_summary(replay_noise)}")
-    require(replay_rows[0]["warm"] == FLEET_SERIES, "fleet replay warm")
+    require(replay_rows[0]["warm"] == len(sids), "fleet replay warm")
     require(fc_launch["forward"] > 0, f"fleet forecast K1: {fc_launch}")
     require(bands["launches"]["bands"] > 0, f"fleet bands K2: {bands}")
     require(all(v.max() <= FLEET_NOISE_TOL for v in noise.values()),
@@ -2678,7 +2720,8 @@ def phase_stream_fleet(device, frame, gen_s, parity) -> dict:
 
 # A second fleet cell with a retail fleet's conditioning (phase
 # stream_fleet_m5): ``m5_like(30490, 730, seed=2, with_regressors=False)``
-# as a long frame (the unobserved cells dropped: M5's onset pattern), day
+# as a long frame (the unobserved cells dropped: M5's onset pattern; its
+# first FLEET_CUT series and the subset's run), day
 # index as ``ds``, through config 5's model and schedule (a 510-day base
 # batch, three 73-day micro-batches), the warm run only, then one
 # deterministic 14-day forecast.  Here the residual at a warm start is
@@ -2811,10 +2854,10 @@ def phase_stream_fleet_m5(device, frame, ids, gen_s, parity) -> dict:
         chunks.append(held)
         del theta, data
 
-    idx = fleet_subset()
-    noise = m5_noise_unit()[idx]
+    noise = m5_noise_unit()[fleet_subset()]
     plain = parity.get_stream("plain", "m5")
     rolled = parity.get_stream("rolled", "m5")
+    idx = np.searchsorted(fleet_rows(), fleet_subset())  # rows of ``ids``
     sound = np.abs(yhat[idx] - plain["yhat_warm"]).max(-1) / noise
     warm_fault = np.abs(rolled["yhat_warm"]
                         - plain["yhat_warm"]).max(-1) / noise
@@ -2826,6 +2869,8 @@ def phase_stream_fleet_m5(device, frame, ids, gen_s, parity) -> dict:
         "series_over_tol": int((d > M5_NOISE_TOL).sum())}
     res = {
         "phase": "stream_fleet_m5", "series": len(ids),
+        "cut": f"the first {FLEET_CUT} of {FLEET_SERIES} series and the "
+               "subset's (FLEET_CUT)",
         "days": M5_FLEET_DAYS, "rows": int(len(frame)), "frame_s": gen_s,
         "warm": {"wall_s": warm_wall, "micro_batches": warm_rows,
                  "warm_starts": sf.stats.warm_starts,
@@ -5490,6 +5535,22 @@ def phase_dataplane(device, ing) -> dict:
     return res
 
 
+def _held_checks(name: str, shapes) -> list:
+    """K3's (``name`` "loss") or K4's ("fan") entries of ``dp_held``'s
+    per-shape holds, as the kernels line lists them."""
+    key = "loss" if name == "loss" else "fan"
+    return [{"rows": s["rows"], "window": s["window"],
+             "gap": s["gap"] if name == "loss" or s["gap"] is None
+             else s["gap"]["fan"],
+             "vs_f64_over_limit": None if s["vs_f64"] is None
+             else s["vs_f64"]["kernels_over_limit_max"],
+             "inert_rel": None if s["inert"] is None else s["inert"]["rel"],
+             "ms": s[f"{key}_ms"], "plain_ms": s[f"{key}_plain_ms"],
+             "bound_ms": s["bound_ms"] if name == "loss"
+             else s["fan_bound_ms"]}
+            for s in shapes]
+
+
 def add_dataplane(kernels, dp) -> None:
     """K1, K3 and K4's entries gain their launches on phase dataplane's
     two-phase fits and forecasts, and K3/K4 their GAP_RULE checks and
@@ -5508,7 +5569,6 @@ def add_dataplane(kernels, dp) -> None:
             k["launches_dataplane"] = fit["forecast_launches_forward"]
             k["launches_dataplane_cold"] = cold["forecast_launches_forward"]
             continue
-        key = "loss" if name == "loss" else "fan"
         for tag, run, held in (
                 ("dataplane", fit, fit["kernels_phase2_chunk"]),
                 ("dataplane_cold", cold, cold["kernels_buckets"])):
@@ -5516,16 +5576,7 @@ def add_dataplane(kernels, dp) -> None:
             k[f"launches_{tag}"] = (
                 launch["loss_grad"] + launch["loss_value"]
                 if name == "loss" else launch["fan"])
-            k[f"{tag}_check"] = [
-                {"rows": s["rows"], "window": s["window"],
-                 "gap": s["gap"] if name == "loss" or s["gap"] is None
-                 else s["gap"]["fan"],
-                 "inert_rel": None if s["inert"] is None
-                 else s["inert"]["rel"],
-                 "ms": s[f"{key}_ms"], "plain_ms": s[f"{key}_plain_ms"],
-                 "bound_ms": s["bound_ms"] if name == "loss"
-                 else s["fan_bound_ms"]}
-                for s in shapes(held)]
+            k[f"{tag}_check"] = _held_checks(name, shapes(held))
 
 
 # Phase resilient: the process-isolated two-phase fit of phase dataplane's
@@ -5919,6 +5970,728 @@ def add_new_paths(kernels, fleet_m5, eval12, planes) -> None:
             k[f"{cname}_check"] = c["kernels"][name]
 
 
+# Phase frontend: the user front end on config 3's model and phase fit's
+# batch (``m5_like(30490, 1941, seed=2)``, nothing generated anew at fleet
+# size): ``frame.Forecaster`` over a long DataFrame, cross-validation, the
+# ``mcmc_samples`` route, and the ``python -m tsspark_tpu_torch`` CLI with
+# the forecaster checkpoint.  Each leg is cut to fit the run's time, never
+# in width: config 3's widths throughout.
+FE_SERIES = 8192          # (a): one CudaBackend chunk of the 30,490
+FE_CPU_SUBSET = 64        # (a): the plain CPU leg, in a ParityFits worker
+FE_CV_SERIES = 1024       # (b)
+# Three cutoffs (days 512, 1212, 1912): 3,072 rows whose masks the card's
+# length-bucket plan cuts into three windows (with 420 / 700 days it
+# declines: < 20% saved).
+FE_CV = {"horizon": "28D", "period": "700D", "initial": "300D"}
+FE_MCMC_SERIES = 256      # (c)
+FE_MCMC_SAMPLES = 300
+FE_PREDICTIVE_SAMPLES = 100
+FE_CLI_SERIES = 256       # (d)
+FE_CLI_ARGS = ("--seasonality", "yearly:365.25:8", "--seasonality",
+               "weekly", "--country-holidays", "US", "--max-iters", "120")
+# ``python -m tsspark_tpu_torch`` by ``runpy.run_module`` (what ``-m``
+# does), then one JSON line on stderr: the exit code, the kernel
+# library's loads and builds in the child, and its launch counts.
+FE_CLI_CHILD = r"""
+import json, runpy, sys, time
+t0 = time.perf_counter()
+rc = 0
+try:
+    runpy.run_module("tsspark_tpu_torch", run_name="__main__",
+                     alter_sys=True)
+except SystemExit as e:
+    rc = e.code or 0
+import chip_smoke
+from tsspark_tpu_torch.kernels import build
+print(json.dumps({"rc": rc, "wall_s": time.perf_counter() - t0,
+                  "loads": build.loads, "builds": build.builds,
+                  "build_s": build.build_seconds,
+                  "launches": chip_smoke._fe_counts()}), file=sys.stderr)
+sys.exit(rc)
+"""
+
+
+def fe_long_frame(batch, n: int, lo: int, hi: int, with_y: bool = True):
+    """Rows [0, n) and days [lo, hi) of ``m5_like``'s batch as a long
+    frame: ``series_id`` (``datasets.dataset_ids``, a categorical column),
+    ``ds`` datetimes (day 13514 = 2007-01-01), ``y`` (NaN before a
+    series' launch), ``price`` and ``promo``."""
+    import pandas as pd
+
+    from tsspark_tpu_torch.data.datasets import dataset_ids
+
+    t_len = hi - lo
+    days = pd.to_datetime(batch.ds[lo:hi], unit="D").values
+    cols = {"series_id": pd.Categorical.from_codes(
+                np.repeat(np.arange(n), t_len),
+                categories=dataset_ids("m5", 0, n)),
+            "ds": np.tile(days, n)}
+    if with_y:
+        cols["y"] = batch.y[:n, lo:hi].reshape(-1)
+    for j, name in ((1, "price"), (2, "promo")):
+        cols[name] = batch.regressors[:n, lo:hi, j].reshape(-1)
+    return pd.DataFrame(cols)
+
+
+def fe_holiday(batch):
+    """The generator's holiday calendar as a ``Holiday`` (from a Prophet
+    holidays frame): the days its shared indicator column marks."""
+    import pandas as pd
+
+    from tsspark_tpu_torch.models.holidays import holidays_from_df
+
+    days = batch.ds[batch.regressors[0, :, 0] > 0]
+    return holidays_from_df(pd.DataFrame(
+        {"holiday": "holiday", "ds": pd.to_datetime(days, unit="D")}))
+
+
+def fe_forecaster(holidays, device_kw: dict, **kw):
+    """Config 3's model as a user builds it for a long frame: yearly 8 +
+    weekly 3, 25 changepoints, the price and promo columns, the holiday
+    as a ``Holiday`` (its indicator column appended after them), 120
+    iterations; ``backend="cuda"`` on the card (``device_kw`` empty)."""
+    import dataclasses
+
+    from tsspark_tpu_torch import Forecaster
+    from tsspark_tpu_torch.eval import configs
+
+    cfg = dataclasses.replace(configs.CONFIG3, regressors=tuple(
+        r for r in configs.CONFIG3.regressors if r.name != "holiday"))
+    return Forecaster(cfg, configs.SOLVER3, backend="cuda",
+                      regressor_cols=("price", "promo"), holidays=holidays,
+                      **device_kw, **kw)
+
+
+def fe_regressors(batch, n: int) -> np.ndarray:
+    """The generator's regressors in the Forecaster's column order
+    (price, promo, holiday), rows [0, n)."""
+    r = batch.regressors[:n]
+    return np.concatenate([r[..., 1:3], r[..., :1]], axis=-1)
+
+
+def frontend_cpu_job(train_df, holidays) -> dict:
+    """Phase frontend's CPU leg in a ``ParityFits`` worker: the same
+    Forecaster on the port's plain path (``device="cpu"``), its train
+    yhat (no sampling)."""
+    import torch
+
+    torch.set_num_threads(PARITY_THREADS)
+    fc = fe_forecaster(holidays, {"device": "cpu"})
+    t0 = time.perf_counter()
+    fc.fit(train_df)
+    secs = time.perf_counter() - t0
+    out = fc.predict(future_df=train_df.drop(columns="y"), num_samples=0)
+    return {"seconds": secs, "loss": np.asarray(fc.state.loss),
+            "yhat": out.yhat.to_numpy().reshape(len(fc.series_ids), -1)}
+
+
+def _fe_counts() -> dict:
+    from tsspark_tpu_torch.kernels import bands as bands_k
+    from tsspark_tpu_torch.kernels import draws as dk
+    from tsspark_tpu_torch.kernels import fan as fan_k
+    from tsspark_tpu_torch.kernels import forward as fk
+    from tsspark_tpu_torch.kernels import loss as lk
+
+    return {"forward": fk.launches, "bands": bands_k.launches,
+            "loss_grad": lk.grad_launches,
+            "loss_value": lk.launches - lk.grad_launches,
+            "fan": fan_k.launches, "draws": dk.launches}
+
+
+def _fe_zero() -> None:
+    from tsspark_tpu_torch.kernels import draws as dk
+
+    _zero_counts()
+    dk.launches = 0
+
+
+def _fe_sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+class BackendCalls:
+    """While active, ``CudaBackend``'s fit, predict and components record
+    each outermost call: the backend, what it was handed and what it
+    returned.  Phase frontend holds what the front end hands the array
+    path against the generator's arrays, and what it gives the user
+    against these returns: the same arrays in and the answers passed on
+    unchanged are the array path's bits."""
+
+    NAMES = ("fit", "predict", "components")
+
+    def __init__(self):
+        self.calls = []
+        self._depth = 0
+        self._orig = {}
+
+    def __enter__(self):
+        from tsspark_tpu_torch.backends.cuda import CudaBackend
+
+        self._orig = {n: CudaBackend.__dict__[n] for n in self.NAMES}
+        for n, f in self._orig.items():
+            setattr(CudaBackend, n, self._wrap(n, f))
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from tsspark_tpu_torch.backends.cuda import CudaBackend
+
+        for n, f in self._orig.items():
+            setattr(CudaBackend, n, f)
+
+    def _wrap(self, name, f):
+        def call(bk, *args, **kwargs):
+            self._depth += 1
+            try:
+                out = f(bk, *args, **kwargs)
+            finally:
+                self._depth -= 1
+            if self._depth == 0:
+                self.calls.append({"name": name, "backend": bk,
+                                   "args": args, "kwargs": kwargs,
+                                   "out": out})
+            return out
+        return call
+
+    def only(self, name: str) -> dict:
+        got = [c for c in self.calls if c["name"] == name]
+        require(len(got) == 1, f"one CudaBackend.{name} call: {len(got)}")
+        return got[0]
+
+
+def _np(v) -> np.ndarray:
+    return v.detach().cpu().numpy() if hasattr(v, "detach") \
+        else np.asarray(v)
+
+
+def fe_handed(got, want, dtype) -> bool:
+    """``got`` is ``want`` in ``dtype``: that dtype, the same shape, the
+    same values (NaN where NaN)."""
+    if got is None or want is None:
+        return got is None and want is None
+    got = np.asarray(got)
+    return (got.dtype == dtype and got.shape == np.shape(want)
+            and bool(np.array_equal(got, np.asarray(want, dtype),
+                                    equal_nan=True)))
+
+
+def fe_backend_as_user_builds(bk, config, dev_kw) -> bool:
+    """``bk`` is the backend a user of the array path builds for
+    ``config``: ``get_backend("cuda", config, SOLVER3)`` with the device
+    (the same class, solver, device, chunk and options)."""
+    from tsspark_tpu_torch.backends.registry import get_backend
+    from tsspark_tpu_torch.eval import configs
+
+    ref = get_backend("cuda", config, configs.SOLVER3, **dev_kw)
+    keys = ("solver_config", "device", "resilient", "chunk_size",
+            "iter_segment", "length_buckets", "rescue", "compact")
+    return (type(bk) is type(ref) and bk.config == config
+            and all(getattr(bk, k) == getattr(ref, k) for k in keys))
+
+
+def fe_cli_start(args, cwd, device_kw) -> subprocess.Popen:
+    """A CLI child of phase frontend (``FE_CLI_CHILD``, with ``--device
+    cpu`` off the card)."""
+    args = [*args, *(["--device", "cpu"] if device_kw else [])]
+    return subprocess.Popen([sys.executable, "-c", FE_CLI_CHILD, *args],
+                            cwd=cwd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def fe_finish(proc, what: str) -> dict:
+    """Wait for a child of phase frontend; its last stderr line (JSON)."""
+    try:
+        _, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise
+    lines = err.strip().splitlines()
+    require(proc.returncode == 0 and bool(lines),
+            f"{what}: rc {proc.returncode}: {err[-2000:]}")
+    return json.loads(lines[-1])
+
+
+def _file_bytes(path) -> bytes:
+    with open(path, "rb") as fh:
+        return fh.read()
+
+
+def phase_frontend(device, batch, cpu_leg) -> dict:
+    """The user front end on phase fit's batch: (a) ``Forecaster.fit`` of
+    a long frame of the first 8,192 series on days [0, 1746),
+    ``predict(future_df=)``, ``components``, ``make_future_frame`` (the
+    pivot bitwise the generator's arrays; what the Forecaster hands
+    ``CudaBackend.fit``, ``predict`` and ``components`` the generator's
+    arrays bitwise, on the backend a user of the array path builds, and
+    its state, forecast frame and components those calls' returns
+    bitwise; the plain CPU leg on 64 series within the fit budget); (b)
+    ``diagnostics.cross_validation`` of 1,024 series (its
+    ``backtest.cross_validation`` call handed the generator's arrays,
+    the frame that call's result bitwise; K3 in both modes and K4 held
+    against their plain versions on each length bucket of the CV's fit,
+    at its fitted theta, observed and inert rows apart); (c) the
+    ``mcmc_samples`` route on 256 series; (d) the CLI's four commands in
+    child processes on the card, each output bitwise the same command run
+    in this process, the kernel library loaded, not rebuilt.  The
+    children start after (a)'s timed stages and run beside (b)-(d); the
+    kernel holds of (b) run once they are done."""
+    import contextlib
+    import io
+    import shutil
+
+    import pandas as pd
+    import torch
+
+    from tsspark_tpu_torch import frame as frame_mod
+    from tsspark_tpu_torch import __main__ as cli
+    from tsspark_tpu_torch.backends.cuda import _take_rows
+    from tsspark_tpu_torch.eval import backtest, configs, diagnostics, metrics
+
+    t_phase = time.perf_counter()
+    on_card = device.type == "cuda"
+    dev_kw = {} if on_card else {"device": "cpu"}
+    t_len = batch.y.shape[1]
+    split = configs.split_point(t_len)
+    h = t_len - split
+    n = min(FE_SERIES, batch.y.shape[0])
+    m = min(FE_CV_SERIES, batch.y.shape[0])
+    k = FE_CPU_SUBSET
+    hol = fe_holiday(batch)
+    out = {"phase": "frontend", "cuts": {
+        "a": f"series {n} of {batch.y.shape[0]} (one chunk), days [0, "
+             f"{split}) fitted, {h} forecast; CPU leg {k} series",
+        "b": f"{m} series x {t_len} days, {FE_CV}",
+        "c": f"{FE_MCMC_SERIES} series x {split} days, mcmc_samples="
+             f"{FE_MCMC_SAMPLES}, 28-day forecast",
+        "d": f"{FE_CLI_SERIES} series x {split} days, "
+             f"{' '.join(FE_CLI_ARGS)}"}}
+
+    # -- (a) the long-frame fit, timed alone --------------------------------
+    t0 = time.perf_counter()
+    train_df = fe_long_frame(batch, n, 0, split)
+    hold_df = fe_long_frame(batch, n, split, t_len, with_y=False)
+    frame_s = time.perf_counter() - t0
+    frame_bytes = int(train_df.memory_usage(deep=True).sum())
+    t0 = time.perf_counter()
+    pv = frame_mod.pivot_long(train_df, regressor_cols=("price", "promo"))
+    pivot_s = time.perf_counter() - t0
+    reg = fe_regressors(batch, n)
+    pivot_same = {
+        "ds": bool(np.array_equal(pv.ds, batch.ds[:split])),
+        "y": bool(np.array_equal(pv.y, batch.y[:n, :split],
+                                 equal_nan=True)),
+        "regressors": bool(np.array_equal(pv.regressors,
+                                          reg[:, :split, :2])),
+        "series_ids": bool(np.array_equal(pv.series_ids.astype(str),
+                                          batch.series_ids[:n])),
+    }
+    del pv
+    fc = fe_forecaster(hol, dev_kw)
+    _fe_sync(device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    with BackendCalls() as rec:
+        _fe_zero()
+        t0 = time.perf_counter()
+        fc.fit(train_df)
+        _fe_sync(device)
+        fit_s = time.perf_counter() - t0
+        fit_launches = _fe_counts()
+        stages = dict(fc.backend.stages.seconds)
+        fc.backend.stages.reset()
+        _fe_zero()
+        t0 = time.perf_counter()
+        pred = fc.predict(future_df=hold_df)
+        _fe_sync(device)
+        predict_s = time.perf_counter() - t0
+        predict_stages = dict(fc.backend.stages.seconds)
+        predict_launches = _fe_counts()
+        hold28 = hold_df[hold_df.ds < hold_df.ds.min()
+                         + pd.Timedelta(days=HORIZON)]
+        c_ds, comps = fc.components(future_df=hold28)
+    fut = fc.make_future_frame(HORIZON)
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    del train_df, hold_df, hold28
+
+    # What the Forecaster handed the array path, and what it passed on.
+    f_c, p_c, c_c = (rec.only(x) for x in ("fit", "predict", "components"))
+    h28 = slice(split, split + HORIZON)
+    f32 = np.dtype(np.float32)
+    handed = {
+        "backend": fe_backend_as_user_builds(f_c["backend"], fc.config,
+                                             dev_kw),
+        "fit.ds": fe_handed(f_c["args"][0], batch.ds[:split], batch.ds.dtype),
+        "fit.y": fe_handed(f_c["args"][1], batch.y[:n, :split], f32),
+        "fit.regressors": fe_handed(f_c["kwargs"]["regressors"],
+                                    reg[:, :split], f32),
+        "fit.no_other_input": all(f_c["kwargs"].get(x) is None for x in (
+            "mask", "cap", "floor", "conditions", "init")),
+        "predict.ds": fe_handed(p_c["args"][1], batch.ds[split:],
+                                batch.ds.dtype),
+        "predict.regressors": fe_handed(p_c["kwargs"]["regressors"],
+                                        reg[:, split:], f32),
+        "components.ds": fe_handed(c_c["args"][1], batch.ds[h28],
+                                   batch.ds.dtype),
+        "components.regressors": fe_handed(c_c["kwargs"]["regressors"],
+                                           reg[:, h28], f32),
+        "predict_and_components.fitted_state": (
+            p_c["args"][0] is f_c["out"] and c_c["args"][0] is f_c["out"]
+            and all(c["backend"] is f_c["backend"] for c in (p_c, c_c))),
+    }
+    fcd = {k2: _np(v) for k2, v in p_c["out"].items()}
+    passed_on = {
+        "state": fc.state is f_c["out"],
+        "forecast_keys_differing": [
+            k2 for k2, v in fcd.items() if not np.array_equal(
+                pred[k2].to_numpy().reshape(n, h), v)],
+        "component_keys_differing": [
+            k2 for k2, v in c_c["out"].items()
+            if not np.array_equal(comps[k2], _np(v))],
+    }
+    t0 = time.perf_counter()
+    fc._to_long(batch.ds[split:], fcd)
+    scatter_s = time.perf_counter() - t0
+    want_ds = frame_mod._days_to_ts(
+        np.tile(batch.ds[split:split + HORIZON], n)).to_numpy()
+    future_ok = (len(fut) == n * HORIZON
+                 and bool(np.array_equal(fut.ds.to_numpy(), want_ds))
+                 and bool(np.array_equal(c_ds.to_numpy(),
+                                         want_ds[:HORIZON])))
+    s_hold = metrics.smape(np.nan_to_num(batch.y[:n, split:]),
+                           fcd["yhat"], batch.mask[:n, split:])
+    # The card's train forecast of the CPU leg's rows (not a counted leg).
+    train_yhat = _np(fc.backend.predict(
+        _take_rows(fc.state, slice(0, k)), batch.ds[:split],
+        regressors=reg[:k, :split].astype(np.float32),
+        num_samples=0)["yhat"])
+    del pred, fcd, rec, f_c, p_c, c_c
+
+    # -- the CLI children ----------------------------------------------------
+    work = tempfile.mkdtemp(prefix="frontend_")
+    root = os.path.dirname(os.path.abspath(__file__))
+    p = lambda name: os.path.join(work, name)  # noqa: E731
+    cv_days = {k2: float(pd.Timedelta(v) / pd.Timedelta(days=1))
+               for k2, v in FE_CV.items()}
+    t0 = time.perf_counter()
+    cli_df = fe_long_frame(batch, FE_CLI_SERIES, 0, split)
+    csv = p("in.csv")
+    cli_df[["series_id", "ds", "y"]].dropna(subset=["y"]).to_csv(
+        csv, index=False)
+    inputs_s = time.perf_counter() - t0
+    del cli_df
+    bt = [a for k2, v in cv_days.items() for a in (f"--{k2}", f"{v:g}")]
+
+    def commands(tag):
+        return {
+            "forecast": ["forecast", "--input", csv, "--horizon", "28",
+                         "--output", p(f"{tag}_forecast.csv"),
+                         *FE_CLI_ARGS],
+            "fit": ["fit", "--input", csv, "--model", p(f"{tag}_m.npz"),
+                    *FE_CLI_ARGS],
+            "predict": ["predict", "--model", p(f"{tag}_m.npz"),
+                        "--horizon", "28", "--output",
+                        p(f"{tag}_predict.csv")],
+            "backtest": ["backtest", "--input", csv, *bt, "--output",
+                         p(f"{tag}_pm.csv"), "--cv-output",
+                         p(f"{tag}_cv.csv"), *FE_CLI_ARGS],
+        }
+
+    sub_cmds = commands("sub")
+    t_children = time.perf_counter()
+    children = {c: fe_cli_start(sub_cmds[c], root, dev_kw)
+                for c in ("forecast", "fit", "backtest")}
+    stop = threading.Event()
+
+    def chain_predict():
+        # predict reads the checkpoint the fit child writes.
+        children["fit"].wait()
+        if children["fit"].returncode == 0 and not stop.is_set():
+            children["predict"] = fe_cli_start(sub_cmds["predict"], root,
+                                               dev_kw)
+
+    chained = threading.Thread(target=chain_predict, daemon=True)
+    chained.start()
+    bt_calls = []
+    cv_run = backtest.cross_validation
+
+    def recorded_cv(*args, **kwargs):
+        res = cv_run(*args, **kwargs)
+        bt_calls.append({"args": args, "kwargs": kwargs, "out": res})
+        return res
+
+    try:
+        # -- (b) cross-validation -------------------------------------------
+        cv_df = fe_long_frame(batch, m, 0, t_len)
+        backtest.cross_validation = recorded_cv
+        try:
+            with BackendCalls() as rec_cv:
+                _fe_zero()
+                t0 = time.perf_counter()
+                cv = diagnostics.cross_validation(fc, cv_df, **FE_CV)
+                pm = diagnostics.performance_metrics(cv)
+                _fe_sync(device)
+                cv_s = time.perf_counter() - t0
+                cv_launches = _fe_counts()
+        finally:
+            backtest.cross_validation = cv_run
+        del cv_df
+
+        # -- (c) the mcmc_samples route -------------------------------------
+        nm = min(FE_MCMC_SERIES, batch.y.shape[0])
+        mc_train = fe_long_frame(batch, nm, 0, split)
+        mc_fut = fe_long_frame(batch, nm, split, split + HORIZON,
+                               with_y=False)
+        fcm = fe_forecaster(hol, dev_kw, mcmc_samples=FE_MCMC_SAMPLES)
+        _fe_zero()
+        t0 = time.perf_counter()
+        fcm.fit(mc_train)
+        _fe_sync(device)
+        mc_fit_s = time.perf_counter() - t0
+        mc_fit_launches = _fe_counts()
+        _fe_zero()
+        t0 = time.perf_counter()
+        mp = fcm.predict(future_df=mc_fut)
+        _fe_sync(device)
+        mc_pred_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ps = fcm.predictive_samples(future_df=mc_fut,
+                                    num_samples=FE_PREDICTIVE_SAMPLES)
+        mc_ps_s = time.perf_counter() - t0
+        mc_pred_launches = _fe_counts()
+        diag = fcm.mcmc_diagnostics()
+        lo_, yh, hi_ = (mp[c].to_numpy()
+                        for c in ("yhat_lower", "yhat", "yhat_upper"))
+        out["c"] = {
+            "series": nm, "fit_s": mc_fit_s, "predict_s": mc_pred_s,
+            "predictive_samples_s": mc_ps_s,
+            "launches": {"fit": mc_fit_launches,
+                         "predict": mc_pred_launches},
+            "samples_shape": list(ps["yhat_samples"].shape),
+            "accept_rate_mean": float(diag.accept_rate.mean()),
+            "rhat_over_1.1_share": float((diag.rhat_max > 1.1).mean()),
+            "divergences": int(diag.divergences.sum()),
+            "finite": bool(np.isfinite(
+                mp.select_dtypes("number").to_numpy()).all()
+                and np.isfinite(ps["yhat_samples"]).all()),
+            "lower_le_yhat": bool((lo_ <= yh).all()),
+            "yhat_le_upper": bool((yh <= hi_).all()),
+            "diagnostics_columns": list(diag.columns),
+        }
+        del fcm, mc_train, mp, ps
+
+        # -- (d) the same commands in this process --------------------------
+        in_cmds = commands("in")
+        extra = [] if on_card else ["--device", "cpu"]
+        _fe_zero()
+        t0 = time.perf_counter()
+        for c in ("forecast", "fit", "predict", "backtest"):
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = cli.main(in_cmds[c] + extra)
+            require(rc == 0, f"in-process CLI {c}")
+        _fe_sync(device)
+        cli_in_s = time.perf_counter() - t0
+        cli_in_launches = _fe_counts()
+
+        # -- the children's results ------------------------------------------
+        t0 = time.perf_counter()
+        reps = {c: fe_finish(children[c], f"child {c}")
+                for c in ("forecast", "fit", "backtest")}
+        chained.join()
+        reps["predict"] = fe_finish(children["predict"], "child predict")
+        children_s = time.perf_counter() - t_children
+        wait_s = time.perf_counter() - t0
+        cli_diff = [f for f in ("forecast.csv", "predict.csv", "pm.csv",
+                                "cv.csv")
+                    if _file_bytes(p(f"sub_{f}")) != _file_bytes(p(f"in_{f}"))]
+        with np.load(p("sub_m.npz")) as zs, np.load(p("in_m.npz")) as zi:
+            cli_diff += [f"m.npz:{k2}" for k2 in zi.files
+                         if not np.array_equal(zs[k2], zi[k2])]
+        sub_pred = pd.read_csv(p("sub_predict.csv"))
+    finally:
+        stop.set()
+        for c in ("forecast", "fit", "backtest"):
+            if children[c].poll() is None:
+                children[c].kill()
+        chained.join()
+        for proc in children.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+
+    # (a) the CPU leg.
+    t0 = time.perf_counter()
+    cpu = cpu_leg.get()
+    cpu_wait_s = time.perf_counter() - t0
+    m_train = batch.mask[:k, :split]
+    y_train = np.nan_to_num(batch.y[:k, :split])
+    d_train = (metrics.smape(y_train, train_yhat, m_train)
+               - metrics.smape(y_train, cpu["yhat"], m_train))
+    out["a"] = {
+        "series": n, "days_fit": split, "days_forecast": h,
+        "frame_build_s": frame_s, "rows_train": n * split,
+        "frame_bytes": frame_bytes,
+        "pivot_s": pivot_s, "fit_s": fit_s, "fit_stages_s": stages,
+        "fit_front_end_s": fit_s - sum(stages.values()),
+        "predict_s": predict_s, "predict_stages_s": predict_stages,
+        "scatter_to_long_s": scatter_s,
+        "launches": {"fit": fit_launches, "predict": predict_launches},
+        "peak_device_bytes": peak,
+        "smape_holdout": float(s_hold.mean()),
+        "pivot_bitwise_generator": pivot_same,
+        "handed_the_generator_arrays": handed,
+        "passed_on_bitwise": passed_on,
+        "future_frame_ok": future_ok,
+        "cpu_leg": {"series": k, "seconds": cpu["seconds"],
+                    "wait_s": cpu_wait_s,
+                    "smape_train_max_abs_delta": float(
+                        np.abs(d_train).max()),
+                    "smape_train_mean_delta": float(d_train.mean()),
+                    "loss_minus_cpu_mean": float(np.mean(
+                        np.asarray(fc.state.loss)[:k] - cpu["loss"]))},
+    }
+
+    # (b): backtest handed the generator's arrays, the frame its result,
+    # and K3/K4 on each length bucket of its fit (the card quiet again).
+    require(len(bt_calls) == 1, f"one backtest call: {len(bt_calls)}")
+    bt_c, cf_c = bt_calls[0], rec_cv.only("fit")
+    cva = bt_c["out"]
+    cv_handed = {
+        "ds": fe_handed(bt_c["args"][0], batch.ds, batch.ds.dtype),
+        "y": fe_handed(bt_c["args"][1], batch.y[:m],
+                       np.asarray(bt_c["args"][1]).dtype),
+        "regressors": fe_handed(bt_c["kwargs"]["regressors"],
+                                fe_regressors(batch, m),
+                                np.asarray(bt_c["kwargs"]["regressors"])
+                                .dtype),
+        "windows": {k2: bt_c["kwargs"][k2] for k2 in
+                    ("horizon", "period", "initial")} == cv_days,
+        "no_cap": bt_c["kwargs"].get("cap") is None,
+        "backend": fe_backend_as_user_builds(cf_c["backend"], fc.config,
+                                             dev_kw),
+    }
+    sel = cva["eval_mask"] > 0
+    i, j, kk = np.nonzero(sel)
+    order = np.lexsort((kk, j, i))  # the frame's series, cutoff, ds
+    cv_diff = [c for c in ("yhat", "yhat_lower", "yhat_upper")
+               if not np.array_equal(cv[c].to_numpy(), cva[c][sel][order])]
+    if not np.array_equal(cv["y"].to_numpy(), batch.y[:m][i, kk][order]):
+        cv_diff.append("y")
+    n_cut = len(cva["cutoffs"])
+    t0 = time.perf_counter()
+    plan, cv_held = dp_held(
+        cf_c["backend"], fc.config, cf_c["out"].theta, cf_c["args"][0],
+        cf_c["args"][1], cf_c["kwargs"]["mask"],
+        cf_c["kwargs"]["regressors"], device, "a CV bucket")
+    held_s = time.perf_counter() - t0
+    del rec_cv, cf_c, bt_calls, bt_c
+    out["b"] = {
+        "series": m, "cutoffs": n_cut, "rows_fitted": m * n_cut,
+        "frame_rows": len(cv), "wall_s": cv_s,
+        "launches": cv_launches,
+        "length_buckets": _plan_json(plan),
+        "backtest_handed_the_generator_arrays": cv_handed,
+        "columns_not_bitwise_backtest": cv_diff,
+        "kernels_buckets": cv_held, "kernels_held_s": held_s,
+        "performance_metrics_head": pm.head(3).assign(
+            horizon=pm.horizon.head(3).astype(str)).to_dict("list"),
+    }
+    out["d"] = {
+        "series": FE_CLI_SERIES, "inputs_write_s": inputs_s,
+        "children_wall_s": children_s, "children_wait_s": wait_s,
+        "in_process_s": cli_in_s, "in_process_launches": cli_in_launches,
+        "children": {c: {k2: r[k2] for k2 in ("rc", "wall_s", "loads",
+                                               "builds", "build_s",
+                                               "launches")}
+                     for c, r in reps.items()},
+        "outputs_not_bitwise_in_process": cli_diff,
+        "predict_rows": len(sub_pred),
+        "predict_finite": bool(np.isfinite(
+            sub_pred.select_dtypes("number").to_numpy()).all()),
+    }
+    out["wall_s"] = time.perf_counter() - t_phase
+    emit(out)
+
+    a, c, d = out["a"], out["c"], out["d"]
+    require(all(pivot_same.values()),
+            f"pivot bitwise the generator's arrays: {pivot_same}")
+    require(all(handed.values()),
+            f"the Forecaster hands CudaBackend the generator's arrays: "
+            f"{handed}")
+    require(passed_on["state"] and not passed_on["forecast_keys_differing"]
+            and not passed_on["component_keys_differing"],
+            f"the Forecaster passes the array path's results on: "
+            f"{passed_on}")
+    require(future_ok, "make_future_frame / components grid")
+    require(bool(np.isfinite(s_hold).all()), "holdout sMAPE finite")
+    require(a["cpu_leg"]["smape_train_max_abs_delta"] <= 0.1
+            and abs(a["cpu_leg"]["smape_train_mean_delta"]) <= 0.05,
+            f"CPU leg within the fit budget: {a['cpu_leg']}")
+    require(all(cv_handed.values()),
+            f"the CV hands backtest the generator's arrays: {cv_handed}")
+    require(n_cut >= 3 and not cv_diff,
+            f"CV frame bitwise backtest ({n_cut} cutoffs): {cv_diff}")
+    require(plan is not None and len(cv_held) >= len(plan),
+            f"the CV's rows in length buckets, K3/K4 held on each: "
+            f"{_plan_json(plan)}")
+    require(c["finite"] and c["lower_le_yhat"] and c["yhat_le_upper"]
+            and c["samples_shape"] == [FE_PREDICTIVE_SAMPLES, nm, HORIZON],
+            f"mcmc_samples route: {c}")
+    require(not cli_diff, f"CLI outputs bitwise in-process: {cli_diff}")
+    require(d["predict_rows"] == FE_CLI_SERIES * HORIZON
+            and d["predict_finite"], "CLI predict output")
+    if on_card:
+        # (``components`` is torch ops: no kernel on its route.)
+        fl, pl_ = fit_launches, predict_launches
+        require(fl["loss_grad"] > 0 and fl["loss_value"] > 0
+                and fl["fan"] > 0 and pl_["forward"] > 0
+                and pl_["bands"] > 0, f"K1-K4 on leg (a): {a['launches']}")
+        cl = cv_launches
+        require(cl["loss_grad"] > 0 and cl["loss_value"] > 0
+                and cl["fan"] > 0 and cl["forward"] > 0 and cl["bands"] > 0,
+                f"K1-K4 on leg (b): {cl}")
+        require(mc_fit_launches["loss_grad"] > 0
+                and mc_pred_launches["draws"] > 0,
+                f"K3 and K6 on leg (c): {c['launches']}")
+        ran = {"forecast": ("loss_grad", "fan", "forward", "bands"),
+               "fit": ("loss_grad", "fan"),
+               "predict": ("forward", "bands"),
+               "backtest": ("loss_grad", "fan", "forward", "bands")}
+        for cmd, r in d["children"].items():
+            require(r["loads"] == 1 and r["builds"] == 0,
+                    f"CLI {cmd} loaded the built library: {r}")
+            require(all(r["launches"][x] > 0 for x in ran[cmd]),
+                    f"CLI {cmd} launches: {r['launches']}")
+    return out
+
+
+def add_frontend(kernels, fe) -> None:
+    """K1, K2, K3, K4 and K6's entries gain their launches on phase
+    frontend's legs (the CLI's summed over its four child processes), and
+    K3/K4 their checks and event-timed ms on the CV's length buckets."""
+    a, b, c, d = fe["a"], fe["b"], fe["c"], fe["d"]
+    kids = [r["launches"] for r in d["children"].values()]
+    for k in kernels:
+        keys = {"forward": ("forward",), "bands": ("bands",),
+                "loss": ("loss_grad", "loss_value"), "fan": ("fan",),
+                "draws": ("draws",)}.get(k["name"])
+        if keys is None:
+            continue
+        count = lambda row: sum(row[x] for x in keys)  # noqa: E731
+        k["launches_frontend"] = {
+            "forecaster": sum(count(r) for r in a["launches"].values()),
+            "cross_validation": count(b["launches"]),
+            "mcmc_samples": sum(count(r) for r in c["launches"].values()),
+            "cli_in_process": count(d["in_process_launches"]),
+            "cli_children": sum(count(r) for r in kids),
+        }
+        if k["name"] in ("loss", "fan"):
+            k["frontend_cv_check"] = _held_checks(k["name"],
+                                                  b["kernels_buckets"])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5970,12 +6743,16 @@ def main(argv=None) -> int:
     n5, days5 = configs.config5_size(1.0)
     stream5_df = configs.config5_frame(n5, days5)
     fleet_df = configs.config5_frame(FLEET_SERIES, days5)
+    fleet_df = fleet_df[fleet_df.series_id.isin(
+        {f"s{i}" for i in fleet_rows()})]
     fleet_sub = fleet_df[fleet_df.series_id.isin(
         {f"s{i}" for i in fleet_subset()})]
     gen5_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     m5_df, m5_ids = m5_fleet_frame()
     m5_sub = m5_df[m5_df.series_id.isin(set(m5_ids[fleet_subset()]))]
+    m5_ids = m5_ids[fleet_rows()]
+    m5_df = m5_df[m5_df.series_id.isin(set(m5_ids))]
     gen_m5_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     batches12 = eval12_batches()
@@ -5994,6 +6771,9 @@ def main(argv=None) -> int:
     phases_s["data"] = gen3_s + gen4_s + gen5_s + gen_m5_s + gen12_s
     parity = ParityFits(batch3, batch4, stream5_df, fleet_sub, m5_sub,
                         batches12)
+    fe_cpu = parity.submit(frontend_cpu_job, fe_long_frame(
+        batch3, FE_CPU_SUBSET, 0, configs.split_point(FULL_DAYS)),
+        fe_holiday(batch3))
     dp_ingest = DataplaneIngest(parity)
     unc_root = tempfile.mkdtemp(prefix="uncertainty_")
     finished = False
@@ -6023,6 +6803,7 @@ def main(argv=None) -> int:
         dp = timed("dataplane", phase_dataplane, device, dp_ingest)
         rs = timed("resilient", phase_resilient, device, dp_ingest,
                    dp.pop("handoff"))
+        fe = timed("frontend", phase_frontend, device, batch3, fe_cpu)
         kernels = timed("kernels", phase_kernels, serve, fwd, bnd, fit,
                         fit4, mcmc, device)
         add_stream_launches(kernels["kernels"], stream5, fleet)
@@ -6030,6 +6811,7 @@ def main(argv=None) -> int:
         add_new_paths(kernels["kernels"], fleet_m5, eval12, planes)
         add_dataplane(kernels["kernels"], dp)
         add_resilient(kernels["kernels"], rs)
+        add_frontend(kernels["kernels"], fe)
         finished = True
     finally:
         import shutil

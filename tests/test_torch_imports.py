@@ -99,7 +99,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "tsspark_tpu_torch.perf",
                 "tsspark_tpu_torch.perf.recorder",
                 "tsspark_tpu_torch.backends.registry",
-                "tsspark_tpu_torch.kernels.build"):
+                "tsspark_tpu_torch.kernels.build",
+                "tsspark_tpu_torch.models.holidays",
+                "tsspark_tpu_torch.utils.checkpoint",
+                "tsspark_tpu_torch.eval.backtest",
+                "tsspark_tpu_torch.eval.diagnostics",
+                "tsspark_tpu_torch.fit",
+                "tsspark_tpu_torch.fit.prophet",
+                "tsspark_tpu_torch.__main__",
+                "tsspark_tpu_torch.spark",
+                "tsspark_tpu_torch.plot"):
         assert mod in out["modules"]
 
 

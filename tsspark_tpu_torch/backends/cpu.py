@@ -35,6 +35,7 @@ class CpuBackend(ForecastBackend):
         super().__init__(*args, **kwargs)
         self._model = ProphetModel(self.config, self.solver_config,
                                    device="cpu")
+        self.device = self._model.device
 
     def fit(self, ds, y, mask=None, cap=None, floor=None, regressors=None,
             init=None, conditions=None) -> FitState:

@@ -50,6 +50,7 @@ Public surface:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import glob
 import json
@@ -694,9 +695,24 @@ def _load_kernels(device, heartbeat) -> dict:
     it.  The ``kernel_build`` fault point stands in for a slow build on
     the CPU.  Returns the load's seconds and the process's load/build
     counts."""
-    import threading
-
     from tsspark_tpu_torch.kernels import build
+
+    t0 = time.time()
+    with _beating(heartbeat):
+        faults.inject("kernel_build")
+        if device.type == "cuda":
+            build.library()
+    return {"seconds": round(time.time() - t0, 3), "loads": build.loads,
+            "builds": build.builds}
+
+
+@contextlib.contextmanager
+def _beating(heartbeat):
+    """Touch ``heartbeat`` on entry, every ``KERNEL_HEARTBEAT_S`` on a
+    thread while the block runs, and on exit: work the parent's watchdog
+    cannot otherwise tell from a wedge (a library load, a start-up) reads
+    as liveness however long it takes."""
+    import threading
 
     done = threading.Event()
 
@@ -704,19 +720,15 @@ def _load_kernels(device, heartbeat) -> dict:
         while not done.wait(KERNEL_HEARTBEAT_S):
             heartbeat()
 
+    heartbeat()
     th = threading.Thread(target=beat, daemon=True)
     th.start()
-    t0 = time.time()
     try:
-        faults.inject("kernel_build")
-        if device.type == "cuda":
-            build.library()
+        yield
     finally:
         done.set()
         th.join()
     heartbeat()
-    return {"seconds": round(time.time() - t0, 3), "loads": build.loads,
-            "builds": build.builds}
 
 
 def _launch_counts() -> dict:
@@ -780,31 +792,45 @@ def fit_worker(args) -> int:
 
 
 def _fit_worker_body(args) -> int:
-    import numpy as np
-    import torch
+    # Liveness for the parent's stall watchdog: every completed solve
+    # touches this file, so long legitimate work (a kernel build, the
+    # chunk-less phase-2 pass) is distinguishable from a wedged runtime.
+    hb_path = os.path.join(args.out, "heartbeat")
 
-    from tsspark_tpu_torch.backends.cuda import (
-        _concat_states,
-        _take_rows,
-        difficulty_order,
-        patch_state,
-        phase1_dynamic_args,
-        phase2_dynamic_args,
-        tune_phase1_depth,
-    )
-    from tsspark_tpu_torch.backends.registry import get_backend
-    from tsspark_tpu_torch.device import resolve_device
-    from tsspark_tpu_torch.models.prophet.design import (
-        PACKED_PER_SERIES_FIELDS,
-        ScalingMeta,
-        pack_fit_data,
-        packed_to_device,
-        prepare_fit_data,
-    )
-    from tsspark_tpu_torch.models.prophet.model import (
-        fit_core_packed,
-        fitstate_from_packed,
-    )
+    def heartbeat():
+        # Atomic: the parent reads the mtime, and workers racing a
+        # respawned sibling must never leave a torn timestamp behind.
+        atomic_write_text(hb_path, str(time.time()))
+
+    # The worker's first sign of life is its own start: it beats through
+    # its imports (torch's, on a busy or cold host, can outlast a short
+    # stall allowance), so the watchdog's clock runs on its own work.
+    with _beating(heartbeat):
+        import numpy as np
+        import torch
+
+        from tsspark_tpu_torch.backends.cuda import (
+            _concat_states,
+            _take_rows,
+            difficulty_order,
+            patch_state,
+            phase1_dynamic_args,
+            phase2_dynamic_args,
+            tune_phase1_depth,
+        )
+        from tsspark_tpu_torch.backends.registry import get_backend
+        from tsspark_tpu_torch.device import resolve_device
+        from tsspark_tpu_torch.models.prophet.design import (
+            PACKED_PER_SERIES_FIELDS,
+            ScalingMeta,
+            pack_fit_data,
+            packed_to_device,
+            prepare_fit_data,
+        )
+        from tsspark_tpu_torch.models.prophet.model import (
+            fit_core_packed,
+            fitstate_from_packed,
+        )
 
     faults.inject("fit_worker_start")
     t_worker0 = time.time()
@@ -828,16 +854,6 @@ def _fit_worker_body(args) -> int:
     from tsspark_tpu_torch.data import plane as data_plane
 
     ingest_stall_s = float(os.environ.get("TSSPARK_INGEST_STALL_S", "30"))
-
-    # Liveness for the parent's stall watchdog: every completed solve
-    # touches this file, so long legitimate work (a kernel build, the
-    # chunk-less phase-2 pass) is distinguishable from a wedged runtime.
-    hb_path = os.path.join(args.out, "heartbeat")
-
-    def heartbeat():
-        # Atomic: the parent reads the mtime, and workers racing a
-        # respawned sibling must never leave a torn timestamp behind.
-        atomic_write_text(hb_path, str(time.time()))
 
     kernels = _load_kernels(device, heartbeat)
     backend = get_backend(
