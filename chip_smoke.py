@@ -42,7 +42,9 @@ the script exits non-zero without printing the final line:
 6. serve   — the serving path at full width: ``m5_like(30490, 1941)``
    prepared under the default ``ProphetConfig`` (26 Fourier columns, 25
    changepoints, 256 samples), parameters drawn from ``--seed``,
-   published into a parameter registry and served by a
+   published into a parameter registry at the top of the run
+   (``serve_registry``, beside the kernels' build; the registry lives
+   until phase serve_scale) and served by a
    ``PredictionEngine`` on the card: four requests (all series
    deterministic, 4,096 sampled, all sampled, a cached repeat) and one
    in-sample + 28-day ``backend.predict`` over the shared calendar.
@@ -238,7 +240,43 @@ the script exits non-zero without printing the final line:
    process, each child loading the built kernel library (no rebuild).
    Launch counts (K1, K2, K3 per mode, K4, K6) set to 0 before each leg,
    read after; walls (pivot, fit, predict, scatter to long), peak memory.
-19. kernels — each kernel at its main path's shapes, on the main path's
+19. serve_scale — serving at scale on phase serve's registry (30,490
+   series x 1,941 days): (a) the in-process loadgen (``python -m
+   tsspark_tpu_torch.serve --loadgen``'s ``_loadgen``), 10,000 requests of
+   the JAX package's mix (Zipf over series, 1-8 series a request,
+   horizons 7/14/28, 10% at 20 samples, 2% hopeless deadlines), its
+   report (p50/p95/p99, shed, cache, per-dispatch telemetry) and the
+   regression sentinel with its history in a temporary directory; (b)
+   ``ReplicaPool`` with two replica processes on the card (spawned at
+   once) taking 10,000 requests of the same mix in pipelined waves from
+   four client threads, with a mid-run flip to a delta version that
+   refits 1% of the rows (``CudaBackend(perf=)``, its per-dispatch report
+   printed) through ``activate``'s materializer (the hot set at 7/14/28
+   and at 56, a bucket the forecast plane does not hold) and a SIGKILL of
+   replica 1 at 10% of the requests, respawned by the pool's watch (the
+   respawn timed from the pool's own spawn stamps): zero non-shed
+   failures, zero wrong-version answers, the respawned process holding
+   slot 1's lease, the hot set answered from cache after the flip in
+   every replica the flip warmed, the delta flip's cache carry-forward
+   in replica 0 (the 256 series warmed at 56 before the replay: the
+   unrefitted ones answered from cache with the engine's bits, the
+   refitted ones recomputed), 512 series on both shards bitwise the
+   in-process engine's and a direct ``CudaBackend.predict``'s at
+   horizons 28 (the forecast plane) and 56 (K1), K1 and K2 launched in
+   every replica during the replay (each replica's counters read before
+   and after it, and replica 1's also just before its kill; the checks'
+   own launches apart); K1 and K2 at the pool's dispatch shapes (widths
+   8-256, buckets 8/16/32) against their plain versions (K2 on given
+   draws at S = 20, and in distribution on its own draws at S = 256);
+   (c) the kernel bank (``aotbank.build_bank`` at publish, idempotent):
+   a cold replica armed with it loads the library from the bank, builds
+   nothing and launches the bank's shape ladder at ``warm``; then one
+   without it loads the library this run built at its top: each one's
+   time to its first request, beside what that build took;
+   (d) ``python -m tsspark_tpu_torch.serve --registry`` as a child
+   process beside (c): three requests bitwise the engine's, stats,
+   activate, rollback.
+20. kernels — each kernel at its main path's shapes, on the main path's
    inputs (K3 and K4 at 8192x1746 on config 3's first chunk; K3's
    logistic branch at 8192x1080; K3's trial-stack layout on config 4's
    21 x 8192 line-search stack and on one of flat growth over config 3's
@@ -255,7 +293,9 @@ the script exits non-zero without printing the final line:
    and K4 their launches and checks on phases stream_fleet_m5, eval12,
    planes and dataplane; K3 and K4 their launches in phase resilient's
    worker processes; K1-K4 and K6 their launches on phase frontend, and
-   K3 and K4 their checks on its CV buckets.
+   K3 and K4 their checks on its CV buckets; K1 and K2 their launches on
+   phase serve_scale's loadgen and replicas, their checks and times at
+   the pool's shapes.
 
 The CPU parity fits of phases fit and fit_logistic (the scipy oracle and
 the port's plain fit on their subsets), the CPU streaming runs of phases
@@ -1245,20 +1285,18 @@ def phase_fan(rng, device) -> dict:
     return out
 
 
-def phase_serve(args, device) -> dict:
-    import torch
-
+def serve_registry(args, root: str) -> dict:
+    """The serving path's registry at the M5 shape, published as version 1
+    into ``root`` at the top of the run (host work beside the kernels'
+    build): ``m5_like(30490, 1941)`` prepared under the default
+    ``ProphetConfig``, parameters drawn from ``--seed``.  Phase serve
+    serves it, phase serve_scale serves it again; ``root`` lives until
+    serve_scale ends."""
     from tsspark_tpu_torch.carry import fitstate_from_numpy
     from tsspark_tpu_torch.config import ProphetConfig
     from tsspark_tpu_torch.data.datasets import m5_like
-    from tsspark_tpu_torch.kernels import bands as bk
-    from tsspark_tpu_torch.kernels import forward as fk
     from tsspark_tpu_torch.models.prophet.design import prepare_fit_data
-    from tsspark_tpu_torch.serve import (
-        ForecastCache,
-        ParamRegistry,
-        PredictionEngine,
-    )
+    from tsspark_tpu_torch.serve import ParamRegistry
 
     cfg = ProphetConfig()
     t0 = time.perf_counter()
@@ -1277,94 +1315,111 @@ def phase_serve(args, device) -> dict:
         **meta._asdict(),
     }
     state = fitstate_from_numpy(arrays, "cpu")
+    reg = ParamRegistry(root, cfg)
+    reg.publish(state, batch.series_ids, step=np.ones(n))
+    return {"root": root, "cfg": cfg, "batch": batch, "prep_s": prep_s}
+
+
+def phase_serve(args, device, made) -> dict:
+    import torch
+
+    from tsspark_tpu_torch.kernels import bands as bk
+    from tsspark_tpu_torch.kernels import forward as fk
+    from tsspark_tpu_torch.serve import (
+        ForecastCache,
+        ParamRegistry,
+        PredictionEngine,
+    )
+
+    cfg, batch, root = made["cfg"], made["batch"], made["root"]
+    prep_s = made["prep_s"]
+    n = FULL_SERIES
     ids = batch.series_ids
-    with tempfile.TemporaryDirectory() as root:
-        reg = ParamRegistry(root, cfg)
-        reg.publish(state, ids, step=np.ones(n))
-        engine = PredictionEngine(ParamRegistry.open(root),
-                                  cache=ForecastCache(4 * n), device=device)
-        ds_full = np.concatenate(
-            [batch.ds, batch.ds[-1] + np.arange(1, HORIZON + 1)])
-        torch.cuda.reset_peak_memory_stats()
-        # The main path: counts to 0 just before, read just after.
-        fk.launches = 0
-        bk.launches = 0
-        reqs = [
-            ("a: all series, deterministic", list(ids), 0),
-            ("b: 4096 series, 256 samples", list(ids[:4096]), 256),
-            ("c: all series, 256 samples", list(ids), 256),
-            ("d: repeat of a", list(ids), 0),
-        ]
-        served = {}
-        latency = {}
-        for name, sids, n_s in reqs:
-            t1 = time.perf_counter()
-            res = engine.forecast(sids, HORIZON, num_samples=n_s, seed=0,
-                                  timeout_s=600.0)
-            torch.cuda.synchronize()
-            latency[name] = time.perf_counter() - t1
-            served[name] = res
+    reg = ParamRegistry.open(root)
+    engine = PredictionEngine(ParamRegistry.open(root),
+                              cache=ForecastCache(4 * n), device=device)
+    ds_full = np.concatenate(
+        [batch.ds, batch.ds[-1] + np.arange(1, HORIZON + 1)])
+    torch.cuda.reset_peak_memory_stats()
+    # The main path: counts to 0 just before, read just after.
+    fk.launches = 0
+    bk.launches = 0
+    reqs = [
+        ("a: all series, deterministic", list(ids), 0),
+        ("b: 4096 series, 256 samples", list(ids[:4096]), 256),
+        ("c: all series, 256 samples", list(ids), 256),
+        ("d: repeat of a", list(ids), 0),
+    ]
+    served = {}
+    latency = {}
+    for name, sids, n_s in reqs:
         t1 = time.perf_counter()
-        full = engine.backend.predict(reg.load().state, ds_full,
-                                      num_samples=0)
+        res = engine.forecast(sids, HORIZON, num_samples=n_s, seed=0,
+                              timeout_s=600.0)
         torch.cuda.synchronize()
-        latency["in-sample+28 backend.predict"] = time.perf_counter() - t1
-        launches = {"forward": fk.launches, "bands": bk.launches}
-        peak = torch.cuda.max_memory_allocated()
+        latency[name] = time.perf_counter() - t1
+        served[name] = res
+    t1 = time.perf_counter()
+    full = engine.backend.predict(reg.load().state, ds_full,
+                                  num_samples=0)
+    torch.cuda.synchronize()
+    latency["in-sample+28 backend.predict"] = time.perf_counter() - t1
+    launches = {"forward": fk.launches, "bands": bk.launches}
+    peak = torch.cuda.max_memory_allocated()
 
-        require(launches["forward"] > 0 and launches["bands"] > 0,
-                f"kernels launched on the main path: {launches}")
-        require(engine.stats.dispatches == 3,
-                f"dispatches {engine.stats.dispatches} != 3")
-        require(served["d: repeat of a"].from_cache == n, "d from cache")
-        for name, res in served.items():
-            for k, v in res.values.items():
-                require(v.shape == (len(res.series_ids), HORIZON),
-                        f"{name} {k} shape")
-                require(bool(np.isfinite(v).all()), f"{name} {k} finite")
-            if "yhat_lower" in res.values:
-                require(bool((res.values["yhat_lower"]
-                              <= res.values["yhat_upper"]).all()),
-                        f"{name} lower <= upper")
-        for k, v in full.items():
-            require(v.shape == (n, FULL_DAYS + HORIZON), f"full {k} shape")
-            require(bool(np.isfinite(v).all()), f"full {k} finite")
-        require(np.array_equal(served["a: all series, deterministic"]
-                               .values["yhat"],
-                               served["d: repeat of a"].values["yhat"]),
-                "cached repeat equals the first answer")
-        # Agreement with a reference on a small input: the port's plain
-        # path on the CPU for 64 series of request (a).
-        from tsspark_tpu_torch.backends.registry import get_backend
+    require(launches["forward"] > 0 and launches["bands"] > 0,
+            f"kernels launched on the main path: {launches}")
+    require(engine.stats.dispatches == 3,
+            f"dispatches {engine.stats.dispatches} != 3")
+    require(served["d: repeat of a"].from_cache == n, "d from cache")
+    for name, res in served.items():
+        for k, v in res.values.items():
+            require(v.shape == (len(res.series_ids), HORIZON),
+                    f"{name} {k} shape")
+            require(bool(np.isfinite(v).all()), f"{name} {k} finite")
+        if "yhat_lower" in res.values:
+            require(bool((res.values["yhat_lower"]
+                          <= res.values["yhat_upper"]).all()),
+                    f"{name} lower <= upper")
+    for k, v in full.items():
+        require(v.shape == (n, FULL_DAYS + HORIZON), f"full {k} shape")
+        require(bool(np.isfinite(v).all()), f"full {k} finite")
+    require(np.array_equal(served["a: all series, deterministic"]
+                           .values["yhat"],
+                           served["d: repeat of a"].values["yhat"]),
+            "cached repeat equals the first answer")
+    # Agreement with a reference on a small input: the port's plain
+    # path on the CPU for 64 series of request (a).
+    from tsspark_tpu_torch.backends.registry import get_backend
 
-        cpu = get_backend("cuda", cfg, device="cpu")
-        snap = engine.refresh()
-        idx, _ = snap.rows(ids[:64])
-        sub, step = snap.take(idx)
-        last = sub.meta.ds_start + sub.meta.ds_span
-        grid = last[:, None] + step[:, None] * np.arange(1, HORIZON + 1)
-        ref = cpu.predict(sub, grid, num_samples=0)
-        got = served["a: all series, deterministic"].values
-        scale = sub.meta.y_scale[:, None]
-        ref_err = max(float(np.max(np.abs(got[k][:64] - ref[k])
-                                   / (scale + np.abs(ref[k]))))
-                      for k in ref)
-        require(ref_err <= 1e-5, f"engine vs CPU reference: {ref_err}")
-        out = {
-            "phase": "serve", "series": n, "days": FULL_DAYS,
-            "horizon": HORIZON, "prep_s": prep_s,
-            "latency_s": latency, "launches": launches,
-            "dispatches": engine.stats.dispatches,
-            "from_cache_d": served["d: repeat of a"].from_cache,
-            "peak_device_bytes": peak,
-            "engine_vs_cpu_reference_err": ref_err,
-        }
-        emit(out)
-        emit(phase_profile(root, list(ids), device))
-        kernel_inputs = {
-            "state": snap.state, "ds_full": ds_full, "cfg": cfg,
-            "step": snap.step, "batch": batch,
-        }
+    cpu = get_backend("cuda", cfg, device="cpu")
+    snap = engine.refresh()
+    idx, _ = snap.rows(ids[:64])
+    sub, step = snap.take(idx)
+    last = sub.meta.ds_start + sub.meta.ds_span
+    grid = last[:, None] + step[:, None] * np.arange(1, HORIZON + 1)
+    ref = cpu.predict(sub, grid, num_samples=0)
+    got = served["a: all series, deterministic"].values
+    scale = sub.meta.y_scale[:, None]
+    ref_err = max(float(np.max(np.abs(got[k][:64] - ref[k])
+                               / (scale + np.abs(ref[k]))))
+                  for k in ref)
+    require(ref_err <= 1e-5, f"engine vs CPU reference: {ref_err}")
+    out = {
+        "phase": "serve", "series": n, "days": FULL_DAYS,
+        "horizon": HORIZON, "prep_s": prep_s,
+        "latency_s": latency, "launches": launches,
+        "dispatches": engine.stats.dispatches,
+        "from_cache_d": served["d: repeat of a"].from_cache,
+        "peak_device_bytes": peak,
+        "engine_vs_cpu_reference_err": ref_err,
+    }
+    emit(out)
+    emit(phase_profile(root, list(ids), device))
+    kernel_inputs = {
+        "state": snap.state, "ds_full": ds_full, "cfg": cfg,
+        "step": snap.step, "batch": batch, "root": root,
+    }
     return {"out": out, "inputs": kernel_inputs}
 
 
@@ -6692,6 +6747,711 @@ def add_frontend(kernels, fe) -> None:
                                                   b["kernels_buckets"])
 
 
+# Phase serve_scale: serving at scale on phase serve's registry (the M5
+# shape, 30,490 series x 1,941 days, ``ProphetConfig()``), through the
+# entry points a user calls: the in-process loadgen, the replica pool, the
+# kernel bank and the JSONL daemon.  The loadgen's request mix is the JAX
+# package's (``serve/__main__.py``).
+SS_REQUESTS = 10_000
+SS_REPLICAS = 2
+SS_CLIENTS = 4            # the pool loadgen's min(8, 2 R)
+SS_WAVE = 64              # max_batch // 2, as the pool loadgen pipelines
+SS_CHECK_SERIES = 512     # asked through the pool after the flip
+SS_WARM_SERIES = 256      # warmed into each replica's cache at v1
+SS_LONG_HORIZON = 56      # bucket 64: past the forecast plane, K1 per call
+SS_KILL_AT = 0.1          # the SIGKILL of replica 1, as a share of requests
+SS_RESPAWN_S = 180.0
+SS_POOL_WIDTHS = (8, 16, 32, 64, 128, 256)
+SS_BANDS_SAMPLES = 20     # the mix's sampled requests
+SS_MC_SAMPLES = 256       # K2's in-distribution check at the pool's shape
+
+
+_POINT_KEYS = ("yhat", "trend", "additive", "multiplicative")
+
+
+def _replica_counters(pool, slot) -> dict:
+    """Replica ``slot``'s K1 / K2 launches, dispatch widths and cache
+    rows carried forward so far, from its ``stats``."""
+    r = pool._request_slot(slot, {"cmd": "stats"}, timeout_s=30.0)
+    require(bool(r.get("ok")), f"replica {slot}'s stats: {r}")
+    k = r["kernels"]
+    return {"pid": r["pid"], "forward": k["forward"], "bands": k["bands"],
+            "carried": r["cache"]["carried"],
+            "dispatch_widths": dict(k["dispatch_widths"])}
+
+
+def _counters_diff(after, before) -> dict:
+    """``after`` less ``before`` (None: a process's start, all zero)."""
+    before = before or {"forward": 0, "bands": 0, "carried": 0,
+                        "dispatch_widths": {}}
+    bw = before["dispatch_widths"]
+    return {**{k: after[k] - before[k]
+               for k in ("forward", "bands", "carried")},
+            "dispatch_widths": {w: c - bw.get(w, 0) for w, c in
+                                after["dispatch_widths"].items()
+                                if c - bw.get(w, 0)}}
+
+
+def _counters_add(a, b) -> dict:
+    widths = dict(a["dispatch_widths"])
+    for w, c in b["dispatch_widths"].items():
+        widths[w] = widths.get(w, 0) + c
+    return {**{k: a[k] + b[k] for k in ("forward", "bands", "carried")},
+            "dispatch_widths": widths}
+
+
+def cold_pool(root, pool_dir, env):
+    """A one-replica pool whose replica gets ``env`` on top of this
+    process's environment."""
+    from tsspark_tpu_torch.serve import ReplicaPool
+
+    return ReplicaPool(pool_dir, root, n_replicas=1, env=env,
+                       spawn_timeout_s=900.0)
+
+
+def cold_replica(pool, series, warm=False) -> dict:
+    """``pool``'s replica spawned cold (one attempt, the pool's own
+    spawn); ``time_to_first_request_s`` from the spawn to its first
+    forecast answered.  The replica's own counters say whether it built
+    the kernel library, where it loaded it from, and whether its first
+    request saw a build (``CompileWatch`` over the builds only).  The
+    caller stops the pool."""
+    t0 = time.perf_counter()
+    require(pool._spawn(0), "the cold replica started")
+    t_up = time.perf_counter()
+    resp = pool.forecast(series, HORIZON)
+    t1 = time.perf_counter()
+    require(bool(resp.get("ok")),
+            f"cold replica's first request: {resp.get('error')}")
+    ladder = None
+    if warm:
+        w = pool._request_slot(0, {
+            "cmd": "warm", "version": resp["version"],
+            "series_ids": list(series), "horizons": [7, 14, 28],
+        }, timeout_s=300.0)
+        require(bool(w.get("ok")), f"warm: {w}")
+        ladder = w.get("ladder")
+    st = pool._request_slot(0, {"cmd": "stats"}, timeout_s=30.0)
+    k = st["kernels"]
+    return {"time_to_first_request_s": t1 - t0, "spawn_to_ready_s": t_up - t0,
+            "first_request_s": t1 - t_up,
+            "library_builds": k["library_builds"],
+            "library_loads": k["library_loads"], "build_s": k["build_s"],
+            "first_request_builds": k["first_request_builds"],
+            "build_dir": k["build_dir"], "bank": k["bank"],
+            "forward": k["forward"], "ladder": ladder,
+            "version": resp["version"], "from_cache": resp["from_cache"]}
+
+
+def pool_kernel_checks(snap, cfg, rows, device) -> dict:
+    """K1 and K2 at the pool's dispatch shapes (the engine's pow-2 widths
+    for 1-8-series requests coalesced up to a pump's batch, at horizon
+    buckets 8 / 16 / 32), on the served version's rows: K1 against its
+    plain version (f32 rule) and each row the same bits in a reversed
+    batch; K2 on given draws against its plain version at S = 20, and on
+    its own Philox draws in distribution against the plain version's
+    generator at the 128-row, bucket-32 shape replicated to 4,096 rows,
+    at S = 256 where ``_require_mc``'s limits were set; both timed at
+    128 x 32 against their bounds."""
+    import torch
+
+    from tsspark_tpu_torch.kernels import bands as bk
+    from tsspark_tpu_torch.kernels import forward as fk
+    from tsspark_tpu_torch.models.prophet.predict import prepare_predict_data
+    from tsspark_tpu_torch.serve.fplane import future_grid
+
+    f_tol, b_tol, s = 2e-5, 1e-5, SS_BANDS_SAMPLES
+    gen = torch.Generator(device=device).manual_seed(21)
+
+    def inputs(idx, hb):
+        state, step = snap.take(np.asarray(idx))
+        data = prepare_predict_data(future_grid(state, step, hb),
+                                    state.meta, cfg, device)
+        theta = state.theta.to(device)
+        scale = torch.as_tensor(state.meta.y_scale, dtype=torch.float32,
+                                device=device)
+        floor = torch.as_tensor(state.meta.floor, dtype=torch.float32,
+                                device=device)
+        return theta, data, scale, floor
+
+    shapes = {}
+    for w in SS_POOL_WIDTHS:
+        for hb in (8, 16, 32):
+            theta, data, scale, floor = inputs(rows[:w], hb)
+            got = fk.forward(theta, data, cfg, scale, floor)
+            want = fk.forward_plain(theta, data, cfg, scale, floor)
+            f_err = _forward_err(got, want, scale)
+            require(f_err <= f_tol, f"K1 at {w}x{hb}: {f_err}")
+            rev = torch.arange(w - 1, -1, -1, device=device)
+            flip = fk.forward(theta[rev].contiguous(), _rows(data, rev),
+                              cfg, scale[rev].contiguous(),
+                              floor[rev].contiguous())
+            require(all(torch.equal(g, x[rev]) for g, x in zip(flip, got)),
+                    f"K1 at {w}x{hb}: a reversed batch differs")
+            _, det, add, mult = fk.forward(theta, data, cfg)
+            kargs = (theta, data, det, add, mult, scale, floor, cfg)
+            draws = bk.sample_draws((s, w, hb), gen, device)
+            b_err = _band_err(bk.bands(*kargs, s, draws=draws),
+                              bk.bands_plain(*kargs, draws), scale)
+            require(b_err <= b_tol, f"K2 at {w}x{hb}x{s}: {b_err}")
+            shapes[f"{w}x{hb}"] = {"forward_rel_err": f_err,
+                                   "bands_rel_err": b_err}
+    # K2's own draws in distribution: the 128-row, bucket-32 shape's rows
+    # 32 times over (each copy its own Philox row coordinate), at S = 256.
+    big = np.tile(np.asarray(rows[:128]), 32)
+    theta, data, scale, floor = inputs(big, 32)
+    _, det, add, mult = fk.forward(theta, data, cfg)
+    kargs = (theta, data, det, add, mult, scale, floor, cfg)
+    own = bk.bands(*kargs, SS_MC_SAMPLES, seed=11)
+    cpu = (theta.cpu(), data._replace(**{f: getattr(data, f).cpu()
+                                         for f in data._fields}),
+           *(x.cpu() for x in kargs[2:7]), cfg)
+    ref = {k: v.to(device)
+           for k, v in bk.bands(*cpu, SS_MC_SAMPLES, seed=11).items()}
+    sigma = torch.exp(theta[:, 2])[:, None] * scale[:, None]
+    mc = _mc_compare(own, ref, "yhat_lower", "yhat_upper", sigma)
+    _require_mc(mc, "yhat_lower", "yhat_upper", "pool-shape bands")
+    # Times at the mix's typical dispatch, 128 rows x bucket 32.
+    tw = min(128, len(rows))
+    theta, data, scale, floor = inputs(rows[:tw], 32)
+    _, det, add, mult = fk.forward(theta, data, cfg)
+    kargs = (theta, data, det, add, mult, scale, floor, cfg)
+    draws = bk.sample_draws((s, tw, 32), gen, device)
+    timing = {
+        "forward": {"shape": [tw, 32, "per-series X"],
+                    "ms": cuda_ms(lambda: fk.forward(theta, data, cfg,
+                                                     scale, floor)),
+                    "plain_ms": cuda_ms(lambda: fk.forward_plain(
+                        theta, data, cfg, scale, floor), iters=5),
+                    **forward_bound_ms(tw, 32, cfg, True, True)},
+        "bands": {"shape": [tw, 32, s],
+                  "ms": cuda_ms(lambda: bk.bands(*kargs, s, seed=3)),
+                  "plain_ms": cuda_ms(lambda: bk.bands_plain(*kargs, draws),
+                                      iters=5),
+                  **bands_bound_ms(tw, 32, s, cfg),
+                  **bands_variates_bound_ms(tw, 32, s, cfg)},
+    }
+    return {"shapes": shapes, "monte_carlo_yhat_s256": mc,
+            "tolerance": {"forward": f"|k-p|/(y_scale+|p|) <= {f_tol}",
+                          "bands": f"|k-p|/(y_scale+|p|) <= {b_tol} "
+                                   "(given draws)"},
+            "timing": timing}
+
+
+def phase_serve_scale(device, serve) -> dict:
+    """(a) the in-process loadgen, (b) the replica pool with a delta flip
+    and a replica SIGKILL, (c) cold replicas with and without the kernel
+    bank, (d) the JSONL daemon as a child process (beside (c))."""
+    import shutil
+    import signal
+
+    import torch
+
+    from tsspark_tpu_torch import orchestrate
+    from tsspark_tpu_torch.backends.registry import get_backend
+    from tsspark_tpu_torch.config import SolverConfig
+    from tsspark_tpu_torch.kernels import bands as bk
+    from tsspark_tpu_torch.kernels import build
+    from tsspark_tpu_torch.kernels import forward as fk
+    from tsspark_tpu_torch.obs import history
+    from tsspark_tpu_torch.perf import PerfRecorder, get_perf
+    from tsspark_tpu_torch.serve import (
+        ForecastCache,
+        ParamRegistry,
+        PredictionEngine,
+        ReplicaPool,
+        aotbank,
+        shard_of,
+    )
+    from tsspark_tpu_torch.serve import __main__ as cli
+    from tsspark_tpu_torch.serve import fplane
+    from tsspark_tpu_torch.serve.fplane import future_grid
+
+    inp = serve["inputs"]
+    root, batch, cfg = inp["root"], inp["batch"], inp["cfg"]
+    reg = ParamRegistry.open(root)
+    v1 = reg.active_version()
+    snap1 = reg.load()
+    sids = [str(x) for x in snap1.series_ids]
+    n = len(sids)
+    scratch = tempfile.mkdtemp(prefix="serve_scale_")
+    walls = {}
+
+    def stage(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    q_env = os.environ.get("TSSPARK_QPLANE")
+    pool = None
+    cold_pools = {}
+    daemon = None
+    try:
+        # (a) The in-process loadgen, ending in the sentinel (its history
+        # in this phase's scratch).
+        args = cli.build_parser().parse_args([
+            "--loadgen", str(SS_REQUESTS), "--registry", root,
+            "--dir", os.path.join(scratch, "a"),
+            "--report", os.path.join(scratch, "SERVE_a.json"),
+            "--history", os.path.join(scratch, "history",
+                                      "RUNHISTORY.jsonl")])
+        args.device = device
+        _zero_counts()
+        rc = stage("a_loadgen", cli._loadgen, args)
+        a_launches = {"forward": fk.launches, "bands": bk.launches}
+        require(rc == 0, f"the loadgen's sentinel exit code {rc}")
+        with open(args.report) as fh:
+            rep_a = json.load(fh)
+        eng_a = rep_a["engine"]
+        require(a_launches["forward"] > 0 and a_launches["bands"] > 0,
+                f"K1 and K2 launched on the loadgen: {a_launches}")
+        require(eng_a["failed"] == 0 and eng_a["rejected"] == 0,
+                f"loadgen failures {eng_a}")
+        require(eng_a["completed"] + eng_a["shed"] == SS_REQUESTS,
+                "every loadgen request answered or shed")
+        require(rep_a["dispatch"]["n_dispatches"] == eng_a["dispatches"],
+                "one perf record a dispatch")
+        rows = history.read_history(args.history)
+        require(len(rows) == 1 and rows[0]["device_class"] == "gpu",
+                f"the sentinel's row: {rows}")
+        a_out = {
+            "wall_s": rep_a["wall_s"],
+            "requests_per_s": rep_a["requests_per_s"],
+            "latency_ms": eng_a["latency_ms"], "shed": eng_a["shed"],
+            "dispatches": eng_a["dispatches"],
+            "batch_occupancy": eng_a["batch_occupancy"],
+            "cache": rep_a["cache"],
+            "dispatch": {k: v for k, v in rep_a["dispatch"].items()
+                         if k != "segments"},
+            "launches": a_launches, "device": rep_a["device"],
+            "sentinel_row": {k: rows[0].get(k) for k in
+                             ("kind", "device_class", "workload")},
+        }
+        emit({"phase": "serve_scale", "leg": "a", **a_out})
+
+        # (b) The flip target: a delta version refitting 1% of the rows
+        # through CudaBackend with a perf recorder (warm from v1).
+        changed = np.linspace(0, n - 1, int(round(n * PLANES_DELTA_FRAC))) \
+            .astype(np.int64)
+        rec = PerfRecorder()
+        bkd = get_backend("cuda", cfg, SolverConfig(max_iters=25),
+                          device=device, perf=rec)
+        _zero_counts()
+        sub = stage("b_delta_refit", bkd.fit, batch.ds, batch.y[changed],
+                    mask=batch.mask[changed],
+                    init=snap1.state.theta[torch.as_tensor(changed)].clone())
+        refit_counts = _stream_counts()
+        perf_rep = get_perf(sub)
+        require(perf_rep is not None and perf_rep.segments,
+                "CudaBackend(perf=) attached its per-dispatch report")
+        v2 = reg.publish_delta(sub, changed, step_sub=np.ones(len(changed)),
+                               activate=False)
+        # (c)'s kernel bank, built at publish (a copy of this process's
+        # build), idempotent across a second build.
+        bank = os.path.join(scratch, "bank")
+        snap2 = reg.load(v2, fallback=False)
+        built = stage("c_build_bank", aotbank.build_bank, snap2, bkd,
+                      dirpath=bank)
+        again = aotbank.build_bank(snap2, bkd, dirpath=bank)
+        require(built["status"] == "built" and again["status"] == "present",
+                f"the bank's manifest is idempotent: {built} {again}")
+        # v1's forecast plane at the hot horizons, as a pool that had
+        # activated v1 holds it: the flip then publishes v2's as a delta
+        # of it, and bucket 64 stays the materializer's and the cache's.
+        direct_bk = get_backend("cuda", cfg, device=device)
+        v1_plane = stage("b_v1_plane", fplane.maybe_publish, reg, v1,
+                         direct_bk, horizons=cli.HORIZONS)
+        # The quantile plane is not part of this mix (no interval
+        # reads); its publish is measured in phase uncertainty.
+        os.environ["TSSPARK_QPLANE"] = "0"
+        pool = ReplicaPool(os.path.join(scratch, "pool"), root,
+                           n_replicas=SS_REPLICAS, max_queue=4096,
+                           max_batch=128, device=device.type)
+        stage("b_spawn", pool.start)
+        pool.start_watch(0.3)
+        # Each replica warmed at v1: the hot buckets (the forecast plane's)
+        # and, at bucket 64 past the plane, SS_WARM_SERIES series into its
+        # cache, whose unrefitted rows the delta flip must carry forward.
+        warm_ids = sids[:SS_WARM_SERIES]
+        warmed = {}
+        for slot in range(SS_REPLICAS):
+            w = pool._request_slot(slot, {
+                "cmd": "warm", "version": v1, "series_ids": warm_ids,
+                "horizons": [*cli.HORIZONS, SS_LONG_HORIZON]},
+                timeout_s=300.0)
+            require(bool(w.get("ok")), f"warm replica {slot}: {w}")
+            warmed[slot] = w.get("warmed")
+        # Each replica's counters just before the replay (and replica 1's
+        # just before its kill: its process goes with them).
+        before = {s: _replica_counters(pool, s) for s in range(SS_REPLICAS)}
+        killed = {}
+
+        def kill_replica_1(p):
+            info = p.replicas[1]
+            killed["counts"] = _replica_counters(p, 1)
+            killed.update(pid=info.pid, t=time.monotonic())
+            os.kill(info.pid, signal.SIGKILL)
+
+        fk.launches = 0
+        replay = stage("b_replay", cli._pool_replay, pool, sids,
+                       SS_REQUESTS, 0, SS_WAVE, SS_CLIENTS, v2,
+                       [(SS_KILL_AT, kill_replica_1)],
+                       flip_horizons=(*cli.HORIZONS, SS_LONG_HORIZON))
+        front_k1 = fk.launches  # the flip's forecast-plane publish
+        v2_buckets = fplane.attach(reg.version_dir(v2)).buckets
+        require(tuple(v2_buckets) == fplane.bucket_ladder(cli.HORIZONS),
+                f"v2's forecast plane holds buckets {v2_buckets}")
+        chk = sids[::n // SS_CHECK_SERIES][:SS_CHECK_SERIES]
+        # (c) and (d) start now, beside (b)'s checks, which time nothing:
+        # a cold replica armed with the bank, then one without it (on
+        # this install the library built at the top of the run is in the
+        # package's build directory), one at a time; and the daemon as a
+        # child process (its requests now, its control lines at the end).
+        cold_pools = {
+            "with_bank": cold_pool(root, os.path.join(scratch, "bank_r"),
+                                   {aotbank.AOT_CACHE_ENV: bank}),
+            "without_bank": cold_pool(root, os.path.join(scratch, "plain_r"),
+                                      {}),
+        }
+        cold_box = {}
+
+        def cold_legs():
+            try:
+                for name, p in cold_pools.items():
+                    t0 = time.perf_counter()
+                    cold_box[name] = cold_replica(
+                        p, sids[:16], warm=name == "with_bank")
+                    p.stop()
+                    walls[f"c_{name}"] = time.perf_counter() - t0
+            except BaseException as e:  # raised below
+                cold_box["error"] = e
+
+        cold_thread = threading.Thread(target=cold_legs, daemon=True)
+        cold_thread.start()
+        lines = [{"id": f"r{i}", "series_ids": chk[i * 3:i * 3 + 3],
+                  "horizon": h} for i, h in enumerate(cli.HORIZONS)]
+        d_err = open(os.path.join(scratch, "daemon.err"), "w")
+        t_d0 = time.perf_counter()
+        daemon = subprocess.Popen(
+            [sys.executable, "-m", "tsspark_tpu_torch.serve",
+             "--registry", root],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=d_err,
+            text=True, cwd=os.path.dirname(os.path.abspath(__file__)))
+        daemon.stdin.write("".join(json.dumps(x) + "\n" for x in lines)
+                           + '{"id": "st", "cmd": "stats"}\n')
+        daemon.stdin.flush()
+        # Replica 1 back (the pool's watch respawns it); no request goes
+        # to the pool until the counters below are read.
+        info1 = pool.replicas[1]
+        deadline = time.monotonic() + SS_RESPAWN_S
+        while time.monotonic() < deadline and not (
+                info1.pid != killed["pid"] and info1.ready_t is not None
+                and pool.ping(1) is not None):
+            time.sleep(0.2)
+        pid1 = info1.pid
+        require(pid1 != killed["pid"] and info1.ready_t is not None
+                and pool.ping(1) is not None, "replica 1 respawned")
+        after = {s: _replica_counters(pool, s) for s in range(SS_REPLICAS)}
+        require(after[0]["pid"] == before[0]["pid"]
+                and after[1]["pid"] == pid1,
+                "replica 0 lived through the replay, replica 1 respawned")
+        # The replay's launches: replica 0's counters across it; replica
+        # 1's killed process's up to its kill plus the respawned one's.
+        in_replay = {
+            0: _counters_diff(after[0], before[0]),
+            1: _counters_add(_counters_diff(killed["counts"], before[1]),
+                             _counters_diff(after[1], None)),
+        }
+        for slot, k in in_replay.items():
+            require(k["forward"] > 0 and k["bands"] > 0,
+                    f"K1 and K2 launched in replica {slot} during the "
+                    f"replay: {k}")
+        flip = replay["flip"]
+        respawn = {
+            "detect_s": info1.spawn_t - killed["t"],
+            "respawn_s": info1.ready_t - killed["t"],
+            "spawn_s": info1.ready_t - info1.spawn_t,
+            "up_at_flip": info1.ready_t <= flip["t0"],
+            "warmed_at_flip": flip["warmed"].get(1) is not None,
+        }
+        outcomes = replay["outcomes"]
+        require(outcomes["failed"] == 0 and outcomes["rejected"] == 0,
+                f"non-shed failures: {outcomes} {replay['failures'][:3]}")
+        require(outcomes["ok"] + outcomes["shed"] == SS_REQUESTS,
+                "every pool request answered or shed")
+        require(pool.wrong_version == 0,
+                f"wrong-version answers: {pool.wrong_version}")
+        require(reg.active_version() == v2 and pool.expected_version == v2,
+                "the pool flipped to the delta version")
+        lease = orchestrate.read_lease(pool.pool_dir, 1, 2)
+        require(lease is not None
+                and str(lease.get("token")).startswith(f"pool1.{pid1}."),
+                f"the respawned process holds slot 1's lease: {lease}")
+        eng = PredictionEngine(ParamRegistry.open(root),
+                               cache=ForecastCache(0), device=device)
+
+        def ask_slot(slot, ids, h):
+            """``ids`` at horizon ``h`` from replica ``slot`` itself, in
+            requests of 64: the rows served from cache, and the values."""
+            from_cache, vals = 0, {k: [] for k in _POINT_KEYS}
+            for i in range(0, len(ids), 64):
+                r = pool._try_slot(slot, {
+                    "id": pool._next_rid(), "series_ids": ids[i:i + 64],
+                    "horizon": int(h), "num_samples": 0, "seed": 0})
+                require(r is not None and r.get("ok")
+                        and r["version"] == v2 and r["replica"] == slot,
+                        f"replica {slot} h={h}: {r}")
+                from_cache += r["from_cache"]
+                for k in _POINT_KEYS:
+                    vals[k].extend(np.asarray(r[k], np.float32))
+            return from_cache, {k: np.stack(v) for k, v in vals.items()}
+
+        # After the flip the materialized hot set is answered from cache
+        # in every replica the flip warmed (replica 1 only if it was back
+        # by then): at the plane's buckets and at 56, which only the
+        # materializer filled.
+        hot = flip["hot"]
+        hot_checked = {}
+        require(flip["warmed"].get(0) is not None, "the flip warmed replica 0")
+        for slot in range(SS_REPLICAS):
+            if flip["warmed"].get(slot) is None:
+                continue
+            for h in (*cli.HORIZONS, SS_LONG_HORIZON):
+                got, _ = ask_slot(slot, hot, h)
+                require(got == len(hot),
+                        f"replica {slot}'s hot set at h={h}: {got} of "
+                        f"{len(hot)} from cache")
+            hot_checked[slot] = len(hot) * (len(cli.HORIZONS) + 1)
+        # The delta flip's cache carry-forward in replica 0: of the series
+        # warmed at 56 before the replay, the unrefitted ones are answered
+        # from cache with the engine's bits, the refitted ones recomputed.
+        changed_ids = {sids[i] for i in changed}
+        keep = [s for s in warm_ids if s not in changed_ids and s not in hot]
+        refit = [s for s in warm_ids if s in changed_ids and s not in hot]
+        carried = in_replay[0]["carried"]
+        n_carry = sum(s not in changed_ids for s in warm_ids)
+        require(carried >= n_carry > 0,
+                f"replica 0 carried {carried} cache rows forward, "
+                f"{n_carry} warmed unrefitted")
+        carry = {"warmed": len(warm_ids), "warmed_unrefitted": n_carry,
+                 "carried_keys": carried}
+        for ids, want in ((keep, len(keep)), (refit, 0)):
+            if not ids:
+                continue
+            got, vals = ask_slot(0, ids, SS_LONG_HORIZON)
+            require(got == want, f"carry-forward at h={SS_LONG_HORIZON}: "
+                                 f"{got} of {len(ids)} from cache, want {want}")
+            e = eng.forecast(ids, SS_LONG_HORIZON)
+            for k in _POINT_KEYS:
+                require(np.array_equal(vals[k], e.values[k]),
+                        f"carried or recomputed rows != engine: {k}")
+        carry.update(asked_kept=len(keep), asked_refit=len(refit))
+        # 512 series on both shards, deterministic, bitwise the in-process
+        # engine's and a direct CudaBackend.predict's.
+        by_shard = {}
+        for sid in chk:
+            by_shard.setdefault(shard_of(sid, SS_REPLICAS), []).append(sid)
+        require(len(by_shard) == SS_REPLICAS, "both shards asked")
+        idx, _ = snap2.rows(chk)
+        sub2, step2 = snap2.take(idx)
+        bitwise = {}
+        for h in (HORIZON, SS_LONG_HORIZON):
+            got = {}
+            for shard, ss in sorted(by_shard.items()):
+                for i in range(0, len(ss), 64):
+                    part = ss[i:i + 64]
+                    r = pool.forecast(part, h)
+                    require(r.get("ok") and r["version"] == v2
+                            and r["replica"] == shard,
+                            f"check request: {r.get('error')}")
+                    for j, sid in enumerate(part):
+                        got[sid] = {k: np.asarray(r[k][j], np.float32)
+                                    for k in _POINT_KEYS}
+            e = eng.forecast(chk, h)
+            require(e.version == v2, "the in-process engine at v2")
+            d = direct_bk.predict(sub2, future_grid(sub2, step2, h),
+                                  num_samples=0)
+            for k in _POINT_KEYS:
+                pooled = np.stack([got[sid][k] for sid in chk])
+                require(np.array_equal(pooled, e.values[k]),
+                        f"pool != engine: {k} h={h}")
+                require(np.array_equal(e.values[k], d[k][:, :h]),
+                        f"engine != CudaBackend.predict: {k} h={h}")
+            bitwise[h] = {"series": len(chk),
+                          "per_shard": {str(k): len(v)
+                                        for k, v in by_shard.items()},
+                          "plane_served": h <= 32}
+        # A sampled request on each shard after the respawn (K2 in every
+        # live replica, the respawned process included).
+        for shard, ss in sorted(by_shard.items()):
+            r = pool.forecast(ss[:8], HORIZON, num_samples=SS_BANDS_SAMPLES,
+                              seed=1)
+            require(r.get("ok") and r["replica"] == shard,
+                    f"sampled check: {r.get('error')}")
+        in_checks = {s: _counters_diff(_replica_counters(pool, s), after[s])
+                     for s in range(SS_REPLICAS)}
+        for slot, k in in_checks.items():
+            require(k["bands"] > 0, f"K2 in replica {slot}'s checks: {k}")
+        stats = pool.stats()
+        prom = pool.prometheus()
+        require("tsspark_pool_replica_shed" in prom
+                and "tsspark_pool_failovers_total" in prom,
+                "the pool's Prometheus text")
+        rep_b = cli.pool_report(reg, pool, replay, SS_REQUESTS, 0,
+                                SS_CLIENTS, SS_WAVE, walls["b_spawn"],
+                                device)
+        pool.stop()
+        pool = None
+        held = stage("b_kernel_checks", pool_kernel_checks, snap2, cfg,
+                     np.asarray(idx), device)
+        b_out = {
+            "delta": {"changed_rows": int(len(changed)), "version": v2,
+                      "refit_s": walls["b_delta_refit"],
+                      "launches": refit_counts,
+                      "perf": perf_rep.to_dict(n_series=len(changed))},
+            "v1_plane": v1_plane, "v2_plane_buckets": list(v2_buckets),
+            "spawn_s": walls["b_spawn"], "warmed": warmed,
+            "replay_wall_s": replay["wall_s"],
+            "requests_per_s": rep_b["requests_per_s"],
+            "outcomes": outcomes, "latency_ms": replay["latency_ms"],
+            "flip": rep_b["pool"]["flip"],
+            "flip_warmed": {str(k): v for k, v in flip["warmed"].items()},
+            "front_k1_launches_at_flip": front_k1,
+            "kill": {"at_share": SS_KILL_AT, "pid": killed["pid"],
+                     "respawned_pid": pid1, **respawn},
+            "failovers": stats["failovers"], "respawns": stats["respawns"],
+            "spawn_exits": stats["spawn_exits"],
+            "wrong_version": stats["wrong_version"],
+            "fenced_seen": stats["fenced_seen"],
+            "per_replica": {
+                k: {f: (r or {}).get(f) for f in
+                    ("shed", "completed", "failed", "latency_ms",
+                     "plane_hits", "dispatches", "cache")}
+                for k, r in stats["replicas"].items()},
+            "launches_replay": {str(k): v for k, v in in_replay.items()},
+            "launches_checks": {str(k): v for k, v in in_checks.items()},
+            "hot_from_cache": hot_checked,
+            "carry_forward": carry,
+            "bitwise_after_flip": bitwise,
+            "kernels_at_pool_shapes": held,
+        }
+        emit({"phase": "serve_scale", "leg": "b", **b_out})
+
+        # (c) The bank's replica against the one without it: each one's
+        # time to its first request and its builds (none), beside what
+        # this run's own build of the library took at its top (the cost
+        # the bank spares a replica whose install has no built library).
+        cold_thread.join()
+        for p in cold_pools.values():
+            p.stop()
+        cold_pools = {}
+        if "error" in cold_box:
+            raise cold_box["error"]
+        with_bank, without = cold_box["with_bank"], cold_box["without_bank"]
+        require((with_bank["bank"] or {}).get("armed") is True
+                and with_bank["library_builds"] == 0
+                and with_bank["first_request_builds"] == 0
+                and with_bank["build_dir"] == os.path.abspath(bank),
+                f"the armed replica built nothing: {with_bank}")
+        require(with_bank["ladder"] is not None
+                and len(with_bank["ladder"]["shapes"]) ==
+                len(aotbank.shape_ladder(n, (7, 14, 28))),
+                "warm launched the bank's ladder")
+        require(without["bank"] is None and without["library_builds"] == 0
+                and without["first_request_builds"] == 0
+                and without["build_dir"] == build.build_dir(),
+                f"the replica without the bank loaded the built library: "
+                f"{without}")
+        c_out = {"bank": {k: built.get(k) for k in
+                          ("how", "built_s", "digest", "library")},
+                 "bank_entries": len(built["ladder"]),
+                 "with_bank": with_bank, "without_bank": without,
+                 "run_build": {"build_s": build.build_seconds,
+                               "builds": build.builds}}
+        emit({"phase": "serve_scale", "leg": "c", **c_out})
+
+        # (d) The daemon's answers, then its control lines.
+        ref = {ln["id"]: eng.forecast(ln["series_ids"], ln["horizon"])
+               for ln in lines}
+        daemon.stdin.write(
+            f'{{"id": "act", "cmd": "activate", "version": {v1}}}\n'
+            '{"id": "rb", "cmd": "rollback"}\n'
+            '{"id": "st2", "cmd": "stats"}\n')
+        daemon.stdin.close()
+        out_lines = [json.loads(x) for x in daemon.stdout.read().splitlines()]
+        rc_d = daemon.wait(timeout=120)
+        daemon = None
+        d_wall = time.perf_counter() - t_d0
+        d_err.close()
+        require(rc_d == 0, f"the daemon's exit code {rc_d}")
+        by_id = {o.get("id"): o for o in out_lines}
+        for ln in lines:
+            o = by_id.get(ln["id"]) or {}
+            require(bool(o.get("ok")) and o["version"] == v2,
+                    f"daemon {ln['id']}: {o.get('error')}")
+            for k, v in ref[ln["id"]].values.items():
+                require(np.array_equal(np.asarray(o[k], np.float32), v),
+                        f"daemon {ln['id']} {k} != the engine's")
+        require(by_id["st"]["stats"]["completed"] == len(lines),
+                "daemon stats")
+        require(by_id["act"]["active_version"] == v1
+                and by_id["rb"]["active_version"] == v2
+                and by_id["st2"]["active_version"] == v2,
+                "daemon activate / rollback")
+        d_out = {"wall_s": d_wall, "lines": len(out_lines),
+                 "latency_ms": [by_id[ln["id"]]["latency_ms"]
+                                for ln in lines],
+                 "bitwise_engine": True}
+        emit({"phase": "serve_scale", "leg": "d", **d_out})
+    finally:
+        if q_env is None:
+            os.environ.pop("TSSPARK_QPLANE", None)
+        else:
+            os.environ["TSSPARK_QPLANE"] = q_env
+        if pool is not None:
+            pool.stop()
+        for p in cold_pools.values():
+            p.stop()
+        if daemon is not None:
+            daemon.kill()
+            daemon.wait()
+        shutil.rmtree(scratch, ignore_errors=True)
+    out = {"phase": "serve_scale", "walls": walls,
+           "a": a_out, "b": b_out, "c": c_out, "d": d_out}
+    emit({"phase": "serve_scale", "walls": walls})
+    return out
+
+
+def add_serve_scale(kernels, ss) -> None:
+    """K1 and K2's entries gain their launches on phase serve_scale: the
+    in-process loadgen's, each replica's during the pool's replay (from
+    its ``stats`` before and after it; replica 1's killed process up to
+    its kill plus its respawned one) and, apart, during the checks after
+    it; and their checks and times at the pool's dispatch shapes."""
+    b = ss["b"]
+    held = b["kernels_at_pool_shapes"]
+    replay, checks = b["launches_replay"], b["launches_checks"]
+    for k in kernels:
+        if k["name"] not in ("forward", "bands"):
+            continue
+        name = k["name"]
+        k["launches_loadgen"] = ss["a"]["launches"][name]
+        k["launches_pool"] = {slot: c[name] for slot, c in replay.items()}
+        k["launches_pool_checks"] = {slot: c[name]
+                                     for slot, c in checks.items()}
+        k["pool_dispatch_widths"] = {slot: c["dispatch_widths"]
+                                     for slot, c in replay.items()}
+        k["pool_check"] = {
+            "shapes": sorted(held["shapes"]),
+            "max_rel_err": max(v[f"{name}_rel_err"]
+                               for v in held["shapes"].values()),
+            "tolerance": held["tolerance"][name]}
+        if name == "bands":
+            k["pool_check"]["monte_carlo_s256"] = held["monte_carlo_yhat_s256"]
+        k["at_pool_shape"] = held["timing"][name]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6722,6 +7482,11 @@ def main(argv=None) -> int:
     build_thread.start()
     rng = np.random.default_rng(args.seed)
     phases_s = {}
+    # Phase serve's registry, host work beside the kernels' build.
+    serve_root = tempfile.mkdtemp(prefix="serve_")
+    t0 = time.perf_counter()
+    serve_made = serve_registry(args, serve_root)
+    phases_s["serve_registry"] = time.perf_counter() - t0
 
     def timed(name, fn, *a):
         t0 = time.perf_counter()
@@ -6782,7 +7547,7 @@ def main(argv=None) -> int:
         bnd = timed("bands", phase_bands, rng, device)
         timed("loss", phase_loss, rng, device)
         timed("fan", phase_fan, rng, device)
-        serve = timed("serve", phase_serve, args, device)
+        serve = timed("serve", phase_serve, args, device, serve_made)
         fit = timed("fit", phase_fit, device, batch3, gen3_s, parity)
         mcmc = timed("mcmc", phase_mcmc, fit, device)
         fit4 = timed("fit_logistic", phase_fit_logistic, device, batch4,
@@ -6804,6 +7569,7 @@ def main(argv=None) -> int:
         rs = timed("resilient", phase_resilient, device, dp_ingest,
                    dp.pop("handoff"))
         fe = timed("frontend", phase_frontend, device, batch3, fe_cpu)
+        scale = timed("serve_scale", phase_serve_scale, device, serve)
         kernels = timed("kernels", phase_kernels, serve, fwd, bnd, fit,
                         fit4, mcmc, device)
         add_stream_launches(kernels["kernels"], stream5, fleet)
@@ -6812,12 +7578,14 @@ def main(argv=None) -> int:
         add_dataplane(kernels["kernels"], dp)
         add_resilient(kernels["kernels"], rs)
         add_frontend(kernels["kernels"], fe)
+        add_serve_scale(kernels["kernels"], scale)
         finished = True
     finally:
         import shutil
 
         dp_ingest.close()
         shutil.rmtree(unc_root, ignore_errors=True)
+        shutil.rmtree(serve_root, ignore_errors=True)
         parity.close(finished)
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start,
           "phases_s": phases_s})

@@ -108,8 +108,35 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "tsspark_tpu_torch.fit.prophet",
                 "tsspark_tpu_torch.__main__",
                 "tsspark_tpu_torch.spark",
-                "tsspark_tpu_torch.plot"):
+                "tsspark_tpu_torch.plot",
+                "tsspark_tpu_torch.serve.cache",
+                "tsspark_tpu_torch.serve.pool",
+                "tsspark_tpu_torch.serve.replica",
+                "tsspark_tpu_torch.serve.aotbank",
+                "tsspark_tpu_torch.serve.__main__",
+                "tsspark_tpu_torch.obs.regress",
+                "tsspark_tpu_torch.utils.procmem"):
         assert mod in out["modules"]
+
+
+_HISTORY_LEAN = r"""
+import json, sys
+sys.modules["jax"] = None          # any `import jax` now raises
+sys.modules["torch"] = None        # any `import torch` now raises
+from tsspark_tpu_torch.obs import history, regress  # noqa: F401
+from tsspark_tpu_torch.utils import procmem  # noqa: F401
+print(json.dumps(sorted(m for m, mod in sys.modules.items()
+                        if mod is not None and m.split(".")[0]
+                        in ("torch", "jax", "numpy"))))
+"""
+
+
+def test_history_and_sentinel_import_without_torch():
+    """The run history and the sentinel are device-free: a history read
+    works where the card (or torch) is unusable."""
+    proc = _run(_HISTORY_LEAN)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
 
 
 _DATA_PLANE_LEAN = r"""

@@ -14,6 +14,7 @@ y_scale, as the MAP forecast's tests); and a plane either package
 publishes attaches in the other with the same columns.
 """
 
+import json
 import os
 
 import jax.numpy as jnp
@@ -248,6 +249,33 @@ def test_advi_mode_selected_and_bitwise(tmp_path, fitted):
     want = qplane.compute_rows(snap, CFG, backend, np.arange(3), 8,
                                quantiles=(0.25,), posterior=post)
     np.testing.assert_array_equal(long_tail.values["q250"], want[250])
+
+
+def test_advi_publish_on_worker_processes_is_bitwise(tmp_path, fitted,
+                                                     monkeypatch):
+    """The ADVI-mode plane published with its rows spread over spawned
+    worker processes (parts of 2 rows here) is the one-process publish
+    byte for byte: every column file and the sentinel's shard CRCs."""
+    backend, state, ids = fitted
+    post = _posterior(state)
+    snap = _registry(tmp_path, fitted).load()
+    monkeypatch.setattr(qplane, "_PART_ROWS", 2)
+    cols, shards = {}, {}
+    for procs in (1, 3):
+        vdir = tmp_path / f"procs{procs}"
+        vdir.mkdir()
+        spec = qplane.write_qplane(str(vdir), snap, CFG, backend,
+                                   posterior=post, processes=procs)
+        assert spec["mode"] == "advi"
+        cols[procs] = {name: (vdir / name).read_bytes()
+                       for name in sorted(os.listdir(vdir))
+                       if name.startswith(qplane.QCOL_PREFIX)}
+        with open(vdir / qplane.QPLANE_OK) as fh:
+            shards[procs] = json.load(fh)["shards"]
+    assert len(cols[1]) == N_COLS
+    assert cols[3] == cols[1]
+    assert shards[3] == shards[1]
+    assert qplane._publish_processes(qplane.PARALLEL_MIN_ROWS - 1) == 1
 
 
 def test_attach_rejects_corrupt_column(tmp_path, fitted):

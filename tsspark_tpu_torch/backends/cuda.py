@@ -2,7 +2,8 @@
 bound device memory.
 
 The counterpart of the JAX package's ``TpuBackend`` (without its
-multi-chip ``mesh`` route):
+multi-chip ``mesh`` route: ``mesh=`` or ``shard_config=`` raises
+``NotImplementedError`` until the mesh-resident fit is ported):
 
 * ``fit``: batches larger than one chunk (8,192 series by default) are
   fitted chunk by chunk, every chunk padded to a power of two (32-row
@@ -39,10 +40,16 @@ pack, to_device, init, solve, to_host and (this backend's) rescue; the
 forecast's prep, forecast and to_host; ``fit_twophase`` adds ``phase1``
 and ``phase2`` around its two phases' fits (which count their own stages
 into the same clock).
+
+``perf=PerfRecorder()`` times every chunk dispatch of every fit this
+backend runs (the rescue pass's and both two-phase phases' included)
+and attaches the recorder's cumulative report to each returned state
+(``perf.get_perf``), as the JAX package's backend does.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import warnings
 from typing import Dict, Optional
@@ -235,7 +242,8 @@ class CudaBackend(ForecastBackend):
                  iter_segment: Optional[int] = None, on_segment=None,
                  length_buckets: Optional[int] = None, rescue: bool = True,
                  compact: bool = True, resilient: bool = False,
-                 resilient_opts: Optional[dict] = None, **kwargs):
+                 resilient_opts: Optional[dict] = None, perf=None,
+                 mesh=None, shard_config=None, **kwargs):
         """``chunk_size`` bounds series per model call; ``device=None``
         is the card (and raises without one).
 
@@ -261,8 +269,24 @@ class CudaBackend(ForecastBackend):
         ``resilient`` routes eligible ``fit`` calls through
         ``orchestrate.fit_resilient`` with ``resilient_opts`` (see the
         module docstring).
+
+        ``perf`` (``perf.PerfRecorder``): per-dispatch telemetry over
+        every chunk this backend fits; the cumulative report rides each
+        returned FitState as ``state.perf``.  A timed dispatch waits for
+        the device, so leave it None where latency matters.
+
+        ``mesh`` / ``shard_config``: the multi-device route, not ported
+        yet (the mesh-resident fit); anything but None raises.
         """
+        if mesh is not None or shard_config is not None:
+            raise NotImplementedError(
+                "CudaBackend(mesh=..., shard_config=...): the mesh-sharded "
+                "fit (the mesh-resident slice: parallel/mesh.py, "
+                "resident.py) is not ported yet; use the single-device fit "
+                "or resilient=True"
+            )
         super().__init__(*args, **kwargs)
+        self.perf = perf
         self.resilient = resilient
         self.resilient_opts = dict(resilient_opts or {})
         self.chunk_size = chunk_size
@@ -287,7 +311,7 @@ class CudaBackend(ForecastBackend):
             chunk_size=self.chunk_size, device=self.device,
             iter_segment=self.iter_segment, on_segment=self.on_segment,
             length_buckets=self.length_buckets, rescue=self.rescue,
-            compact=self.compact,
+            compact=self.compact, perf=self.perf,
         )
         opts.update(kw)
         sub = CudaBackend(self.config, solver_config or self.solver_config,
@@ -363,8 +387,8 @@ class CudaBackend(ForecastBackend):
         if self.resilient:
             if (init is None and conditions is None
                     and packable_batch(ds, mask)):
-                return self._fit_resilient(ds, y, mask, cap, floor,
-                                           regressors)
+                return self._attach_perf(self._fit_resilient(
+                    ds, y, mask, cap, floor, regressors))
             # The gate declined this batch: the fit proceeds in-process,
             # WITHOUT process isolation or crash resume — announce once
             # which eligibility check failed.
@@ -397,13 +421,22 @@ class CudaBackend(ForecastBackend):
         # No rescue under segmented solves (bounded dispatches are the
         # caller's priority there).
         if not self.rescue or segmented:
-            return state
+            return self._attach_perf(state)
         with changepoint_span_warning_suppressed(), \
                 self.stages.span("rescue"):
-            return self._rescue_pass(
+            return self._attach_perf(self._rescue_pass(
                 state, ds, y, mask, cap, floor, regressors, conditions,
                 reg_u8_cols,
-            )
+            ))
+
+    def _attach_perf(self, state):
+        """Ride the recorder's cumulative report on the returned state
+        (no-op without a recorder)."""
+        if self.perf is None:
+            return state
+        from tsspark_tpu_torch.perf import attach_perf
+
+        return attach_perf(state, self.perf.report())
 
     def _fit_resilient(self, ds, y, mask, cap, floor, regressors):
         """The process-isolated route (``orchestrate.fit_resilient``) on
@@ -567,12 +600,18 @@ class CudaBackend(ForecastBackend):
                 conditions = {
                     k: _pad_batch(v, c) for k, v in conditions.items()
                 }
-        state = self._model.fit(
-            ds, y, mask=mask, cap=cap, floor=floor, regressors=regressors,
-            init=init, iter_segment=self.iter_segment,
-            on_segment=self.on_segment, conditions=conditions,
-            reg_u8_cols=reg_u8_cols, compact=self.compact,
-        )
+        # model.fit returns on the host, so the timed dispatch covers the
+        # device work.
+        timed = (self.perf.dispatch(c, live=b, kind="chunk")
+                 if self.perf is not None else contextlib.nullcontext())
+        with timed:
+            state = self._model.fit(
+                ds, y, mask=mask, cap=cap, floor=floor,
+                regressors=regressors, init=init,
+                iter_segment=self.iter_segment,
+                on_segment=self.on_segment, conditions=conditions,
+                reg_u8_cols=reg_u8_cols, compact=self.compact,
+            )
         return _take_rows(state, slice(0, b))
 
     def fit_twophase(self, ds, y, mask=None, cap=None, floor=None,
@@ -631,7 +670,7 @@ class CudaBackend(ForecastBackend):
                          "phase1_converged": int(b - idx.size),
                          "stragglers": int(idx.size), "phase2_rows": 0}
         if idx.size == 0:
-            return state
+            return self._attach_perf(state)
         idx = idx[difficulty_order(np.asarray(state.grad_norm)[idx])]
         c = min(self.chunk_size, next_pow2(b))
         pad = (-idx.size) % c
@@ -671,7 +710,7 @@ class CudaBackend(ForecastBackend):
             state2 = fit2(ds2, sub(y), **kwargs)
         if pad:
             state2 = _take_rows(state2, slice(0, idx.size))
-        return patch_state(state, idx, state2)
+        return self._attach_perf(patch_state(state, idx, state2))
 
     def _phase_backend(self, solver_config) -> "CudaBackend":
         """This backend under a phase's solver config, its fits counted

@@ -4,12 +4,16 @@ Every ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` (one
 ``nvcc`` process per source, all started together) and linked into ONE
 shared library with a plain C interface, loaded with ``ctypes``.  The
 build runs at first use, from the sources in the package, into
-``tsspark_tpu_torch/_build/`` under a file lock; the library's name
-carries a hash of the sources, the headers they share (``csrc/*.cuh``)
-and the flags, so an edited source or header rebuilds and an unchanged
-tree loads what is there.  A failed build raises with
-``nvcc``'s stderr.  Nothing here runs at import time: the CPU tests
-import every module on a machine without ``nvcc``.
+``build_dir()`` under a file lock; the library's name carries a hash of
+the sources, the headers they share (``csrc/*.cuh``) and the flags
+(``digest()``), so an edited source or header rebuilds and an unchanged
+tree loads what is there.  ``build_dir()`` is
+``tsspark_tpu_torch/_build/`` unless ``use_dir`` pointed this process
+elsewhere (the serve tier's kernel bank, ``serve/aotbank.py``);
+``ensure_built`` puts the library of the current digest into a directory
+without loading it.  A failed build raises with ``nvcc``'s stderr.
+Nothing here runs at import time: the CPU tests import every module on a
+machine without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -113,6 +117,27 @@ ptxas_log: Dict[str, str] = {}
 #: port's stand-in for the JAX package's trace compiles.
 loads = 0
 builds = 0
+#: The directory ``use_dir`` pointed this process at (None:
+#: ``BUILD_DIR``).
+_dir: Optional[str] = None
+
+
+def build_dir() -> str:
+    """Where this process builds and loads the library."""
+    return _dir or BUILD_DIR
+
+
+def use_dir(dirpath: str) -> None:
+    """Point this process's library at ``dirpath``.  Must come before
+    the first ``library()`` call: a loaded library stays loaded."""
+    global _dir
+    with _lock:
+        if _lib is not None:
+            raise RuntimeError(
+                f"the kernel library is already loaded; use_dir"
+                f"({dirpath!r}) must come before the first launch"
+            )
+        _dir = os.path.abspath(dirpath)
 
 
 def _nvcc() -> str:
@@ -138,6 +163,16 @@ def _headers() -> List[str]:
     return sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
 
 
+def digest() -> str:
+    """The digest of the current sources, headers and flags."""
+    return _digest(_sources())
+
+
+def lib_name(dig: Optional[str] = None) -> str:
+    """The library's file name for digest ``dig`` (default: current)."""
+    return f"libtsspark_kernels_{dig or digest()}.so"
+
+
 def _digest(sources: List[str]) -> str:
     """Hash of the flags, the sources and every shared header: an edit to
     a header alone must rebuild the kernels that include it."""
@@ -154,7 +189,8 @@ def _compile(nvcc: str, sources: List[str], lib_path: str) -> None:
     objs, procs = [], []
     for src in sources:
         obj = os.path.join(
-            BUILD_DIR, f"{os.path.basename(src)[:-3]}_{tag}.o"
+            os.path.dirname(lib_path),
+            f"{os.path.basename(src)[:-3]}_{tag}.o",
         )
         objs.append(obj)
         procs.append(subprocess.Popen(
@@ -182,6 +218,50 @@ def _compile(nvcc: str, sources: List[str], lib_path: str) -> None:
         os.remove(obj)
 
 
+def _ensure(dirpath: str, sources: List[str]) -> Tuple[str, bool]:
+    """``(path, built)``: the library of ``sources``' digest in
+    ``dirpath``, compiled there under the directory's file lock unless
+    it is present."""
+    os.makedirs(dirpath, exist_ok=True)
+    lib_path = os.path.join(dirpath, lib_name(_digest(sources)))
+    built = False
+    with open(os.path.join(dirpath, ".lock"), "a") as lock_fh:
+        fcntl.flock(lock_fh, fcntl.LOCK_EX)
+        try:
+            if not os.path.exists(lib_path):
+                _compile(_nvcc(), sources, lib_path)
+                built = True
+        finally:
+            fcntl.flock(lock_fh, fcntl.LOCK_UN)
+    return lib_path, built
+
+
+def ensure_built(dirpath: str) -> Dict:
+    """Put the library of the current digest into ``dirpath`` without
+    loading it: present already, copied from this process's
+    ``build_dir()`` where that holds the same digest's build, or
+    compiled there.  Returns ``{"path", "digest", "how"}`` (how:
+    present / copied / built)."""
+    global builds
+    sources = _sources()
+    dig = _digest(sources)
+    dirpath = os.path.abspath(dirpath)
+    path = os.path.join(dirpath, lib_name(dig))
+    if os.path.exists(path):
+        return {"path": path, "digest": dig, "how": "present"}
+    src = os.path.join(build_dir(), lib_name(dig))
+    if os.path.exists(src):
+        os.makedirs(dirpath, exist_ok=True)
+        tmp = path + f".tmp.{os.getpid()}"
+        shutil.copyfile(src, tmp)
+        os.replace(tmp, path)
+        return {"path": path, "digest": dig, "how": "copied"}
+    path, built = _ensure(dirpath, sources)
+    builds += int(built)
+    return {"path": path, "digest": dig,
+            "how": "built" if built else "present"}
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     global _lib, build_seconds, loads, builds
@@ -189,19 +269,8 @@ def library() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         t0 = time.perf_counter()
-        sources = _sources()
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        lib_path = os.path.join(
-            BUILD_DIR, f"libtsspark_kernels_{_digest(sources)}.so"
-        )
-        with open(os.path.join(BUILD_DIR, ".lock"), "a") as lock_fh:
-            fcntl.flock(lock_fh, fcntl.LOCK_EX)
-            try:
-                if not os.path.exists(lib_path):
-                    _compile(_nvcc(), sources, lib_path)
-                    builds += 1
-            finally:
-                fcntl.flock(lock_fh, fcntl.LOCK_UN)
+        lib_path, built = _ensure(build_dir(), _sources())
+        builds += int(built)
         lib = ctypes.CDLL(lib_path)
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)

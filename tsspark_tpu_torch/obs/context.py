@@ -13,8 +13,8 @@ Each record is one JSON line of ``spans.jsonl``
 concurrent writers never interleave), in the JAX package's layout, so
 one reader (``read_records``) takes both.  Long-lived spans are written
 twice: an ``open`` record at begin and a completion record with the
-same span id at end.  The serve daemon's request envelopes
-(``remote_context``) come with the port's serve daemon.
+same span id at end.  ``remote_context`` adopts a remote caller's
+trace for one request (the serve daemon's ``trace`` envelope).
 
 With no run bound, every function here is a no-op costing one ``None``
 check.
@@ -61,6 +61,10 @@ _RUN: Optional[Run] = None
 _SPAN: contextvars.ContextVar = contextvars.ContextVar(
     "tsspark_obs_span", default=None
 )
+# Trace override for remote envelopes (serve daemon request lines).
+_TRACE: contextvars.ContextVar = contextvars.ContextVar(
+    "tsspark_obs_trace", default=None
+)
 
 
 def new_id() -> str:
@@ -73,6 +77,9 @@ def active() -> bool:
 
 
 def trace_id() -> Optional[str]:
+    over = _TRACE.get()
+    if over is not None:
+        return over
     return _RUN.trace_id if _RUN is not None else None
 
 
@@ -132,6 +139,25 @@ def adopt_env() -> bool:
     if d.get("parent_span_id"):
         _SPAN.set(d["parent_span_id"])
     return True
+
+
+@contextlib.contextmanager
+def remote_context(trace: Optional[str],
+                   parent_span_id: Optional[str]) -> Iterator[None]:
+    """Adopt a REMOTE caller's trace for the duration of one request
+    (the serve daemon's JSONL envelope: ``{"trace": {"trace_id": ...,
+    "parent_span_id": ...}}``).  Records written inside carry the
+    caller's trace id and parent to its span."""
+    if not active() or not trace:
+        yield
+        return
+    t_tok = _TRACE.set(trace)
+    s_tok = _SPAN.set(parent_span_id)
+    try:
+        yield
+    finally:
+        _SPAN.reset(s_tok)
+        _TRACE.reset(t_tok)
 
 
 # ---------------------------------------------------------------------------

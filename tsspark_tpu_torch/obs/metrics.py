@@ -1,7 +1,7 @@
 """Process-local metrics registry: counters, gauges, pow-2 histograms.
 
-A copy of the JAX package's ``obs/metrics.py`` without its Prometheus
-text rendering: ``tsspark_<subsystem>_<what>_<unit>`` names, labels baked
+A copy of the JAX package's ``obs/metrics.py``: ``tsspark_<subsystem>_
+<what>_<unit>`` names, labels baked
 into the handle at registration (``counter("...", result="shed")``), so
 the hot path is one locked increment with no formatting.  Histograms
 bucket on the pow-2 ladder as ``{exponent: count}`` with exact
@@ -10,7 +10,9 @@ sum/count/min/max alongside, so a snapshot stays a few dozen ints.
 ``MetricsRegistry.export`` writes an atomic JSON snapshot
 (``metrics_*.json`` next to a run's other artifacts; a trace id keys it
 into the run ledger): the orchestrator's fit workers export theirs at a
-clean exit.
+clean exit.  ``to_prometheus`` / ``prometheus_text`` render the standard
+text exposition format for scrape-style consumers (the serve daemon's
+and the pool replicas' ``metrics`` command).
 """
 
 from __future__ import annotations
@@ -189,6 +191,43 @@ class MetricsRegistry:
         atomic_write(path, lambda fh: json.dump(snap, fh, indent=1),
                      mode="w")
         return snap
+
+    def to_prometheus(self) -> str:
+        """Prometheus text exposition of the current state."""
+        return prometheus_text(self.snapshot())
+
+
+def prometheus_text(metrics: Dict[str, Any]) -> str:
+    """Render a ``snapshot()``-shaped dict as Prometheus text (also
+    accepts the ``metrics`` block of an exported snapshot file)."""
+    lines = []
+    for c in metrics.get("counters", ()):
+        lines.append(f"# TYPE {c['name']} counter")
+        lab = ",".join(f'{k}="{v}"' for k, v in
+                       sorted(c.get("labels", {}).items()))
+        lines.append(
+            f"{c['name']}{{{lab}}} {c['value']}" if lab
+            else f"{c['name']} {c['value']}"
+        )
+    for g in metrics.get("gauges", ()):
+        lines.append(f"# TYPE {g['name']} gauge")
+        lab = ",".join(f'{k}="{v}"' for k, v in
+                       sorted((g.get("labels") or {}).items()))
+        lines.append(
+            f"{g['name']}{{{lab}}} {g['value']}" if lab
+            else f"{g['name']} {g['value']}"
+        )
+    for h in metrics.get("histograms", ()):
+        name = h["name"]
+        lines.append(f"# TYPE {name} histogram")
+        cum = 0
+        for e in sorted(int(k) for k in h.get("buckets", {})):
+            cum += h["buckets"][str(e)]
+            lines.append(f'{name}_bucket{{le="{2.0 ** e:g}"}} {cum}')
+        lines.append(f'{name}_bucket{{le="+Inf"}} {h["count"]}')
+        lines.append(f"{name}_sum {h['sum']}")
+        lines.append(f"{name}_count {h['count']}")
+    return "\n".join(lines) + "\n"
 
 
 #: The process's registry.  Subsystems grab handles at init and bump

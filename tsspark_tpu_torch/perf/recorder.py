@@ -57,8 +57,10 @@ class CompileWatch:
     miss observed": the recorder must never take a fit down.
     """
 
-    def __init__(self, modules: Sequence = ()):
+    def __init__(self, modules: Sequence = (),
+                 names: Sequence[str] = ("loads", "builds")):
         self._modules = tuple(modules)
+        self._names = tuple(names)
 
     @classmethod
     def default(cls) -> "CompileWatch":
@@ -67,10 +69,18 @@ class CompileWatch:
 
         return cls((build,))
 
+    @classmethod
+    def builds_only(cls) -> "CompileWatch":
+        """Watch only the library's ``nvcc`` builds (a load from a built
+        library, the kernel bank's included, does not count)."""
+        from tsspark_tpu_torch.kernels import build
+
+        return cls((build,), names=("builds",))
+
     def size(self) -> int:
         total = 0
         for mod in self._modules:
-            for name in ("loads", "builds"):
+            for name in self._names:
                 try:
                     total += int(getattr(mod, name, 0))
                 except Exception:

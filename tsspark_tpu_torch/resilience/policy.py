@@ -66,6 +66,9 @@ class CircuitBreaker:
         self.failure_threshold = int(failure_threshold)
         self.reset_timeout_s = float(reset_timeout_s)
         self.name = name
+        # Observability counters (pool stats, engine stats).
+        self.opens = 0
+        self.fast_fails = 0
         self._clock = clock
         self._lock = threading.Lock()
         self._failures = 0
@@ -86,7 +89,7 @@ class CircuitBreaker:
 
     def allow(self) -> bool:
         """May a call proceed right now?  Half-open admits exactly one
-        trial at a time."""
+        trial at a time; refusals are counted in ``fast_fails``."""
         with self._lock:
             st = self._state_locked()
             if st == self.CLOSED:
@@ -94,6 +97,7 @@ class CircuitBreaker:
             if st == self.HALF_OPEN and not self._trial_inflight:
                 self._trial_inflight = True
                 return True
+            self.fast_fails += 1
             return False
 
     def retry_after_s(self) -> float:
@@ -122,6 +126,18 @@ class CircuitBreaker:
             ):
                 self._opened_at = self._clock()
                 self._trial_inflight = False
+                self.opens += 1
+
+    def snapshot(self) -> dict:
+        """JSON-able state for reports."""
+        with self._lock:
+            return {
+                "name": self.name,
+                "state": self._state_locked(),
+                "failures": self._failures,
+                "opens": self.opens,
+                "fast_fails": self.fast_fails,
+            }
 
 
 @dataclasses.dataclass(frozen=True)

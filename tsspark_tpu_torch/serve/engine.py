@@ -18,7 +18,12 @@ repeated identical requests return the same cached values.
 
 Deadline-expired requests are SHED with a structured error before the
 batch dispatches.  A request for a negative interval sample count is
-refused when it is made; any other count is served.
+refused when it is made; any other count is served.  Transient backend
+failures retry under a ``resilience.RetryPolicy`` when one is attached;
+a dispatch ``CircuitBreaker`` that a dead backend has failed open sheds
+requests fast with the structured ``BackendUnavailable``, and a
+``registry_breaker`` keeps the held snapshot serving while registry
+loads keep failing (stale beats down).
 
 ``EngineStats.stages`` times the host stages of each dispatch: "gather"
 (snapshot rows, padding, parameter take, future grid), "predict" (the
@@ -29,8 +34,17 @@ Deterministic groups whose horizon bucket the version's forecast plane
 (``serve/fplane.py``) covers are answered by a memmap gather from the
 plane instead of a dispatch (``EngineStats.plane_hits`` /
 ``plane_misses`` count the rows each way); a torn or absent plane is
-memoized at the flip and the compute path serves.  A version flip,
-delta flips included, drops the whole cache.
+memoized at the flip and the compute path serves.  A full version flip
+drops the whole cache; a DELTA flip (``ParamRegistry.publish_delta``)
+first carries the cached rows of the series the delta did not refit
+forward to the new version (``ForecastCache.carry_forward``: their
+parameters are the base version's bits, so are their forecasts).
+
+Version discipline for the replica pool (``serve/pool.py``):
+``prefetch`` loads a version ahead of its activation so the flip swaps
+it in without a disk load, ``materialize`` fills the cache for a
+version (prefetched or active) ahead of its traffic, and
+``ensure_version`` forces the engine onto the registry's active version.
 
 ``quantiles`` serves interval forecasts synchronously: from the version's
 quantile plane (``uncertainty/qplane.py``) as a memmap gather when the
@@ -42,6 +56,7 @@ plane covers the request, else through the row-local compute fallback
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import queue
 import threading
@@ -53,10 +68,18 @@ import numpy as np
 
 from tsspark_tpu_torch.backends.registry import ForecastBackend, get_backend
 from tsspark_tpu_torch.config import SolverConfig
+from tsspark_tpu_torch.obs import context as obs
+from tsspark_tpu_torch.obs.metrics import DEFAULT as METRICS
 from tsspark_tpu_torch.parallel.sharding import compacted_width, next_pow2
+from tsspark_tpu_torch.resilience import faults
+from tsspark_tpu_torch.resilience.policy import CircuitBreaker
 from tsspark_tpu_torch.serve import fplane
 from tsspark_tpu_torch.serve.cache import ForecastCache
-from tsspark_tpu_torch.serve.registry import ParamRegistry, Snapshot
+from tsspark_tpu_torch.serve.registry import (
+    ParamRegistry,
+    RegistryError,
+    Snapshot,
+)
 from tsspark_tpu_torch.utils.spans import StageClock
 
 
@@ -146,6 +169,25 @@ class EngineOverloaded(ServeError):
     reason = "overloaded"
 
 
+class BackendUnavailable(ServeError):
+    """The dispatch circuit breaker is open: the backend has failed
+    enough consecutive dispatches that requests are shed fast instead of
+    each burning its deadline on doomed retries."""
+
+    reason = "circuit-open"
+
+    def __init__(self, name: str, retry_after_s: float):
+        self.retry_after_s = retry_after_s
+        super().__init__(
+            f"{name} circuit open; retry in {retry_after_s:.2f}s"
+        )
+
+    def to_dict(self) -> Dict:
+        d = super().to_dict()
+        d["retry_after_s"] = round(self.retry_after_s, 3)
+        return d
+
+
 class SamplesUnsupported(ServeError, ValueError):
     """The request asks for a negative interval sample count."""
 
@@ -164,6 +206,9 @@ class PendingForecast:
     def __init__(self, request: ForecastRequest):
         self.request = request
         self.submitted_s = time.monotonic()
+        # Wall-clock twin of submitted_s: span records join across
+        # processes on wall time; latency math stays on the monotonic.
+        self.submitted_unix = time.time()
         self._event = threading.Event()
         self._result: Optional["ForecastResult"] = None
         self._error: Optional[BaseException] = None
@@ -196,7 +241,9 @@ class ForecastResult:
     values: Dict[str, np.ndarray]     # each (B, H)
     version: int
     latency_s: float
-    from_cache: int                   # series rows served by the LRU
+    from_cache: int                   # series rows served without a
+                                      # fresh dispatch: LRU hits plus
+                                      # plane-gathered rows
 
 
 #: Rolling-window sizes for the per-request/per-dispatch samples: a
@@ -214,6 +261,10 @@ class EngineStats:
     rejected: int = 0
     pumps: int = 0
     dispatches: int = 0
+    # Breaker-open fast failures (BackendUnavailable) and the last
+    # retry-after hint handed to a caller.
+    fast_failed: int = 0
+    last_retry_after_s: Optional[float] = None
     # Series-rows served straight from the forecast plane vs computed.
     plane_hits: int = 0
     plane_misses: int = 0
@@ -238,6 +289,7 @@ class EngineStats:
         pct = (lambda q: round(float(np.percentile(lat, q)) * 1e3, 3)) \
             if lat.size else (lambda q: None)
         fill = [n / w for n, w, _ in self.occupancy if w]
+        reqs = [r for _, _, r in self.occupancy]
         return {
             "submitted": self.submitted,
             "completed": self.completed,
@@ -246,6 +298,8 @@ class EngineStats:
             "rejected": self.rejected,
             "pumps": self.pumps,
             "dispatches": self.dispatches,
+            "fast_failed": self.fast_failed,
+            "retry_after_s": self.last_retry_after_s,
             "plane_hits": self.plane_hits,
             "plane_misses": self.plane_misses,
             "plane_hit_rate": (
@@ -260,8 +314,24 @@ class EngineStats:
                       / (self.qplane_hits + self.qplane_misses), 4)
                 if (self.qplane_hits + self.qplane_misses) else None
             ),
-            "latency_ms": {"p50": pct(50), "p95": pct(95), "p99": pct(99)},
-            "mean_fill": (round(float(np.mean(fill)), 4) if fill else None),
+            "latency_ms": {
+                "p50": pct(50), "p95": pct(95), "p99": pct(99),
+                "mean": (round(float(lat.mean()) * 1e3, 3)
+                         if lat.size else None),
+                "max": (round(float(lat.max()) * 1e3, 3)
+                        if lat.size else None),
+            },
+            "batch_occupancy": {
+                "mean_fill": (round(float(np.mean(fill)), 4)
+                              if fill else None),
+                "mean_requests_per_dispatch": (
+                    round(float(np.mean(reqs)), 2) if reqs else None
+                ),
+                "mean_requests_per_pump": (
+                    round(self.completed / self.pumps, 2)
+                    if self.pumps else None
+                ),
+            },
         }
 
 
@@ -278,6 +348,13 @@ class PredictionEngine:
     ``start``/``stop`` run the same pump on a background thread.
     ``backend=None`` is the ``cuda`` backend on ``device`` (``None``:
     the card, which raises without one).
+
+    ``recorder`` (``perf.PerfRecorder``) times each dispatch;
+    ``retry_policy`` retries a failed dispatch on ``retry_on``;
+    ``breaker`` is a circuit breaker over backend dispatch (open: the
+    structured ``BackendUnavailable`` at once, no retries burned);
+    ``registry_breaker`` the same gate over registry snapshot loads
+    (open: the engine keeps serving the snapshot it holds).
     """
 
     def __init__(
@@ -290,6 +367,11 @@ class PredictionEngine:
         horizon_floor: int = 8,
         cache: Optional[ForecastCache] = None,
         device=None,
+        recorder=None,
+        retry_policy=None,
+        retry_on: Tuple = (Exception,),
+        breaker: Optional[CircuitBreaker] = None,
+        registry_breaker: Optional[CircuitBreaker] = None,
     ):
         self.registry = registry
         self.backend = backend if backend is not None else get_backend(
@@ -299,6 +381,11 @@ class PredictionEngine:
         self.width_floor = int(width_floor)
         self.horizon_floor = int(horizon_floor)
         self.cache = cache if cache is not None else ForecastCache()
+        self.recorder = recorder
+        self.retry_policy = retry_policy
+        self.retry_on = retry_on
+        self.breaker = breaker
+        self.registry_breaker = registry_breaker
         self.stats = EngineStats()
         self._queue: "queue.Queue[PendingForecast]" = queue.Queue(
             maxsize=int(max_queue)
@@ -306,6 +393,10 @@ class PredictionEngine:
         self._snapshot: Optional[Snapshot] = None
         self._manifest_key: Optional[Tuple[int, ...]] = None
         self._active_seen: Optional[int] = None
+        # A snapshot loaded ahead of its activation (``prefetch``): the
+        # next refresh that finds it matching the active pointer swaps
+        # it in without a disk load.
+        self._prefetched: Optional[Snapshot] = None
         # Attached forecast and quantile planes, version-keyed; None
         # memoizes an absent or refused plane, so a plane-less version
         # costs one probe.
@@ -314,17 +405,81 @@ class PredictionEngine:
         self._pump_lock = threading.Lock()
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
+        # Metric handles resolved once: the hot path pays one locked add
+        # per outcome, no dict lookups.
+        self._m_req = {
+            r: METRICS.counter("tsspark_serve_requests_total", result=r)
+            for r in ("completed", "shed", "failed", "rejected")
+        }
+        self._m_latency = METRICS.histogram(
+            "tsspark_serve_request_seconds"
+        )
+        self._m_dispatches = METRICS.counter(
+            "tsspark_serve_dispatches_total"
+        )
+        self._m_plane = {
+            r: METRICS.counter("tsspark_serve_plane_reads_total",
+                               result=r)
+            for r in ("hit", "miss")
+        }
+        self._m_queue = METRICS.gauge("tsspark_serve_queue_depth")
+        # Live breaker state: 0 closed, 1 open/half-open, updated at
+        # every dispatch outcome; and the seconds until the open breaker
+        # admits a trial (the retry-after hint).
+        self._m_breaker = METRICS.gauge("tsspark_serve_breaker_open")
+        self._m_retry_after = METRICS.gauge(
+            "tsspark_serve_retry_after_seconds"
+        )
         # In-process activations invalidate immediately; refresh() also
         # polls the manifest so cross-process flips are picked up.
         registry.subscribe(self._on_activate)
 
+    def _obs_request(self, pend: PendingForecast, status: str,
+                     **attrs) -> None:
+        """One ``serve.request`` span per resolved request, admission to
+        completion (the same clock as the latency percentiles)."""
+        if not obs.active():
+            return
+        dur = time.monotonic() - pend.submitted_s
+        req = pend.request
+        obs.record("serve.request", pend.submitted_unix, dur,
+                   status=status, n_series=len(req.series_ids),
+                   horizon=req.horizon, **attrs)
+
+    def _fail_pend(self, pend: PendingForecast, error: BaseException,
+                   reason: str, **attrs) -> None:
+        pend._fail(error)
+        self.stats.failed += 1
+        self._m_req["failed"].inc()
+        self._obs_request(pend, "err", reason=reason, **attrs)
+
     # -- snapshot lifecycle ----------------------------------------------------
 
     def _on_activate(self, version: Optional[int]) -> None:
+        if version is not None:
+            self._carry_cache_forward(version)
         self.cache.invalidate(version)
         # A single store to None; refresh() reads the slot through a
         # local, so a pump in flight keeps a coherent snapshot.
         self._snapshot = None
+
+    def _carry_cache_forward(self, new_version: int) -> None:
+        """Partial cache invalidation on a DELTA flip: unchanged series'
+        parameters are the base version's bits, so their cached
+        forecasts migrate to the new version instead of being dropped
+        (``ForecastCache.carry_forward``).  Runs before the
+        ``invalidate`` that settles the flip; a full publish (no delta
+        metadata) keeps the drop-everything behavior."""
+        try:
+            info = self.registry.delta_info(int(new_version))
+        except Exception:
+            return  # torn or racing manifest: the full drop
+        if not info or info.get("base_version") is None:
+            return
+        self.cache.carry_forward(
+            info["base_version"], int(new_version),
+            set(info.get("changed_ids") or ()),
+        )
 
     def refresh(self) -> Snapshot:
         """The current active snapshot, reloading on version flips.
@@ -339,10 +494,24 @@ class PredictionEngine:
             return snap
         active = self.registry.active_version()
         if snap is None or active != self._active_seen:
-            snap = self.registry.load()
-            self.cache.invalidate(snap.version)
-            self._snapshot = snap
+            pre = self._prefetched
+            if pre is not None and active == pre.version:
+                # The flip was prefetched (pool warm / materialize):
+                # swap it in without touching the disk.
+                loaded: Optional[Snapshot] = pre
+                self._prefetched = None
+            else:
+                loaded = self._load_active()
+            if loaded is None:
+                # Registry breaker open: serve the held snapshot and do
+                # NOT advance the seen markers, so the next pump retries
+                # the load once the breaker's window elapses.
+                return snap
+            self._carry_cache_forward(loaded.version)
+            self.cache.invalidate(loaded.version)
+            self._snapshot = loaded
             self._active_seen = active
+            snap = loaded
             # Probe the new version's planes at the flip (the attach CRC
             # sweep doubles as page warming); a torn or absent plane
             # memoizes None and compute serves.
@@ -350,6 +519,127 @@ class PredictionEngine:
             self._qplane_for(snap.version)
         self._manifest_key = key
         return snap
+
+    def _load_active(self) -> Optional[Snapshot]:
+        """Registry load guarded by ``registry_breaker``.  Returns None
+        while the breaker refuses the load AND a snapshot is held (one
+        version behind beats nothing; the caller leaves its staleness
+        markers alone so the load is retried after the window); with
+        nothing held the refusal is a structured RegistryError."""
+        br = self.registry_breaker
+        if br is not None and not br.allow():
+            if self._snapshot is not None:
+                return None
+            raise RegistryError(
+                "circuit-open",
+                f"registry load suppressed by open breaker; retry in "
+                f"{br.retry_after_s():.2f}s",
+            )
+        try:
+            snap = self.registry.load()
+        except BaseException:
+            # BaseException: a half-open trial slot must be resolved even
+            # on KeyboardInterrupt, or the breaker wedges.
+            if br is not None:
+                br.record_failure()
+            raise
+        if br is not None:
+            br.record_success()
+        return snap
+
+    # -- version discipline (pool support) -------------------------------------
+
+    def served_version(self) -> Optional[int]:
+        """The version the engine is serving (None before the first
+        refresh)."""
+        snap = self._snapshot
+        return None if snap is None else snap.version
+
+    def prefetch(self, version: int) -> Snapshot:
+        """Load ``version`` ahead of its activation and stash it: the
+        refresh that later finds the active pointer at this version swaps
+        it in with no disk load.  Explicit version, no fallback."""
+        snap = self.registry.load(int(version), fallback=False)
+        # A single reference store: a refresh racing it at worst drops
+        # the stash and pays one disk load on the flip.
+        self._prefetched = snap
+        return snap
+
+    def ensure_version(self, version: int) -> bool:
+        """Force the engine onto ``version`` if the registry's active
+        pointer agrees: drops the staleness markers and reloads when the
+        served version differs.  True when the engine now serves exactly
+        ``version`` (False when the active pointer is elsewhere; the
+        caller decides whether that is a mismatch).  Serialized against
+        the pump."""
+        version = int(version)
+        with self._pump_lock:
+            try:
+                snap = self.refresh()
+            except Exception:
+                snap = None
+            if snap is not None and snap.version == version:
+                return True
+            self._snapshot = None
+            self._manifest_key = None
+            self._active_seen = None
+            try:
+                snap = self.refresh()
+            except Exception:
+                return False
+            return snap is not None and snap.version == version
+
+    def materialize(self, series_ids: Sequence, horizons: Sequence[int],
+                    version: Optional[int] = None, num_samples: int = 0,
+                    seed: int = 0, max_width: int = 256) -> int:
+        """Ahead-of-time forecasts for ``series_ids`` x ``horizons`` into
+        the version-keyed cache, against ``version`` (prefetching its
+        snapshot) or the active one: the pool's activate path lands a
+        flip on a warm cache this way.  Idempotent (cached rows are
+        skipped); plane-covered buckets are left to the plane.  Returns
+        the series-rows computed."""
+        if version is None:
+            with self._pump_lock:
+                snap = self.refresh()
+        else:
+            pre = self._prefetched
+            snap = (pre if pre is not None
+                    and pre.version == int(version)
+                    else self.prefetch(version))
+        self.cache.allow_version(snap.version)
+        # A delta flip: carry the unchanged series' rows into the warm
+        # window first, so the loop below computes only the refitted
+        # ones.  Only for a version this engine does not serve yet.
+        if snap.version != self.served_version():
+            self._carry_cache_forward(snap.version)
+        ids = list(dict.fromkeys(str(s) for s in series_ids))
+        _, missing = snap.rows(ids)
+        absent = set(missing)
+        ids = [s for s in ids if s not in absent]
+        # A fresh plane probe: warming runs at flip or retry time, when a
+        # just-published (or re-published) plane should be adopted.
+        self.attach_plane(snap.version)
+        view = self._plane_for(snap.version)
+        warmed = 0
+        for h in horizons:
+            hb = max(self.horizon_floor, next_pow2(int(h)))
+            if view is not None and view.covers(hb, num_samples):
+                continue  # every replica reads it from the shared pages
+            todo = [
+                s for s in ids
+                if self.cache.peek((snap.version, s, hb, num_samples,
+                                    seed)) is None
+            ]
+            for i in range(0, len(todo), int(max_width)):
+                part = todo[i:i + int(max_width)]
+                fresh = self._dispatch(snap, part, hb, num_samples,
+                                       seed, n_requests=0)
+                for sid, row in fresh.items():
+                    self.cache.put(
+                        (snap.version, sid, hb, num_samples, seed), row
+                    )
+                    warmed += 1
+        return warmed
 
     # -- request intake --------------------------------------------------------
 
@@ -359,6 +649,8 @@ class PredictionEngine:
             self._queue.put_nowait(pend)
         except queue.Full:
             self.stats.rejected += 1
+            self._m_req["rejected"].inc()
+            self._obs_request(pend, "err", reason="overloaded")
             raise EngineOverloaded(
                 f"request queue full ({self._queue.maxsize})"
             )
@@ -404,12 +696,12 @@ class PredictionEngine:
                 except queue.Empty:
                     break
             self.stats.pumps += 1
+            self._m_queue.set(self._queue.qsize())
             try:
                 snap = self.refresh()
             except Exception as e:
                 for pend in batch:
-                    pend._fail(e)
-                self.stats.failed += len(batch)
+                    self._fail_pend(pend, e, "refresh")
                 return len(batch)
             now = time.monotonic()
             groups: Dict[Tuple[int, int, int], List[PendingForecast]] = {}
@@ -419,6 +711,8 @@ class PredictionEngine:
                 if req.deadline_s is not None and now > req.deadline_s:
                     pend._fail(RequestShed(req.deadline_s, now))
                     self.stats.shed += 1
+                    self._m_req["shed"].inc()
+                    self._obs_request(pend, "err", reason="shed")
                     resolved += 1
                     continue
                 hb = max(self.horizon_floor, next_pow2(req.horizon))
@@ -434,8 +728,7 @@ class PredictionEngine:
                     # pends, never leave submitters blocked.
                     for pend in pends:
                         if not pend.done():
-                            pend._fail(e)
-                            self.stats.failed += 1
+                            self._fail_pend(pend, e, "pump-escape")
                             resolved += 1
             return resolved
 
@@ -455,13 +748,14 @@ class PredictionEngine:
             if not pend.request.series_ids:
                 # Direct ForecastRequest construction bypasses make()'s
                 # validation; an empty request must fail alone.
-                pend._fail(ValueError("series_ids must be non-empty"))
-                self.stats.failed += 1
+                self._fail_pend(pend,
+                                ValueError("series_ids must be non-empty"),
+                                "empty-request")
                 continue
             idx, missing = snap.rows(pend.request.series_ids)
             if missing:
-                pend._fail(UnknownSeries(missing, version))
-                self.stats.failed += 1
+                self._fail_pend(pend, UnknownSeries(missing, version),
+                                "unknown-series", version=version)
                 continue
             live.append(pend)
             # With nothing missing, rows() returns one index per id in
@@ -500,17 +794,21 @@ class PredictionEngine:
                         rows[sid] = row
                         hits[sid] = True
                 self.stats.plane_hits += len(needed)
+                self._m_plane["hit"].inc(len(needed))
+                self.cache.note_plane_hits(len(needed))
                 needed = []
             else:
                 self.stats.plane_misses += len(needed)
+                self._m_plane["miss"].inc(len(needed))
         if needed:
             try:
                 fresh = self._dispatch(snap, needed, hb, num_samples,
                                        seed, n_requests=len(live))
             except Exception as e:
+                reason = (e.reason if isinstance(e, ServeError)
+                          else type(e).__name__)
                 for pend in live:
-                    pend._fail(e)
-                self.stats.failed += len(live)
+                    self._fail_pend(pend, e, reason, version=version)
                 return len(pends)
             # An activation landing during the dispatch invalidates the
             # cache, and the cache's version gate drops these late
@@ -550,6 +848,14 @@ class PredictionEngine:
             ))
             self.stats.completed += 1
             self.stats.latencies_s.append(done_s - pend.submitted_s)
+            self._m_req["completed"].inc()
+            self._m_latency.observe(done_s - pend.submitted_s)
+            if obs.active():
+                obs.record(
+                    "serve.request", pend.submitted_unix,
+                    done_s - pend.submitted_s, version=version,
+                    n_series=len(sids), horizon=pend.request.horizon,
+                )
         return len(pends)
 
     def _dispatch(self, snap: Snapshot, sids: List[str], hb: int,
@@ -569,11 +875,57 @@ class PredictionEngine:
             last = np.asarray(state.meta.ds_start + state.meta.ds_span,
                               np.float64)
             grid = last[:, None] + step[:, None] * np.arange(1, hb + 1)
-        with stages.span("predict"):
-            out = self.backend.predict(
+
+        def run():
+            faults.inject("serve_predict")
+            # backend.predict returns host arrays: the timed scope
+            # covers the device work.
+            return self.backend.predict(
                 state, grid, num_samples=num_samples, seed=seed
             )
+
+        # Dispatch circuit breaker: a backend that keeps failing sheds
+        # this dispatch fast (structured error, no retries burned); each
+        # dispatch is ONE breaker outcome, whatever the retries inside.
+        if self.breaker is not None and not self.breaker.allow():
+            retry_after = self.breaker.retry_after_s()
+            self.stats.fast_failed += 1
+            self.stats.last_retry_after_s = round(retry_after, 3)
+            self._m_breaker.set(1.0)
+            self._m_retry_after.set(retry_after)
+            raise BackendUnavailable(self.breaker.name, retry_after)
+        ctx = (self.recorder.dispatch(width, live=n, kind="predict")
+               if self.recorder is not None else contextlib.nullcontext())
+        # ok-flag + finally: even a BaseException escape must resolve the
+        # breaker's half-open trial slot, or the breaker wedges.
+        ok = False
+        t_disp0 = time.time()
+        m_disp0 = time.monotonic()
+        try:
+            with stages.span("predict"), ctx:
+                if self.retry_policy is not None:
+                    out = self.retry_policy.call(run,
+                                                 retry_on=self.retry_on)
+                else:
+                    out = run()
+            ok = True
+        finally:
+            if self.breaker is not None:
+                (self.breaker.record_success if ok
+                 else self.breaker.record_failure)()
+                closed = self.breaker.state == CircuitBreaker.CLOSED
+                self._m_breaker.set(0.0 if closed else 1.0)
+                self._m_retry_after.set(
+                    0.0 if closed else self.breaker.retry_after_s()
+                )
+            if obs.active():
+                obs.record("serve.dispatch", t_disp0,
+                           time.monotonic() - m_disp0,
+                           status="ok" if ok else "err",
+                           width=width, live=n, horizon=hb,
+                           version=snap.version)
         self.stats.dispatches += 1
+        self._m_dispatches.inc()
         self.stats.occupancy.append((n, width, n_requests))
         with stages.span("scatter"):
             result: Dict[str, Dict] = {}
@@ -596,8 +948,12 @@ class PredictionEngine:
             vdir = self.registry.version_dir(version)
             if fplane.has_plane(vdir):
                 view = fplane.attach(vdir)
-        except (fplane.ForecastPlaneError, OSError):
-            view = None
+        except fplane.ForecastPlaneError as e:
+            obs.event("fplane.rejected", version=version,
+                      reason=e.reason, detail=str(e))
+        except OSError as e:
+            obs.event("fplane.attach_failed", version=version,
+                      error=repr(e))
         self._planes[version] = view
         while len(self._planes) > 4:
             self._planes.pop(next(iter(self._planes)))
@@ -624,8 +980,12 @@ class PredictionEngine:
             vdir = self.registry.version_dir(version)
             if qplane.has_qplane(vdir):
                 view = qplane.attach(vdir)
-        except (qplane.QuantilePlaneError, OSError):
-            view = None
+        except qplane.QuantilePlaneError as e:
+            obs.event("qplane.rejected", version=version,
+                      reason=e.reason, detail=str(e))
+        except OSError as e:
+            obs.event("qplane.attach_failed", version=version,
+                      error=repr(e))
         self._qplanes[version] = view
         while len(self._qplanes) > 4:
             self._qplanes.pop(next(iter(self._qplanes)))

@@ -291,9 +291,12 @@ class StreamingForecaster:
         return self.stats
 
     def perf_report(self):
-        """The backend's per-dispatch telemetry: None until the port has
-        a perf recorder (the JAX package's ``perf/recorder.py``)."""
-        return None
+        """The backend's cumulative per-dispatch telemetry
+        (``perf.PerfReport``), or None when the backend carries no
+        recorder: pass ``perf=PerfRecorder()`` through the backend
+        keywords to turn it on."""
+        rec = getattr(self.backend, "perf", None)
+        return rec.report() if rec is not None else None
 
     # -- forecasting out of the store ------------------------------------------
 

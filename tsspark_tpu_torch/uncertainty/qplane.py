@@ -22,7 +22,8 @@ per-series host numpy sampler whose RNG is keyed on ``(seed, global_row)``
 alone (``np.random.SeedSequence``), so the publisher's chunked compute
 and the read path's few-row fallback run the same per-row function on the
 same inputs: plane-served bytes equal fallback-computed bytes bit for
-bit.  The samplers are the reference's, line for line, so on the same
+bit, and a full ADVI-mode publish may spread its rows over spawned worker
+processes (``write_qplane``'s ``processes``) without changing a byte.  The samplers are the reference's, line for line, so on the same
 inputs they give the reference's bytes.
 
 Two sampling modes, recorded in the spec:
@@ -45,7 +46,9 @@ changed rows re-sampled), and bows to the disk-pressure ladder.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
+import multiprocessing
 import os
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -278,12 +281,43 @@ def _row_quantiles_advi(mu_row, rho_row, s_row, x_season, mult_mask, t,
     return (q * scale + fl).astype(np.float32)
 
 
+def _advi_rows(rows, mu, rho, s_cp, x_season, mult_mask, t, y_scale,
+               floor, config, qs, draws, seed) -> np.ndarray:
+    """(len(rows), Q, T) ADVI-mode quantiles of the global ``rows``, every
+    per-row input already sliced to them.  Each row's draws are keyed on
+    ``(seed, rows[i])`` alone, so any split of the rows, in any process,
+    gives the same bytes."""
+    out = np.empty((len(rows), len(qs), t.shape[1]), np.float32)
+    for i, row in enumerate(rows):
+        out[i] = _row_quantiles_advi(
+            mu[i], rho[i], s_cp[i], x_season[i], mult_mask, t[i],
+            y_scale[i], floor[i], config, qs, draws, seed, int(row),
+        )
+    return out
+
+
+#: A full publish at least this many rows wide samples its ADVI-mode rows
+#: on worker processes (the read path's few-row fallback stays in
+#: process), in parts of ``_PART_ROWS`` rows.
+PARALLEL_MIN_ROWS = 4096
+_PART_ROWS = 1024
+
+
+def _publish_processes(n_rows: int) -> int:
+    """Worker processes for an ADVI-mode publish of ``n_rows``: one per
+    core up to 8 past ``PARALLEL_MIN_ROWS``, else none."""
+    if n_rows < PARALLEL_MIN_ROWS:
+        return 1
+    return max(1, min(8, os.cpu_count() or 1))
+
+
 def compute_rows(snap, config, backend, idx, hb, *,
                  quantiles: Sequence[float] = DEFAULT_QUANTILES,
                  draws: int = DEFAULT_DRAWS,
                  seed: int = DEFAULT_SEED,
                  posterior=None,
-                 chunk: int = _PUBLISH_CHUNK) -> Dict[int, np.ndarray]:
+                 chunk: int = _PUBLISH_CHUNK,
+                 executor=None) -> Dict[int, np.ndarray]:
     """Quantile forecasts for snapshot rows ``idx`` at bucket ``hb`` — THE
     compute path, used by both the publisher (all rows) and the read-path
     fallback (the few uncovered rows).  Returns ``{permille: (len(idx),
@@ -291,7 +325,9 @@ def compute_rows(snap, config, backend, idx, hb, *,
 
     ``posterior`` (an ``AdviPosterior`` over ALL snapshot rows) selects
     ADVI-mode sampling; None means MAP mode, whose deterministic
-    components come from ``backend.predict`` (K1 on the card)."""
+    components come from ``backend.predict`` (K1 on the card).
+    ``executor`` (a process pool, ADVI mode only): the rows go to it in
+    contiguous parts, with the same bytes."""
     if config.growth == "logistic":
         raise QuantilePlaneError(
             "absent", "logistic growth has no row-local quantile "
@@ -324,11 +360,18 @@ def compute_rows(snap, config, backend, idx, hb, *,
             [1.0 if m else 0.0 for m in config.feature_modes()],
             np.float32,
         )
-        for i, row in enumerate(idx):
-            out[i] = _row_quantiles_advi(
-                mu[row], rho[row], s_cp[i], x_season[i], mult_mask, t[i],
-                y_scale[i], floor[i], config, qs, draws, seed, int(row),
-            )
+        per_row = (mu[idx], rho[idx], s_cp, x_season)
+        per_row_t = (t, y_scale, floor)
+        step_rows = len(idx) if executor is None else _PART_ROWS
+        parts = []
+        for lo in range(0, len(idx), max(step_rows, 1)):
+            hi = min(lo + step_rows, len(idx))
+            args = (idx[lo:hi], *(a[lo:hi] for a in per_row), mult_mask,
+                    *(a[lo:hi] for a in per_row_t), config, qs, draws, seed)
+            parts.append((lo, hi, executor.submit(_advi_rows, *args)
+                          if executor is not None else _advi_rows(*args)))
+        for lo, hi, part in parts:
+            out[lo:hi] = part if executor is None else part.result()
     else:
         det = _predict_rows(snap, backend, idx, hb, chunk=chunk)
         theta = _host(sub.theta)
@@ -356,23 +399,38 @@ def write_qplane(vdir: str, snap, config, backend, *,
                  fingerprint: Optional[str] = None,
                  numerics_rev: Optional[int] = None,
                  shard_rows: int = DEFAULT_SHARD_ROWS,
-                 chunk: int = _PUBLISH_CHUNK) -> Dict:
+                 chunk: int = _PUBLISH_CHUNK,
+                 processes: Optional[int] = None) -> Dict:
     """Land the full quantile plane for ``snap`` in ``vdir``: spec first,
     columns (each atomic), CRC sentinel LAST.  The ``qplane_publish``
     fault point is armed once per column, so a test can kill a publisher
     between any two columns and prove the sentinel refuses the tear.
-    Returns the spec."""
+    ADVI mode samples its rows on ``processes`` spawned worker processes
+    (default: ``_publish_processes`` of the row count), the same bytes as
+    one process.  Returns the spec."""
     n = int(snap.state.theta.shape[0])
     buckets = bucket_ladder(horizons)
     qs = tuple(float(q) for q in quantiles)
     cols: Dict[str, np.ndarray] = {}
-    for hb in buckets:
-        fresh = compute_rows(
-            snap, config, backend, np.arange(n), hb, quantiles=qs,
-            draws=draws, seed=seed, posterior=posterior, chunk=chunk,
-        )
-        for q in qs:
-            cols[_col_name(hb, q)] = fresh[permille(q)]
+    if processes is None:
+        processes = _publish_processes(n)
+    executor = None
+    if posterior is not None and processes > 1:
+        # Spawned, never forked: the publisher may hold a CUDA context.
+        executor = concurrent.futures.ProcessPoolExecutor(
+            processes, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        for hb in buckets:
+            fresh = compute_rows(
+                snap, config, backend, np.arange(n), hb, quantiles=qs,
+                draws=draws, seed=seed, posterior=posterior, chunk=chunk,
+                executor=executor,
+            )
+            for q in qs:
+                cols[_col_name(hb, q)] = fresh[permille(q)]
+    finally:
+        if executor is not None:
+            executor.shutdown()
     spec = {
         "format": QPLANE_FORMAT,
         "n_series": n,
