@@ -212,7 +212,45 @@ the script exits non-zero without printing the final line:
    phase 1 converged and each straggler's loss within ``RS_LOSS_TOL``
    (which one chunk assembled one row off must fail), and the fleet
    subset's forecasts within the dataplane budget of the scipy oracle.
-18. frontend — the user front end on phase fit's batch, config 3's
+18. resident — the mesh-resident fit (``resident.run_resident``) on an
+   explicit one-device mesh of cuda:0 over phase resilient's clean spill
+   (30,490 rows x days [0, 1746), config 3, 8,192-row waves, phase 1 at
+   12, ``pipeline_depth`` 2): a child process (``RD_CHILD``, the port
+   only) killed after two flushes (rc 17, partial coverage), resumed in
+   this process on the same mesh.  Required: the assembled state bitwise
+   phase resilient's clean run (solver outputs and scaling meta),
+   coverage exactly once, ``resident.json`` path "resident" on mesh
+   [1, 1], K3 (both modes) and K4 launched by the resume.  Printed: the
+   child's and the resume's walls, their launches, peak memory and one
+   wave's device idle share under the profiler.  The time axis: the
+   first wave's rows fitted by ``fit_sharded_packed`` on a 1 x 2 (series
+   x time) mesh of cuda:0 (K3 and K4 on (8,192, 873) blocks, block 1
+   with its prior scales at +inf), each block's K3 (both modes) and K4
+   held against their plain versions by the gap rule, the losses within
+   rtol / atol 2e-3 of the one-device fit's.  Then a warm run
+   (``theta0_fn`` from the clean theta) over every 10th row (3,049), its
+   in-sample sMAPE within 0.05 (median gap) of the clean rows'.
+19. refit — the delta-refit cycle (``refit.run_refit``) at 10% churn on
+   a plane dataset of the same fleet days (``plane.import_batch``),
+   registry version 1 the clean run's fit without its regressor
+   coefficients (the serving tier reads no regressor values) with its
+   snapshot plane, forecast plane (K1), ADVI posterior (``fit_advi``:
+   K3's draw stack and K7) and quantile plane at horizon 7, an engine
+   caching 256 series at horizon 14.  A delta advances 3,049 rows by the
+   fleet's next 7 days (``plane.land_delta``); the cycle runs with no
+   mesh: the one-card fallback to the file protocol (one warning).
+   Required: the detected set is the delta's rows; unchanged rows'
+   snapshot, forecast and quantile bytes the base's, the id column a
+   hard link; the refit rows bitwise the chunk worker's cold fit of the
+   cycle's spill; the posterior moved on the changed rows only, and
+   there bitwise ``fit_advi`` run directly on their v2 theta, their
+   spill rows and ``posterior_seed(seed, v2)``; the engine serving v2,
+   v1's entries carried for unchanged series (the same bits from cache),
+   changed ones recomputed.  Then a 1% cycle's child (``python -m
+   tsspark_tpu_torch.refit``, run beside cycle 1's checks) killed at the
+   delta publish and resumed here with no new fit, landing the child's
+   bits.
+20. frontend — the user front end on phase fit's batch, config 3's
    model as a user builds it for a long frame (the holiday a ``Holiday``
    from a holidays frame, after the price and promo columns): (a)
    ``Forecaster.fit`` of a long frame of the first 8,192 series (one
@@ -240,7 +278,7 @@ the script exits non-zero without printing the final line:
    process, each child loading the built kernel library (no rebuild).
    Launch counts (K1, K2, K3 per mode, K4, K6) set to 0 before each leg,
    read after; walls (pivot, fit, predict, scatter to long), peak memory.
-19. serve_scale — serving at scale on phase serve's registry (30,490
+21. serve_scale — serving at scale on phase serve's registry (30,490
    series x 1,941 days): (a) the in-process loadgen (``python -m
    tsspark_tpu_torch.serve --loadgen``'s ``_loadgen``), 10,000 requests of
    the JAX package's mix (Zipf over series, 1-8 series a request,
@@ -276,7 +314,7 @@ the script exits non-zero without printing the final line:
    (d) ``python -m tsspark_tpu_torch.serve --registry`` as a child
    process beside (c): three requests bitwise the engine's, stats,
    activate, rollback.
-20. kernels — each kernel at its main path's shapes, on the main path's
+22. kernels — each kernel at its main path's shapes, on the main path's
    inputs (K3 and K4 at 8192x1746 on config 3's first chunk; K3's
    logistic branch at 8192x1080; K3's trial-stack layout on config 4's
    21 x 8192 line-search stack and on one of flat growth over config 3's
@@ -292,7 +330,8 @@ the script exits non-zero without printing the final line:
    bound and gaps, and K7's entry joins from phase uncertainty; K1, K3
    and K4 their launches and checks on phases stream_fleet_m5, eval12,
    planes and dataplane; K3 and K4 their launches in phase resilient's
-   worker processes; K1-K4 and K6 their launches on phase frontend, and
+   worker processes and on phase resident's resume, K1, K3 and K7 theirs
+   in phase refit's process; K1-K4 and K6 their launches on phase frontend, and
    K3 and K4 their checks on its CV buckets; K1 and K2 their launches on
    phase serve_scale's loadgen and replicas, their checks and times at
    the pool's shapes.
@@ -535,6 +574,20 @@ def bands_variates_bound_ms(b, t_len, s, config) -> dict:
     return {"bound_with_variates_ms": times[by],
             "bound_with_variates_by": by,
             "bound_with_variates_parts_ms": times}
+
+
+def lbfgs_bound_ms(m, b, p) -> dict:
+    """Least time for one L-BFGS iteration body over an (m, b, p) history
+    ring (``ops/lbfgs.py``): the s, y and rho ring, theta and the gradient
+    read once, the direction, the new (s, y) pair and its rho written
+    once; against the two-loop recursion's float32 operations (a dot and
+    an axpy over p in each of 2 m passes: 4 p each a row)."""
+    floats = 2 * m * b * p + m * b + 2 * b * p + 3 * b * p + b
+    t_bytes = 4 * floats / PEAK_BYTES_PER_S * 1e3
+    t_ops = 2 * m * b * 4 * p / PEAK_F32_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "shape": [m, b, p]}
 
 
 def loss_bound_ms(n_rows, b, t_len, config, grad) -> dict:
@@ -5934,7 +5987,6 @@ def phase_resilient(device, ing, hand) -> dict:
             "launches": {"k3": sum(w["k3"] for w in cworkers),
                          "k4": sum(w["k4"] for w in cworkers)},
         }
-        del clean
         emit(res)
         landed = [w for w in workers if w["chunks"]]
         require(report.retries >= 1 and spawns
@@ -5977,8 +6029,16 @@ def phase_resilient(device, ing, hand) -> dict:
         require(all(cl["same_bits_as_faulted"].values()),
                 f"the clean run against the faulted run: "
                 f"{cl['same_bits_as_faulted']}")
+        # Phases resident and refit start from the clean run: its state,
+        # its spill of days [0, split) and the fleet's ids; main removes
+        # the scratch dir after them.
+        res["handoff"] = {"state": clean, "data": os.path.join(clean_dir,
+                                                               "data"),
+                          "scratch": scratch, "ids": batch.series_ids,
+                          "fleet": ing.dirs["fleet"], "split": split}
     finally:
-        shutil.rmtree(scratch, ignore_errors=True)
+        if "handoff" not in res:
+            shutil.rmtree(scratch, ignore_errors=True)
     return res
 
 
@@ -5991,6 +6051,754 @@ def add_resilient(kernels, rs) -> None:
         if key is not None:
             k["launches_resilient"] = rs["launches"][key]
             k["launches_resilient_clean"] = rs["clean"]["launches"][key]
+
+
+RD_CRASH_AFTER = 2        # the resident child dies after this many flushes
+RD_PIPELINE = 2           # waves computed but not yet flushed, at most
+RD_WARM_EVERY = 10        # the warm run's rows: every 10th (3,049)
+RD_SMAPE_TOL = 0.05       # the warm rows' median |sMAPE gap| to the cold
+
+# The resident child: ``run_resident`` on an explicit one-device mesh (the
+# device argv[2], cuda:0 on the card), its keywords from argv[1]; it
+# imports the port only.
+RD_CHILD = r"""
+import json, sys
+sys.modules["jax"] = None
+import torch
+from tsspark_tpu_torch import resident
+from tsspark_tpu_torch.parallel.mesh import make_mesh
+kw = json.loads(sys.argv[1])
+mesh = make_mesh(1, 1, devices=[torch.device(sys.argv[2])])
+st = resident.run_resident(mesh=mesh, **kw)
+sys.exit(0 if st.get("complete") else 1)
+"""
+
+
+def _kernel_counts() -> dict:
+    """K1, K3 (per mode and its stack layouts), K4 and K7 launches."""
+    from tsspark_tpu_torch.kernels import advi as advi_k
+
+    return {**_stream_counts(), "advi": advi_k.launches}
+
+
+def _zero_kernel_counts() -> None:
+    from tsspark_tpu_torch.kernels import advi as advi_k
+
+    _zero_counts()
+    advi_k.launches = 0
+
+
+def _tiles(done, n) -> bool:
+    """Do the landed ranges tile [0, n) exactly once?"""
+    cur = 0
+    for lo, hi in done:
+        if lo != cur:
+            return False
+        cur = hi
+    return cur == n
+
+
+def _in_sample_smape(bk, state, ds, y, mask, reg) -> np.ndarray:
+    """Per-series in-sample sMAPE of ``state``'s deterministic forecast."""
+    from tsspark_tpu_torch.eval import metrics
+
+    yhat = bk.predict(state, ds, regressors=reg, num_samples=0)["yhat"]
+    return np.asarray(metrics.smape(np.nan_to_num(y), yhat, mask=mask))
+
+
+def rd_chunk(data_dir, cfg, n) -> tuple:
+    """The first resident wave's packed rows ([0, RS_CHUNK) of the spill
+    in ``data_dir``, as the resident program packs them) and its indicator
+    columns: (packed, u8)."""
+    from tsspark_tpu_torch import orchestrate
+    from tsspark_tpu_torch.models.prophet.design import (
+        pack_fit_data, prepare_fit_data)
+
+    ds, d = orchestrate._load_data(data_dir)
+    u8 = orchestrate.decide_u8_split(data_dir, d["reg"], n)
+    rows = lambda a: orchestrate._pad_chunk_rows(  # noqa: E731
+        a, 0, RS_CHUNK, RS_CHUNK)
+    y_c = rows(d["y"])
+    data, meta = prepare_fit_data(
+        ds, y_c, cfg, regressors=rows(d["reg"]),
+        mask=orchestrate._chunk_mask(y_c, d["mask"], 0, RS_CHUNK, RS_CHUNK))
+    packed, _ = pack_fit_data(data, meta, ds, reg_u8_cols=u8,
+                              collapse_cap=True)
+    return packed, u8
+
+
+# The time split's fit against the one-device fit: the bound of
+# tests/test_torch_mesh.py::test_backend_time_mesh_against_the_meshless_fit
+# (the JAX package's mesh-routing bound, tests/test_sharding.py).
+TS_RTOL = TS_ATOL = 2e-3
+
+
+def rd_time_split(packed, u8, cfg, solver, dev, seed: int = 17) -> dict:
+    """The time axis on the card: ``fit_sharded_packed`` on a 1 x 2
+    (series x time) mesh whose two entries are both ``dev``, over one
+    packed config-3 chunk with ``solver``, from the ridge init.  Each time
+    block is a (B, T/2) problem with its own time offset: block 0's K3
+    (both modes) and K4 with the priors, block 1's with every prior scale
+    at +inf, each held against its plain version by GAP_RULE (and a
+    dropped cell required to fail it) at an off-optimum theta.  The split
+    fit's launches are counted, and its losses held against the
+    one-device program's (``fit_core_packed`` on the same rows) at
+    TS_RTOL / TS_ATOL."""
+    import math
+
+    import torch
+
+    from tsspark_tpu_torch.config import ShardingConfig
+    from tsspark_tpu_torch.models.prophet.design import (
+        packed_to_device, unpack_fit_data)
+    from tsspark_tpu_torch.models.prophet.model import fit_core_packed
+    from tsspark_tpu_torch.parallel import sharding as sh
+    from tsspark_tpu_torch.parallel.mesh import make_mesh
+
+    th_m, st_m = fit_core_packed(packed_to_device(packed, dev), None, cfg,
+                                 solver, reg_u8_cols=u8)
+    loss_m = st_m[0].cpu().numpy()
+    mesh = make_mesh(1, 2, devices=[dev, dev])
+    _zero_kernel_counts()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    split = sh.fit_sharded_packed(packed, u8, None, cfg, solver, mesh)
+    wall = time.perf_counter() - t0
+    launches = _kernel_counts()
+    loss_t = split.f.numpy()
+    over = np.abs(loss_t - loss_m) - (TS_ATOL + TS_RTOL * np.abs(loss_m))
+    data = unpack_fit_data(packed_to_device(packed, dev), u8)
+    blocks = sh._time_blocks(data, mesh, ShardingConfig())[0]
+    theta, d = off_optimum(th_m, seed)
+    held = []
+    for j, b in enumerate(blocks):
+        c = cfg if j == 0 else sh._priorless(cfg)
+        if j:
+            b = b._replace(prior_scales=torch.full_like(b.prior_scales,
+                                                        math.inf))
+        held.append(hold_kernels(theta, d, b, c, f"time block {j}"))
+    out = {"mesh": [1, 2], "shape": list(data.y.shape),
+           "blocks_t": [int(b.t.shape[-1]) for b in blocks],
+           "max_iters": int(solver.max_iters), "wall_s": wall,
+           "launches": launches, "blocks": held,
+           "loss_vs_one_device": {
+               "max_abs": float(np.abs(loss_t - loss_m).max()),
+               "max_rel": float((np.abs(loss_t - loss_m)
+                                 / np.abs(loss_m)).max()),
+               "rows_over": int((over > 0).sum()),
+               "tolerance": f"rtol {TS_RTOL}, atol {TS_ATOL}"},
+           "finite": bool(np.isfinite(split.theta.numpy()).all())}
+    require(dev.type != "cuda" or (launches["loss_grad"] > 0
+                                   and launches["loss_value"] > 0
+                                   and launches["fan"] > 0),
+            f"the time-split fit launched K3 (both modes) and K4: "
+            f"{launches}")
+    require(out["finite"] and out["loss_vs_one_device"]["rows_over"] == 0,
+            f"the time-split fit against the one-device fit: "
+            f"{out['loss_vs_one_device']}")
+    return out
+
+
+def rd_wave_profile(mesh, data_dir, cfg, solver, n) -> dict:
+    """One resident wave (rows [0, RS_CHUNK), phase 1's program) under the
+    profiler: its wall, the card's busy time and idle share."""
+    import torch
+
+    from tsspark_tpu_torch.backends.cuda import phase1_dynamic_args
+    from tsspark_tpu_torch.parallel import sharding as sh
+
+    packed, u8 = rd_chunk(data_dir, cfg, n)
+    specs = sh.match_partition_rules(
+        sh.resident_partition_rules("series", False), packed)
+    shard = sh.make_shard_and_gather_fns(mesh, specs)[0]
+    p1 = phase1_dynamic_args(DP_PHASE1, False, solver)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if mesh.devices[0, 0].type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        th, _st = sh.fit_resident_core(
+            sh.apply_fns(shard, packed),
+            sh.shard_array(mesh, sh.P("series", None),
+                           np.zeros((RS_CHUNK, cfg.num_params), np.float32)),
+            cfg, p1["solver_config"], reg_u8_cols=u8,
+            use_theta0_dynamic=False)
+        np.asarray(th)
+        traced = time.perf_counter() - t0
+    top = _device_events(prof)
+    busy_ms = sum(ms for _, ms in top)
+    return {"rows": RS_CHUNK, "traced_wall_s": traced,
+            "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / 1e3 / traced,
+            "top_device_ms": [(k[:60], ms) for k, ms in top[:4]]}
+
+
+def rd_warm_run(mesh, data_dir, clean, cfg, solver, scratch,
+                device) -> dict:
+    """The warm run: ``run_resident`` on ``mesh`` over every
+    RD_WARM_EVERY-th row of the spill in ``data_dir``, ``theta0_fn`` from
+    the clean run's theta; its in-sample sMAPE against the clean rows'."""
+    from tsspark_tpu_torch import orchestrate, resident
+    from tsspark_tpu_torch.backends.cuda import _take_rows
+    from tsspark_tpu_torch.backends.registry import get_backend
+
+    n = int(clean.theta.shape[0])
+    rows_w = np.arange(0, n, RD_WARM_EVERY)
+    ds, d = orchestrate._load_data(data_dir)
+    sub = lambda a: np.ascontiguousarray(a[rows_w])  # noqa: E731
+    warm_data = os.path.join(scratch, "warm_data")
+    warm_out = os.path.join(scratch, "warm_out")
+    orchestrate.spill_data(warm_data, ds, sub(d["y"]),
+                           mask=sub(d["mask"]), regressors=sub(d["reg"]))
+    os.makedirs(warm_out)
+    orchestrate.save_run_config(warm_out, cfg, solver)
+    theta_c = clean.theta.numpy()
+    t0 = time.perf_counter()
+    wst = resident.run_resident(
+        data_dir=warm_data, out_dir=warm_out, series=len(rows_w),
+        chunk=RS_CHUNK, phase1_iters=DP_PHASE1, no_phase1_tune=True,
+        mesh=mesh, theta0_fn=lambda lo, hi: theta_c[rows_w[lo:hi]])
+    warm_s = time.perf_counter() - t0
+    warm = orchestrate.load_fit_state(warm_out, len(rows_w))
+    bk = get_backend("cuda", cfg, solver, device=device)
+    args = (ds, sub(d["y"]), sub(d["mask"]), sub(d["reg"]))
+    s_warm = _in_sample_smape(bk, warm, *args)
+    s_cold = _in_sample_smape(bk, _take_rows(clean, rows_w), *args)
+    gap = np.abs(s_warm - s_cold)
+    return {
+        "rows": int(len(rows_w)), "wall_s": warm_s,
+        "fit_path": wst.get("fit_path"), "complete": wst.get("complete"),
+        "finite": bool(np.isfinite(np.asarray(warm.loss)).all()),
+        "iterations_mean": float(np.mean(warm.n_iters)),
+        "cold_iterations_mean": float(np.mean(
+            np.asarray(clean.n_iters)[rows_w])),
+        "smape_gap": {"median": float(np.median(gap)),
+                      "mean": float(gap.mean()),
+                      "max": float(gap.max())},
+        "limit_median": RD_SMAPE_TOL,
+    }
+
+
+def phase_resident(device, hand) -> dict:
+    """The mesh-resident fit on an explicit one-device mesh of cuda:0 over
+    phase resilient's clean spill (30,490 rows x days [0, 1746), config
+    3, RS_CHUNK waves, phase 1 at DP_PHASE1, ``pipeline_depth`` 2): a
+    child process killed after RD_CRASH_AFTER flushes (rc 17, partial
+    coverage), resumed in this process on the same mesh; the assembled
+    state bitwise the clean run's, coverage exactly once, ``resident.json``
+    path "resident" on mesh [1, 1].  Its wall, K3/K4 launches (counts set
+    to 0 before the resume), peak memory and one wave's idle share under
+    the profiler; the time split's check (``rd_time_split``).  While the
+    child runs, the warm run (``rd_warm_run``: ``theta0_fn`` from the
+    clean run's theta) over every RD_WARM_EVERY-th row, its in-sample
+    sMAPE against the clean rows' within RD_SMAPE_TOL (median gap)."""
+    import shutil
+
+    import torch
+
+    from tsspark_tpu_torch import orchestrate, resident
+    from tsspark_tpu_torch.eval import configs
+    from tsspark_tpu_torch.parallel.mesh import make_mesh
+
+    cfg, solver = configs.CONFIG3, configs.SOLVER3
+    clean, data_dir, n = hand["state"], hand["data"], FULL_SERIES
+    scratch = tempfile.mkdtemp(prefix="resident_")
+    res = {"phase": "resident", "chunk": RS_CHUNK,
+           "phase1_iters": DP_PHASE1, "pipeline_depth": RD_PIPELINE,
+           "lbfgs_iteration_bound": lbfgs_bound_ms(
+               solver.history, RS_CHUNK, cfg.num_params)}
+    try:
+        out_dir = os.path.join(scratch, "out")
+        os.makedirs(out_dir)
+        orchestrate.save_run_config(out_dir, cfg, solver)
+        kw = dict(data_dir=data_dir, out_dir=out_dir, series=n,
+                  chunk=RS_CHUNK, phase1_iters=DP_PHASE1,
+                  no_phase1_tune=True, pipeline_depth=RD_PIPELINE)
+        env = dict(os.environ,
+                   TSSPARK_TEST_CRASH_AFTER=str(RD_CRASH_AFTER))
+        here = os.path.dirname(os.path.abspath(__file__))
+        mesh_dev = (torch.device("cuda", 0) if device.type == "cuda"
+                    else device)
+        mesh = make_mesh(1, 1, devices=[mesh_dev])
+        # The child's start and waves beside the warm run (its own out
+        # dir, nothing the child reads); the resume, the profile and the
+        # time split wait for it.
+        t0 = time.perf_counter()
+        child = subprocess.Popen([sys.executable, "-c", RD_CHILD,
+                                  json.dumps(kw), str(mesh_dev)],
+                                 cwd=here, env=env, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+        try:
+            res["warm"] = rd_warm_run(mesh, data_dir, clean, cfg, solver,
+                                      scratch, device)
+            t_wait = time.perf_counter()
+            _out, child_err = child.communicate(timeout=600)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        res["child_s"] = time.perf_counter() - t0
+        res["child_wait_s"] = time.perf_counter() - t_wait
+        res["child_rc"] = child.returncode
+        landed = orchestrate.completed_ranges(out_dir)
+        res["child_landed"] = [list(r) for r in landed]
+        require(child.returncode == 17 and landed
+                and orchestrate.missing_ranges(landed, n),
+                f"the resident child died after {RD_CRASH_AFTER} flushes "
+                f"with partial coverage: rc {child.returncode} {landed} "
+                f"{child_err[-1500:]}")
+        _zero_kernel_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        st = resident.run_resident(mesh=mesh, **kw)
+        res["resume_s"] = time.perf_counter() - t0
+        res["resume_launches"] = _kernel_counts()
+        res["peak_device_bytes"] = int(torch.cuda.max_memory_allocated())
+        got = orchestrate.load_fit_state(out_dir, n)
+        done = orchestrate.completed_ranges(out_dir)
+        with open(os.path.join(out_dir, resident.RESIDENT_STATE_FILE)) as fh:
+            rstate = json.load(fh)
+        rows = _jsonl(os.path.join(out_dir, "times.jsonl"))
+        waves = [r for r in rows if r.get("path") == "resident"]
+        p2 = [r for r in rows if "phase2_mode" in r]
+        res.update({
+            "fit_path": st.get("fit_path"), "complete": st.get("complete"),
+            "resident_json": rstate,
+            "coverage_exactly_once": _tiles(done, n),
+            "same_bits_as_clean": rs_same(got, clean),
+            "waves": [{k: r.get(k) for k in ("lo", "hi", "fit_s", "shards",
+                                             "pid", "peak_bytes")}
+                      for r in waves],
+            "phase2": p2,
+        })
+        res["wave_profile"] = rd_wave_profile(mesh, data_dir, cfg, solver,
+                                              n)
+        packed, u8 = rd_chunk(data_dir, cfg, n)
+        res["time_split"] = rd_time_split(packed, u8, cfg, solver, mesh_dev)
+        del packed
+        emit(res)
+        require(st.get("complete") and st.get("fit_path") == "resident",
+                f"the resumed resident run completed: {st}")
+        require(rstate.get("path") == "resident"
+                and rstate.get("mesh") == [1, 1]
+                and rstate.get("landed") == n,
+                f"resident.json: {rstate}")
+        require(res["coverage_exactly_once"] and not
+                orchestrate.missing_ranges(done, n),
+                f"coverage exactly once: {done}")
+        require(all(res["same_bits_as_clean"].values()),
+                f"the resident run against the clean resilient run: "
+                f"{res['same_bits_as_clean']}")
+        require(waves and all(w["shards"] == 1 for w in waves)
+                and p2 and p2[-1]["phase2_mode"] == "resident-sharded",
+                f"the times rows: {waves} {p2}")
+        rl = res["resume_launches"]
+        require(rl["loss_grad"] > 0 and rl["loss_value"] > 0
+                and rl["fan"] > 0,
+                f"the resumed run launched K3 (both modes) and K4: {rl}")
+        require(res["warm"]["complete"]
+                and res["warm"]["fit_path"] == "resident"
+                and res["warm"]["finite"],
+                f"the warm run: {res['warm']}")
+        require(res["warm"]["smape_gap"]["median"] < RD_SMAPE_TOL,
+                f"the warm rows against the cold rows: {res['warm']}")
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    return res
+
+
+RF_EVERY = 10             # cycle 1's delta: every 10th row from row 5 (3,049)
+RF_KILL_EVERY = 100       # cycle 2's delta: every 100th row from row 7 (305)
+RF_WINDOW = 7             # the days each delta advances
+RF_HORIZONS = (7,)        # the planes' hot horizons (bucket 8)
+RF_HOT = 256              # hot series cached at v1 in the engine
+RF_CACHE_H = 14           # their horizon: bucket 16, past the planes (8)
+RF_KILL_RC = 23
+
+
+def rf_state_v1(clean, n_reg: int):
+    """The clean run's fit without its regressor coefficients (the last
+    ``n_reg`` parameters and the regressor scalings): the serving tier
+    reads no regressor values (``qplane._advi_eligible``), so the cycle
+    runs config 3's model without regressors over the same rows."""
+    meta = clean.meta._replace(
+        reg_mean=np.asarray(clean.meta.reg_mean)[:, :0],
+        reg_std=np.asarray(clean.meta.reg_std)[:, :0])
+    return clean._replace(theta=clean.theta[:, :-n_reg].contiguous(),
+                          meta=meta)
+
+
+def _cols_rows_equal(base_vdir, new_vdir, prefix, rows) -> dict:
+    """Per column file of ``prefix``: are ``rows`` the base's bytes, and
+    is the file a hard link of the base's?"""
+    out = {}
+    for name in sorted(os.listdir(new_vdir)):
+        if not name.startswith(prefix):
+            continue
+        a = np.load(os.path.join(base_vdir, name), mmap_mode="r")
+        b = np.load(os.path.join(new_vdir, name), mmap_mode="r")
+        out[name] = {
+            "rows_same": bool(np.array_equal(np.asarray(a[rows]),
+                                             np.asarray(b[rows]))),
+            "hardlink": os.stat(os.path.join(base_vdir, name)).st_ino
+            == os.stat(os.path.join(new_vdir, name)).st_ino}
+    return out
+
+
+def phase_refit(device, hand) -> dict:
+    """One delta-refit cycle at 10% churn on the card, then a killed and
+    resumed one.  The base: a plane dataset of the fleet's days [0, 1746)
+    (``plane.import_batch`` of phase resilient's clean spill, no
+    regressors) and registry version 1 = the clean run's fit minus its
+    regressor coefficients (``rf_state_v1``) with its snapshot plane, a
+    forecast plane (K1), an ADVI posterior (``fit_advi`` at
+    ``AdviConfig()``: K3's draw stack and K7) and the ADVI-mode quantile
+    plane (both planes at RF_HORIZONS), and an engine holding RF_HOT
+    series in its cache at v1 (at RF_CACHE_H, a bucket no plane holds).
+    Cycle 1: a delta advances every RF_EVERY-th row by the fleet's next
+    RF_WINDOW days (``plane.land_delta``) and ``run_refit`` runs with no
+    mesh: the one-card fallback to the file protocol (one warning), the
+    changed rows refitted cold by a worker process, the copy-forward
+    publish of the three planes and the posterior, the flip.  Required:
+    the detected set is the delta's rows, ``fit_path`` "fileproto" with
+    one fallback warning, unchanged rows' snapshot, forecast and
+    quantile bytes the base's, the columns no refit row touches hard
+    links, the refit rows bitwise the chunk worker's cold fit of the
+    cycle's spill (the body ``run_resilient`` spawns, here in process),
+    the changed rows' posterior bitwise ``fit_advi`` run directly on their
+    v2 theta, their spill rows and ``posterior_seed(seed, v2)``, the
+    engine serving v2 with v1's entries carried for unchanged series.
+    Cycle 2: a 1% delta, ``python -m tsspark_tpu_torch.refit`` (started
+    once the spill of cycle 1's reference is rebuilt, beside cycle 1's
+    checks) killed at the delta publish (rc RF_KILL_RC, the active
+    version untouched), resumed here with no new fit, landing the
+    child's bits."""
+    import dataclasses
+    import shutil
+    import warnings
+
+    import torch
+
+    from tsspark_tpu_torch import orchestrate, refit
+    from tsspark_tpu_torch.backends.registry import get_backend
+    from tsspark_tpu_torch.config import AdviConfig, SolverConfig
+    from tsspark_tpu_torch.data import plane
+    from tsspark_tpu_torch.data.datasets import SeriesBatch
+    from tsspark_tpu_torch.eval import configs
+    from tsspark_tpu_torch.models.prophet.design import prepare_fit_data
+    from tsspark_tpu_torch.resilience import faults
+    from tsspark_tpu_torch.serve import ForecastCache, ParamRegistry
+    from tsspark_tpu_torch.serve import fplane, snapplane
+    from tsspark_tpu_torch.serve.engine import PredictionEngine
+    from tsspark_tpu_torch.uncertainty import advi as advi_mod
+    from tsspark_tpu_torch.uncertainty import qplane
+
+    cfg = dataclasses.replace(configs.CONFIG3, regressors=())
+    solver = configs.SOLVER3
+    n, split = FULL_SERIES, hand["split"]
+    # The card by default; the CPU only when this phase is driven there.
+    dev_kw = {} if device.type == "cuda" else {"device": "cpu"}
+    ids = np.asarray(hand["ids"])
+    scratch = tempfile.mkdtemp(prefix="refit_")
+    res = {"phase": "refit", "series": n, "days": split,
+           "horizons": list(RF_HORIZONS)}
+    walls = res["walls_s"] = {}
+
+    def clock(name, fn, *a, **k):
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        walls[name] = walls.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    try:
+        ds, d = orchestrate._load_data(hand["data"])
+        dset = clock("import", plane.import_batch, SeriesBatch(
+            ds=ds, y=d["y"], mask=d["mask"], series_ids=ids),
+            "refit_fleet", root=os.path.join(scratch, "plane"))
+        reg = ParamRegistry(os.path.join(scratch, "registry"), cfg)
+        v1_state = rf_state_v1(hand["state"], configs.CONFIG3.num_regressors)
+        v1 = clock("publish_v1", reg.publish, v1_state, ids,
+                   step=np.ones(n), data_stamp=plane.delta_seq(dset))
+        bk = get_backend("cuda", cfg, SolverConfig(), device=device)
+        fp1 = clock("fplane_v1", fplane.maybe_publish, reg, v1, bk,
+                    horizons=RF_HORIZONS)
+        data1, _ = clock("advi_v1_prep", prepare_fit_data, ds, d["y"], cfg,
+                         mask=d["mask"])
+        advi_cfg = AdviConfig()
+        _zero_kernel_counts()
+        post = clock("advi_v1", advi_mod.fit_advi, v1_state.theta, data1,
+                     torch.Generator(device=device).manual_seed(UNC_SEED),
+                     cfg, advi_cfg, device=device)
+        res["advi_v1_launches"] = _kernel_counts()
+        del data1
+        advi_mod.save_posterior(reg.version_dir(v1), post, seed=UNC_SEED,
+                                num_steps=advi_cfg.num_steps)
+        del post
+        qp1 = clock("qplane_v1", qplane.maybe_publish, reg, v1, bk,
+                    horizons=RF_HORIZONS)
+        res["v1"] = {"version": v1, "fplane": (fp1 or {}).get("status"),
+                     "qplane": (qp1 or {}).get("status")}
+        eng = PredictionEngine(reg, cache=ForecastCache(4 * RF_HOT),
+                               device=device)
+        hot = [str(s) for s in ids[:RF_HOT]]
+        clock("materialize", eng.materialize, hot, (RF_CACHE_H,))
+        before = {s: eng.forecast([s], RF_CACHE_H) for s in hot}
+
+        fleet = plane.open_batch(hand["fleet"])
+        rows1 = np.arange(5, n, RF_EVERY)
+        win = slice(split, split + RF_WINDOW)
+        clock("delta", plane.land_delta, dset, rows1,
+              np.nan_to_num(np.asarray(fleet.y[rows1, win], np.float32)),
+              np.asarray(fleet.mask[rows1, win], np.float32))
+        _zero_kernel_counts()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            cyc = clock("cycle1", refit.run_refit, data_dir=dset,
+                        registry=reg,
+                        scratch=os.path.join(scratch, "refit"),
+                        chunk=RS_CHUNK, solver_config=solver,
+                        phase1_iters=DP_PHASE1, no_phase1_tune=True,
+                        horizons=RF_HORIZONS, **dev_kw)
+        res["cycle1_launches_in_process"] = _kernel_counts()
+        fallback = [str(w.message) for w in caught
+                    if "no usable device mesh" in str(w.message)]
+        v2 = cyc.get("version")
+        info = reg.delta_info(v2) if v2 else {}
+        changed = np.asarray(info.get("changed_rows", []), np.int64)
+        keep = np.setdiff1d(np.arange(n), rows1)
+        v1d, v2d = reg.version_dir(v1), reg.version_dir(v2)
+        cols = {p: _cols_rows_equal(v1d, v2d, p, keep) for p in
+                (snapplane.COL_PREFIX, fplane.FCOL_PREFIX,
+                 qplane.QCOL_PREFIX)}
+        # The refit rows against the chunk worker's cold fit of the
+        # cycle's spill (the gather rebuilt here: the cycle reaped its own).
+        batch2 = plane.open_batch(dset)
+        ref_data = os.path.join(scratch, "ref_data")
+        ref_out = os.path.join(scratch, "ref_out")
+        take = lambda a: np.ascontiguousarray(a[rows1])  # noqa: E731
+        orchestrate.spill_data(ref_data, np.asarray(batch2.ds),
+                               take(batch2.y), mask=take(batch2.mask))
+        orchestrate.save_run_config(ref_out, cfg, solver)
+        wargs = argparse.Namespace(
+            data=ref_data, out=ref_out, lo=0, hi=len(rows1),
+            chunk=RS_CHUNK, segment=0, series=len(rows1),
+            phase1_iters=DP_PHASE1, no_phase1_tune=True, max_ahead=6,
+            autotune=False, device=dev_kw.get("device"))
+        # Cycle 2's delta lands (after the spill above was rebuilt from
+        # the plane) and its child, killed at the delta publish, runs
+        # beside cycle 1's checks: it publishes no version it activates,
+        # and nothing below reads the rows it advances.
+        rows2 = np.arange(7, n, RF_KILL_EVERY)
+        win2 = slice(split + RF_WINDOW, split + 2 * RF_WINDOW)
+        plane.land_delta(dset, rows2,
+                         np.nan_to_num(np.asarray(fleet.y[rows2, win2],
+                                                  np.float32)),
+                         np.asarray(fleet.mask[rows2, win2], np.float32))
+        scratch2 = os.path.join(scratch, "refit2")
+        fplan = faults.FaultPlan(state_dir=os.path.join(scratch, "faults"))
+        fplan.fail("delta_publish", attempts=1, after=2, mode="exit",
+                   rc=RF_KILL_RC, tag="refit-kill")
+        env = dict(os.environ)
+        env[faults.ENV_VAR] = fplan.to_env()
+        here = os.path.dirname(os.path.abspath(__file__))
+        kid_log = os.path.join(scratch, "killed_child.log")
+        t_kid = time.perf_counter()
+        with open(kid_log, "w") as kid_fh:
+            kid = subprocess.Popen(
+                [sys.executable, "-m", "tsspark_tpu_torch.refit", "--data",
+                 dset, "--registry", reg.root, "--scratch", scratch2,
+                 "--chunk", str(RS_CHUNK), "--max-iters",
+                 str(solver.max_iters), "--phase1-iters", str(DP_PHASE1),
+                 "--no-activate",
+                 *(["--device", "cpu"] if dev_kw else [])],
+                cwd=here, env=env, stdout=kid_fh, stderr=subprocess.STDOUT)
+        try:
+            _zero_kernel_counts()
+            clock("reference_fit", orchestrate.fit_worker, wargs)
+            res["reference_fit_launches"] = _kernel_counts()
+            ref = orchestrate.load_fit_state(ref_out, len(rows1))
+            snap2 = reg.load(v2, fallback=False)
+            got_rows, _ = snap2.take(rows1)
+            # After the flip: the engine answers v2, unchanged hot series
+            # from v1's carried entries (the same bits), changed ones
+            # recomputed.
+            stats = eng.cache.stats()
+            after = {s: eng.forecast([s], RF_CACHE_H) for s in hot}
+            changed_ids = set(info.get("changed_ids", []))
+            same = {s: all(np.array_equal(np.asarray(before[s].values[k]),
+                                          np.asarray(after[s].values[k]))
+                           for k in before[s].values) for s in hot}
+            eng_ok = {
+                "version_v2": all(after[s].version == v2 for s in hot),
+                "unchanged_same_from_cache": all(
+                    same[s] and after[s].from_cache == 1
+                    for s in hot if s not in changed_ids),
+                "changed_recomputed": all(not same[s] for s in hot
+                                          if s in changed_ids),
+                "carried": int(stats.get("carried", 0)),
+                "hot_changed": int(sum(s in changed_ids for s in hot)),
+            }
+            p1, _h1 = advi_mod.load_posterior(v1d)
+            p2, _h2 = advi_mod.load_posterior(v2d)
+            # The changed rows' posterior against ``fit_advi`` run directly
+            # on the cycle's theta of those rows, their spill rows and the
+            # generator at posterior_seed(seed, v2): a wrong row map, theta
+            # or seed gives other bits.
+            load = lambda f: np.load(  # noqa: E731
+                os.path.join(ref_data, f))
+            data_s, _ = prepare_fit_data(load("ds.npy"), load("y.npy"),
+                                         cfg, mask=load("mask.npy"))
+            direct = advi_mod.fit_advi(
+                np.asarray(got_rows.theta, np.float32), data_s,
+                torch.Generator(device=device).manual_seed(
+                    refit.posterior_seed(UNC_SEED, v2)),
+                cfg, advi_cfg, device=device)
+            del data_s
+            direct_same = {f: bool(np.array_equal(
+                np.asarray(getattr(p2, f))[rows1],
+                getattr(direct, f).detach().cpu().numpy()))
+                for f in ("mu", "rho", "elbo")}
+            res["cycle1"] = {
+                **{k: cyc.get(k) for k in ("n_changed", "fit_path", "fit_s",
+                                           "fit_dispatches", "publish_s",
+                                           "flip_s", "fplane", "qplane",
+                                           "wall_s", "version")},
+                "fallback_warnings": len(fallback),
+                "detected_is_delta": bool(np.array_equal(changed, rows1)),
+                "columns": cols,
+                "same_bits_as_reference_fit": rs_same(got_rows, ref),
+                "engine": eng_ok,
+                "posterior_unchanged_rows_same": all(
+                    np.array_equal(np.asarray(getattr(p2, f))[keep],
+                                   np.asarray(getattr(p1, f))[keep])
+                    for f in ("mu", "rho", "elbo")),
+                "posterior_changed_rows_moved": not np.array_equal(
+                    np.asarray(p2.mu)[rows1], np.asarray(p1.mu)[rows1]),
+                "posterior_changed_rows_direct_fit": direct_same,
+            }
+            eng.stop()
+            t_wait = time.perf_counter()
+            kid.wait(timeout=600)
+        finally:
+            if kid.poll() is None:
+                kid.kill()
+                kid.wait()
+        walls["killed_child"] = time.perf_counter() - t_kid
+        walls["killed_child_wait"] = time.perf_counter() - t_wait
+        with open(kid_log) as fh:
+            kid_tail = fh.read()[-1500:]
+        plan2 = refit.read_refit_plan(scratch2)
+        active_after_kill = reg.active_version()
+        _c, _dd, out2 = refit.cycle_paths(scratch2, plan2)
+        landed2 = orchestrate.load_fit_state(out2, plan2["n_changed"])
+        cyc2 = clock("resume", refit.run_refit, data_dir=dset, registry=reg,
+                     scratch=scratch2, chunk=RS_CHUNK,
+                     solver_config=SolverConfig(max_iters=solver.max_iters),
+                     phase1_iters=DP_PHASE1, no_phase1_tune=True,
+                     horizons=RF_HORIZONS, **dev_kw)
+        v3 = cyc2.get("version")
+        got3, _ = reg.load(v3, fallback=False).take(rows2)
+        res["cycle2"] = {
+            "rows": int(len(rows2)), "child_rc": kid.returncode,
+            "active_after_kill": active_after_kill,
+            "plan_incomplete_after_kill": not plan2.get("complete"),
+            **{k: cyc2.get(k) for k in ("resumed", "complete",
+                                        "fit_dispatches", "version",
+                                        "wall_s")},
+            "same_bits_as_child": rs_same(got3, landed2),
+            "unchanged_same": {p: all(v["rows_same"] for v in
+                                      _cols_rows_equal(
+                                          v2d, reg.version_dir(v3), p,
+                                          np.setdiff1d(np.arange(n),
+                                                       rows2)).values())
+                               for p in (snapplane.COL_PREFIX,
+                                         fplane.FCOL_PREFIX,
+                                         qplane.QCOL_PREFIX)},
+        }
+        emit(res)
+        c1 = res["cycle1"]
+        require(res["v1"]["fplane"] == "published"
+                and res["v1"]["qplane"] == "published",
+                f"version 1's planes: {res['v1']}")
+        require(c1["detected_is_delta"] and c1["n_changed"] == len(rows1),
+                f"the detected set is the delta's rows: {c1['n_changed']}")
+        require(c1["fit_path"] == "fileproto"
+                and c1["fallback_warnings"] == 1,
+                f"the one-card fallback, one warning: {c1['fit_path']} "
+                f"{fallback}")
+        require(c1["fplane"] == "published-delta"
+                and c1["qplane"] == "published-delta",
+                f"the planes published as deltas: {c1}")
+        bad = {p: [k for k, v in c.items() if not v["rows_same"]]
+               for p, c in cols.items()}
+        require(all(c for c in cols.values())
+                and not any(bad.values()),
+                f"unchanged rows' snapshot, forecast and quantile bytes are "
+                f"the base's: {bad}")
+        require(cols[snapplane.COL_PREFIX].get(
+            f"{snapplane.COL_PREFIX}ids.npy", {}).get("hardlink"),
+                "the id column (no refit row touches it) is a hard link")
+        require(all(c1["same_bits_as_reference_fit"].values()),
+                f"the refit rows against the cold fit of the spill: "
+                f"{c1['same_bits_as_reference_fit']}")
+        require(eng_ok["version_v2"] and eng_ok["unchanged_same_from_cache"]
+                and eng_ok["changed_recomputed"] and eng_ok["carried"] > 0
+                and eng_ok["hot_changed"] > 0,
+                f"the engine after the flip: {eng_ok}")
+        require(c1["posterior_unchanged_rows_same"]
+                and c1["posterior_changed_rows_moved"],
+                "the posterior advanced on the changed rows only")
+        require(all(direct_same.values()),
+                f"the changed rows' posterior is fit_advi's on the cycle's "
+                f"theta, spill rows and seed: {direct_same}")
+        lc = res["cycle1_launches_in_process"]
+        require(lc["forward"] > 0 and lc["advi"] > 0
+                and lc["loss_grad"] > 0,
+                f"the cycle launched K1, K3 (the posterior's draws) and K7: "
+                f"{lc}")
+        c2 = res["cycle2"]
+        require(c2["child_rc"] == RF_KILL_RC and c2["active_after_kill"] == v2
+                and c2["plan_incomplete_after_kill"],
+                f"the killed cycle: rc {kid.returncode} {kid_tail}")
+        require(c2["resumed"] and c2["complete"]
+                and c2["fit_dispatches"] == 0
+                and all(c2["same_bits_as_child"].values())
+                and all(c2["unchanged_same"].values()),
+                f"the resumed cycle: {c2}")
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    return res
+
+
+def add_resident_refit(kernels, rd, rf) -> None:
+    """K3's and K4's entries gain their launches on phase resident's
+    resumed run, and the time split's launches and block checks; K1, K3
+    and K7 theirs on phase refit (version 1's ADVI fit and cycle 1 in
+    this process; cycle 1's fit ran in a worker)."""
+    ts = rd["time_split"]
+    for k in kernels:
+        name = k["name"]
+        if name in ("loss", "fan"):
+            k["time_split_check"] = [b["gap"] for b in ts["blocks"]]
+        if name == "loss":
+            k["launches_resident"] = (rd["resume_launches"]["loss_grad"]
+                                      + rd["resume_launches"]["loss_value"])
+            k["launches_time_split"] = (ts["launches"]["loss_grad"]
+                                        + ts["launches"]["loss_value"])
+            c1 = rf["cycle1_launches_in_process"]
+            k["launches_refit"] = c1["loss_grad"] + c1["loss_value"]
+            k["launches_refit_stack"] = \
+                rf["cycle1_launches_in_process"]["loss_stack"]
+        elif name == "fan":
+            k["launches_resident"] = rd["resume_launches"]["fan"]
+            k["launches_time_split"] = ts["launches"]["fan"]
+        elif name == "forward":
+            k["launches_refit"] = rf["cycle1_launches_in_process"]["forward"]
+        elif name == "advi":
+            k["launches_refit"] = rf["cycle1_launches_in_process"]["advi"]
 
 
 def add_new_paths(kernels, fleet_m5, eval12, planes) -> None:
@@ -7542,6 +8350,8 @@ def main(argv=None) -> int:
     dp_ingest = DataplaneIngest(parity)
     unc_root = tempfile.mkdtemp(prefix="uncertainty_")
     finished = False
+    import shutil
+
     try:
         fwd = timed("forward", phase_forward, rng, device)
         bnd = timed("bands", phase_bands, rng, device)
@@ -7568,6 +8378,11 @@ def main(argv=None) -> int:
         dp = timed("dataplane", phase_dataplane, device, dp_ingest)
         rs = timed("resilient", phase_resilient, device, dp_ingest,
                    dp.pop("handoff"))
+        rs_hand = rs.pop("handoff")
+        rd = timed("resident", phase_resident, device, rs_hand)
+        rf = timed("refit", phase_refit, device, rs_hand)
+        shutil.rmtree(rs_hand.pop("scratch"), ignore_errors=True)
+        del rs_hand
         fe = timed("frontend", phase_frontend, device, batch3, fe_cpu)
         scale = timed("serve_scale", phase_serve_scale, device, serve)
         kernels = timed("kernels", phase_kernels, serve, fwd, bnd, fit,
@@ -7577,6 +8392,7 @@ def main(argv=None) -> int:
         add_new_paths(kernels["kernels"], fleet_m5, eval12, planes)
         add_dataplane(kernels["kernels"], dp)
         add_resilient(kernels["kernels"], rs)
+        add_resident_refit(kernels["kernels"], rd, rf)
         add_frontend(kernels["kernels"], fe)
         add_serve_scale(kernels["kernels"], scale)
         finished = True

@@ -115,7 +115,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "tsspark_tpu_torch.serve.aotbank",
                 "tsspark_tpu_torch.serve.__main__",
                 "tsspark_tpu_torch.obs.regress",
-                "tsspark_tpu_torch.utils.procmem"):
+                "tsspark_tpu_torch.utils.procmem",
+                "tsspark_tpu_torch.parallel.mesh",
+                "tsspark_tpu_torch.parallel.sharding",
+                "tsspark_tpu_torch.resident",
+                "tsspark_tpu_torch.refit",
+                "tsspark_tpu_torch.utils.platform",
+                "tsspark_tpu_torch.utils.profiling"):
         assert mod in out["modules"]
 
 

@@ -520,19 +520,31 @@ def test_segmented_worker_takes_the_fitdata_path(tmp_path):
     assert torch.isfinite(state.theta).all()
 
 
-def test_resident_mode_is_refused_not_substituted(tmp_path):
-    """``--_resident`` (the mesh-resident fit, a later slice) exits
-    non-zero with a message and runs nothing in its place."""
+def test_resident_mode_runs_the_resident_worker(tmp_path):
+    """``--_resident --device cpu`` on the forced host mesh (8 CPU
+    entries) runs ``resident.resident_worker``: the resident waves land
+    the chunk files, bitwise the in-process chunk worker's."""
+    (tmp_path / "worker").mkdir()
+    (tmp_path / "resident").mkdir()
+    args = _args(tmp_path / "worker")
+    args.no_phase1_tune = True
+    assert orchestrate.fit_worker(args) == 0
+    res = _args(tmp_path / "resident")
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT
+    env["TSSPARK_HOST_MESH"] = "8"
     proc = subprocess.run(
         [sys.executable, "-m", "tsspark_tpu_torch.orchestrate", "--_resident",
-         "--data", str(tmp_path), "--out", str(tmp_path), "--device", "cpu"],
-        capture_output=True, text=True, env=env, timeout=120,
+         "--data", res.data, "--out", res.out, "--series", str(res.series),
+         "--chunk", str(res.chunk), "--phase1-iters", str(res.phase1_iters),
+         "--no-phase1-tune", "--device", "cpu"],
+        capture_output=True, text=True, env=env, timeout=300,
     )
-    assert proc.returncode != 0
-    assert "not ported yet" in proc.stderr
-    assert os.listdir(tmp_path) == []
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    with open(os.path.join(res.out, "resident.json")) as fh:
+        assert json.load(fh)["path"] == "resident"
+    _same_state(orchestrate.load_fit_state(res.out, res.series),
+                orchestrate.load_fit_state(args.out, args.series))
 
 
 # ---------------------------------------------------------------------------

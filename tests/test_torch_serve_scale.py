@@ -310,11 +310,28 @@ def test_streaming_perf_report_returns_the_backends(jax_fitted):
     assert sf.perf_report().to_dict()["n_dispatches"] >= 1
 
 
-@pytest.mark.parametrize("kw", [{"mesh": object()},
-                                {"shard_config": object()}])
-def test_mesh_and_shard_config_raise(kw):
-    with pytest.raises(NotImplementedError, match="mesh"):
-        get_backend("cuda", CFG, device="cpu", **kw)
+@pytest.mark.parametrize("shape", [(2, 1), (1, 2)])
+def test_mesh_routes_through_the_sharded_fit(jax_fitted, shape):
+    """``CudaBackend(mesh=, shard_config=)`` on a 2-entry CPU mesh fits
+    through the sharded route: a series split is the meshless fit's bits,
+    a time split (named by ``shard_config``) its losses at the reference's
+    mesh bound (rtol 2e-3, atol 2e-3)."""
+    from tsspark_tpu_torch.config import ShardingConfig
+    from tsspark_tpu_torch.parallel.mesh import make_mesh
+
+    t, y, _ = jax_fitted
+    solver = SolverConfig(max_iters=25)
+    plain = get_backend("cuda", CFG, solver, device="cpu").fit(t, y)
+    mesh = make_mesh(*shape, devices=["cpu", "cpu"])
+    got = get_backend(
+        "cuda", CFG, solver, device="cpu", mesh=mesh,
+        shard_config=ShardingConfig(time_axis="time")).fit(t, y)
+    if shape[1] == 1:
+        assert torch.equal(got.theta, plain.theta)
+        np.testing.assert_array_equal(got.loss, plain.loss)
+    else:
+        np.testing.assert_allclose(got.loss, plain.loss, rtol=2e-3,
+                                   atol=2e-3)
 
 
 def test_prometheus_text_equals_the_jax_packages():

@@ -1,9 +1,7 @@
 """CUDA backend: the batched fit and forecasts, chunked over series to
 bound device memory.
 
-The counterpart of the JAX package's ``TpuBackend`` (without its
-multi-chip ``mesh`` route: ``mesh=`` or ``shard_config=`` raises
-``NotImplementedError`` until the mesh-resident fit is ported):
+The counterpart of the JAX package's ``TpuBackend``:
 
 * ``fit``: batches larger than one chunk (8,192 series by default) are
   fitted chunk by chunk, every chunk padded to a power of two (32-row
@@ -29,6 +27,19 @@ multi-chip ``mesh`` route: ``mesh=`` or ``shard_config=`` raises
   (``scratch_dir``, ``phase1_iters``, ``retry_policy``, ...); an
   ineligible batch falls back to the in-process fit with one warning
   naming the failed checks.
+* ``mesh=`` (a ``parallel.mesh.Mesh``): every chunk's solve runs
+  through the sharded fit (``parallel.sharding.fit_sharded_packed`` on a
+  packable batch, else ``fit_sharded``): series-axis data parallelism
+  and, per ``shard_config``, time-axis sequence parallelism.  The warm
+  start is computed inside the sharded fit, over each series shard's
+  rows.  Contract: on a series-only mesh each shard runs the one-device
+  program over its rows, so a row's result is the meshless fit's when
+  the shard width gives the row the same bits (on the CPU, measured:
+  bitwise); a time-sharded fit adds each block's partial sums in another
+  float32 order and is held to the meshless fit at tolerance (losses at
+  rtol 2e-3, atol 2e-3, the reference's own ``tests/test_sharding.py``
+  bound).  ``iter_segment`` with a mesh raises, and ``resilient=True``
+  counts a mesh as ineligible.
 * ``predict`` / ``components``: a batch larger than one chunk streams
   through the model in fixed-size chunks (the last padded by repeating a
   real row, whose outputs are discarded), each chunk seeded with its own
@@ -92,7 +103,7 @@ _RESILIENT_GATE_WARNED = False
 _RESILIENT_FALLBACK_WARNED = False
 
 
-def _resilient_ineligibility(init, conditions, packable):
+def _resilient_ineligibility(init, conditions, packable, mesh=None):
     """Human-readable list of the eligibility checks a resilient=True fit
     failed (empty = eligible for the worker path)."""
     failed = []
@@ -101,10 +112,27 @@ def _resilient_ineligibility(init, conditions, packable):
     if conditions is not None:
         failed.append("conditional-seasonality data (conditions=) was "
                       "passed")
+    if mesh is not None:
+        failed.append("the backend is mesh-sharded (mesh=)")
     if not packable:
         failed.append("the batch is not packable (needs a shared 1-D ds "
                       "grid and an exact 0/1 mask)")
     return failed
+
+
+def _mesh_series_axis(mesh, shard_config=None) -> str:
+    """The mesh axis that shards the series dimension: the config's
+    declared name when given; else "series" wherever it appears, with
+    only "time" named the first non-"time" axis, otherwise the first
+    axis."""
+    if shard_config is not None:
+        return shard_config.series_axis
+    names = mesh.axis_names
+    if "series" in names:
+        return "series"
+    if "time" in names and len(names) > 1:
+        return next(n for n in names if n != "time")
+    return names[0]
 
 
 def _slice_repeat_pad(a, lo: int, hi: int, c: int):
@@ -275,17 +303,20 @@ class CudaBackend(ForecastBackend):
         returned FitState as ``state.perf``.  A timed dispatch waits for
         the device, so leave it None where latency matters.
 
-        ``mesh`` / ``shard_config``: the multi-device route, not ported
-        yet (the mesh-resident fit); anything but None raises.
+        ``mesh`` (``parallel.mesh.Mesh``) routes every chunk's solve
+        through the sharded fit (see the module docstring);
+        ``shard_config`` (``ShardingConfig``) names its axes, by default
+        taken from the mesh (series first, an axis named "time" or the
+        other one for time).  Incompatible with ``iter_segment``.
         """
-        if mesh is not None or shard_config is not None:
-            raise NotImplementedError(
-                "CudaBackend(mesh=..., shard_config=...): the mesh-sharded "
-                "fit (the mesh-resident slice: parallel/mesh.py, "
-                "resident.py) is not ported yet; use the single-device fit "
-                "or resilient=True"
+        if mesh is not None and iter_segment:
+            raise ValueError(
+                "CudaBackend(mesh=...) does not support iter_segment: the "
+                "sharded solve runs as one solve per series shard"
             )
         super().__init__(*args, **kwargs)
+        self.mesh = mesh
+        self.shard_config = shard_config
         self.perf = perf
         self.resilient = resilient
         self.resilient_opts = dict(resilient_opts or {})
@@ -311,7 +342,8 @@ class CudaBackend(ForecastBackend):
             chunk_size=self.chunk_size, device=self.device,
             iter_segment=self.iter_segment, on_segment=self.on_segment,
             length_buckets=self.length_buckets, rescue=self.rescue,
-            compact=self.compact, perf=self.perf,
+            compact=self.compact, perf=self.perf, mesh=self.mesh,
+            shard_config=self.shard_config,
         )
         opts.update(kw)
         sub = CudaBackend(self.config, solver_config or self.solver_config,
@@ -319,6 +351,16 @@ class CudaBackend(ForecastBackend):
         if share_stages:
             sub._model.stages = sub.stages = self.stages
         return sub
+
+    def _compact_multiple(self) -> int:
+        """Series-axis shard count a compacted width must divide into (1
+        off-mesh), the ``multiple`` of ``parallel.sharding.
+        compacted_width``; the same axis ``_fit_sharded_chunk`` splits."""
+        if self.mesh is None:
+            return 1
+        return int(self.mesh.shape[_mesh_series_axis(
+            self.mesh, self.shard_config
+        )])
 
     def _segmented(self) -> bool:
         return bool(self.iter_segment
@@ -385,7 +427,7 @@ class CudaBackend(ForecastBackend):
             init=None, conditions=None, reg_u8_cols=None) -> FitState:
         """Fit a (B, T) batch of series; returns a FitState on the host."""
         if self.resilient:
-            if (init is None and conditions is None
+            if (init is None and conditions is None and self.mesh is None
                     and packable_batch(ds, mask)):
                 return self._attach_perf(self._fit_resilient(
                     ds, y, mask, cap, floor, regressors))
@@ -396,7 +438,7 @@ class CudaBackend(ForecastBackend):
             if not _RESILIENT_FALLBACK_WARNED:
                 _RESILIENT_FALLBACK_WARNED = True
                 failed = _resilient_ineligibility(
-                    init, conditions, packable_batch(ds, mask))
+                    init, conditions, packable_batch(ds, mask), self.mesh)
                 warnings.warn(
                     "CudaBackend(resilient=True): this fit is INELIGIBLE "
                     "for the process-isolated worker path and falls back "
@@ -498,8 +540,10 @@ class CudaBackend(ForecastBackend):
             },
             reg_u8_cols=u8,
         )
-        warm = bkr.fit(ds2, y[idx], init=_rows(state.theta, idx), **kw)
-        fresh = bkr.fit(ds2, y[idx], **kw)
+        # Both starts on one prep and pack of the stuck rows: the warm
+        # start from their stuck point, then the ridge init.
+        warm, fresh = bkr._fit_main(ds2, y[idx], init=_rows(state.theta, idx),
+                                    starts=(None,), **kw)
         # Keep-best with a margin, incumbents first: a restart that merely
         # ties on loss must not basin-hop the parameters.
         redo = select_better_state(warm, fresh, margin=KEEP_BEST_MARGIN)
@@ -512,7 +556,10 @@ class CudaBackend(ForecastBackend):
 
     def _fit_main(self, ds, y, mask=None, cap=None, floor=None,
                   regressors=None, init=None, conditions=None,
-                  reg_u8_cols=None):
+                  reg_u8_cols=None, starts=()):
+        """The chunked fit.  ``starts``: further starts solved on each
+        chunk's one prep after ``init``'s (``ProphetModel.fit``); with
+        them the result is one FitState a start, and no length buckets."""
         # Host numpy end to end until each chunk's copy to the device.
         y = np.asarray(y)
         ds = np.asarray(ds)
@@ -527,7 +574,7 @@ class CudaBackend(ForecastBackend):
         # Ragged-length bucketing (shared-grid batches only).  Masked cells
         # are exact zeros in every reduction, so this changes results only
         # at float32 reduction-order level.
-        if ds.ndim == 1:
+        if ds.ndim == 1 and not starts:
             plan = self._plan_length_buckets(y, mask)
             if plan is not None:
                 sub = self._sub_backend(share_stages=True, length_buckets=1,
@@ -554,7 +601,7 @@ class CudaBackend(ForecastBackend):
         if b <= c:
             return self._fit_padded(
                 ds, y, mask, cap, floor, regressors, init, conditions, c,
-                u8,
+                u8, starts,
             )
         states = []
         for lo in range(0, b, c):
@@ -568,12 +615,15 @@ class CudaBackend(ForecastBackend):
                     ds if ds.ndim == 1 else ds[lo:hi],
                     y[lo:hi], sl(mask), sl(cap), sl(floor), sl(regressors),
                     sl(init), slc(conditions), c, u8,
+                    tuple(sl(st) for st in starts),
                 )
             )
+        if starts:
+            return [_concat_states(list(per)) for per in zip(*states)]
         return _concat_states(states)
 
     def _fit_padded(self, ds, y, mask, cap, floor, regressors, init,
-                    conditions, c, reg_u8_cols=None):
+                    conditions, c, reg_u8_cols=None, starts=()):
         b = y.shape[0]
         if b < c:
             if ds.ndim == 2:
@@ -596,6 +646,7 @@ class CudaBackend(ForecastBackend):
             regressors = (_pad_batch(regressors, c)
                           if regressors is not None else None)
             init = _pad_batch(init, c)
+            starts = tuple(_pad_batch(st, c) for st in starts)
             if conditions is not None:
                 conditions = {
                     k: _pad_batch(v, c) for k, v in conditions.items()
@@ -604,15 +655,77 @@ class CudaBackend(ForecastBackend):
         # device work.
         timed = (self.perf.dispatch(c, live=b, kind="chunk")
                  if self.perf is not None else contextlib.nullcontext())
-        with timed:
-            state = self._model.fit(
-                ds, y, mask=mask, cap=cap, floor=floor,
-                regressors=regressors, init=init,
-                iter_segment=self.iter_segment,
-                on_segment=self.on_segment, conditions=conditions,
-                reg_u8_cols=reg_u8_cols, compact=self.compact,
+        if self.mesh is not None:
+            with timed:
+                out = [self._fit_sharded_chunk(
+                    ds, y, mask, cap, floor, regressors, init_i, conditions,
+                    reg_u8_cols) for init_i in (init, *starts)]
+        else:
+            with timed:
+                out = self._model.fit(
+                    ds, y, mask=mask, cap=cap, floor=floor,
+                    regressors=regressors, init=init,
+                    iter_segment=self.iter_segment,
+                    on_segment=self.on_segment, conditions=conditions,
+                    reg_u8_cols=reg_u8_cols, compact=self.compact,
+                    starts=starts,
+                )
+            out = out if starts else [out]
+        out = [_take_rows(st, slice(0, b)) for st in out]
+        return out if starts else out[0]
+
+    def _fit_sharded_chunk(self, ds, y, mask, cap, floor, regressors,
+                           init, conditions, reg_u8_cols=None) -> FitState:
+        """One padded chunk through the sharded fit.  Shared-grid batches
+        with an exact 0/1 mask ride the packed transit
+        (``fit_sharded_packed``), the rest the plain feed
+        (``fit_sharded``); ``init`` is the warm start, else the ridge init
+        runs inside each series shard's solve."""
+        from tsspark_tpu_torch.config import ShardingConfig
+        from tsspark_tpu_torch.models.prophet.design import (
+            pack_fit_data,
+            prepare_fit_data,
+        )
+        from tsspark_tpu_torch.parallel import sharding as sharding_mod
+
+        with self.stages.span("prep"):
+            data, meta = prepare_fit_data(
+                ds, y, self.config, mask=mask, cap=cap, floor=floor,
+                regressors=regressors, conditions=conditions,
             )
-        return _take_rows(state, slice(0, b))
+        if self.shard_config is not None:
+            shard_cfg = self.shard_config
+        else:
+            series_ax = _mesh_series_axis(self.mesh)
+            rest = [n for n in self.mesh.axis_names if n != series_ax]
+            time_ax = "time" if "time" in rest else (rest[0] if rest
+                                                     else None)
+            shard_cfg = ShardingConfig(series_axis=series_ax,
+                                       time_axis=time_ax)
+        with self.stages.span("solve"):
+            if packable_batch(ds, data.mask):
+                packed, u8 = pack_fit_data(
+                    data, meta, ds, reg_u8_cols=reg_u8_cols,
+                    collapse_cap=self.config.growth != "logistic",
+                )
+                res = sharding_mod.fit_sharded_packed(
+                    packed, u8, init, self.config, self.solver_config,
+                    self.mesh, shard_cfg,
+                )
+            else:
+                res = sharding_mod.fit_sharded(
+                    data, init, self.config, self.solver_config,
+                    self.mesh, shard_cfg,
+                )
+        if self.on_segment is not None:
+            self.on_segment()
+        return FitState(
+            theta=res.theta, meta=meta, loss=res.f.numpy(),
+            grad_norm=res.grad_norm.numpy(),
+            converged=res.converged.numpy().astype(bool),
+            n_iters=res.n_iters.numpy().astype(np.int32),
+            status=res.status.numpy().astype(np.int32),
+        )
 
     def fit_twophase(self, ds, y, mask=None, cap=None, floor=None,
                      regressors=None, init=None, conditions=None,

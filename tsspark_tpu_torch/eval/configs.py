@@ -370,6 +370,10 @@ def main():
     ap.add_argument("--backend", default="cuda")
     ap.add_argument("--device", default=None)
     args = ap.parse_args()
+    if args.device is None:
+        from tsspark_tpu_torch.utils.platform import honor_env_platforms
+
+        args.device = str(honor_env_platforms())
     key = args.which
     print(json.dumps({f"config{key}": RUNNERS[key](args.backend, args.scale,
                                                    args.device)}))

@@ -231,8 +231,13 @@ def main(argv=None):
                          "(full batch vs oracle subsample)")
     ap.add_argument("--oracle-n", type=int, default=512)
     ap.add_argument("--device", default=None,
-                    help="the batched leg's device (default: the card)")
+                    help="the batched leg's device (default: "
+                         "$TSSPARK_DEVICE, else the card)")
     args = ap.parse_args(argv)
+    if args.device is None:
+        from tsspark_tpu_torch.utils.platform import honor_env_platforms
+
+        args.device = str(honor_env_platforms())
 
     from tsspark_tpu_torch.config import NUMERICS_REV
     from tsspark_tpu_torch.obs import context as obs

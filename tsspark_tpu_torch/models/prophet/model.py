@@ -14,7 +14,7 @@ from the draws through K6.  Everything runs on the card unless
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -88,12 +88,15 @@ def fit_core(
     config: ProphetConfig,
     solver_config: SolverConfig,
     stages: Optional[StageClock] = None,
+    objective=None,
 ) -> lbfgs.LbfgsResult:
     """The batched MAP solve on device-resident ``data``.
 
     ``theta0=None`` computes the warm start (closed-form ridge by default,
     init.py).  ``stages`` times "init" (warm start and metric) and
-    "solve".
+    "solve".  ``objective``: the solver's ``(fun, fval, fan)`` in place
+    of ``_objective(data, config)`` (the time-sharded fit's block sums);
+    the warm start and the metric are still computed over ``data``.
     """
     stages = stages if stages is not None else StageClock()
     dev = data.y.device
@@ -108,7 +111,8 @@ def fit_core(
         )
         _sync(dev)
     with stages.span("solve"):
-        fun, fval, fan = _objective(data, config)
+        fun, fval, fan = (_objective(data, config) if objective is None
+                          else objective)
         res = lbfgs.minimize(fun, theta0, solver_config, fun_value=fval,
                              precond=precond, fan_value=fan)
         _sync(dev)
@@ -427,10 +431,15 @@ class ProphetModel:
         compact: bool = False,
         compact_floor: int = 32,
         compact_multiple: int = 1,
+        starts: Sequence = (),
     ) -> FitState:
         """Fit every series in the (B, T) batch.
 
         ``init`` warm-starts the solver from previous parameters (B, P).
+        ``starts``: further starts (each None for the ridge init, or a
+        (B, P) array) solved on the same prepared and packed batch after
+        ``init``'s; when given, ``fit`` returns the list of FitStates,
+        ``init``'s first, each the bits a call of its own would give.
 
         ``iter_segment`` splits the solve into segments of at most that
         many iterations with the full solver state carried across — the
@@ -468,21 +477,28 @@ class ProphetModel:
                 )
             with self.stages.span("to_device"):
                 packed = packed_to_device(packed, self.device)
-                theta0 = None if init is None else self._theta_init(init)
                 _sync(self.device)
-            theta, stats = fit_core_packed(
-                packed, theta0, self.config, self.solver_config,
-                reg_u8_cols=u8, stages=self.stages,
-            )
+            states = []
+            for init_i in (init, *starts):
+                with self.stages.span("to_device"):
+                    theta0 = (None if init_i is None
+                              else self._theta_init(init_i))
+                theta, stats = fit_core_packed(
+                    packed, theta0, self.config, self.solver_config,
+                    reg_u8_cols=u8, stages=self.stages,
+                )
+                if on_segment is not None:
+                    on_segment()
+                with self.stages.span("to_host"):
+                    states.append(fitstate_from_packed(theta.cpu(), stats,
+                                                       meta))
             del packed
-            if on_segment is not None:
-                on_segment()
-            with self.stages.span("to_host"):
-                return fitstate_from_packed(theta.cpu(), stats, meta)
-        return self._fit_prepared(
-            data, meta, init, iter_segment, on_segment, compact=compact,
+            return states if starts else states[0]
+        states = [self._fit_prepared(
+            data, meta, init_i, iter_segment, on_segment, compact=compact,
             compact_floor=compact_floor, compact_multiple=compact_multiple,
-        )
+        ) for init_i in (init, *starts)]
+        return states if starts else states[0]
 
     def _theta_init(self, init) -> torch.Tensor:
         return torch.as_tensor(init).to(self.device, torch.float32)

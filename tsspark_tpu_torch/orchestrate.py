@@ -45,7 +45,8 @@ Public surface:
                            own scratch / data spill.
   fit_worker / prep_worker -- child entry points
                            (``python -m tsspark_tpu_torch.orchestrate
-                           --_fit``).
+                           --_fit``); ``--_resident`` runs
+                           ``resident.resident_worker``.
 """
 
 from __future__ import annotations
@@ -2414,12 +2415,20 @@ def _worker_main(argv) -> int:
     # No default: a worker without a request runs on the card or raises.
     ap.add_argument("--device", default=None)
     a = ap.parse_args(argv)
+    if a.device is None:
+        # The environment's device choice ($TSSPARK_DEVICE), as the
+        # reference's children honour JAX_PLATFORMS; unset, the card.
+        from tsspark_tpu_torch.utils.platform import honor_env_platforms
+
+        a.device = str(honor_env_platforms())
     if mode == "--_resident":
-        # The mesh-resident single-program mode is a later slice of the
-        # port; it must never silently run something else in its place.
-        print("tsspark_tpu_torch.orchestrate: --_resident (the "
-              "mesh-resident fit) is not ported yet", file=sys.stderr)
-        return 2
+        # Mesh-resident single-program mode (tsspark_tpu_torch.resident):
+        # the whole fit as in-process sharded waves, chunk files landed
+        # through the same save_chunk_atomic / lease protocol, so this
+        # child is killed and resumed exactly like a chunk-file worker.
+        from tsspark_tpu_torch import resident
+
+        return resident.resident_worker(a)
     return {"--_fit": fit_worker, "--_prep": prep_worker}[mode](a)
 
 
