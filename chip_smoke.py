@@ -43,8 +43,10 @@ the script exits non-zero without printing the final line:
    prepared under the default ``ProphetConfig`` (26 Fourier columns, 25
    changepoints, 256 samples), parameters drawn from ``--seed``,
    published into a parameter registry at the top of the run
-   (``serve_registry``, beside the kernels' build; the registry lives
-   until phase serve_scale) and served by a
+   (``serve_registry``, from phase fit's generated series without their
+   regressors, the same bits; beside the kernels' build, as every
+   generator is, on ``setup_data``'s threads; the registry lives until
+   phase serve_scale) and served by a
    ``PredictionEngine`` on the card: four requests (all series
    deterministic, 4,096 sampled, all sampled, a cached repeat) and one
    in-sample + 28-day ``backend.predict`` over the shared calendar.
@@ -249,8 +251,39 @@ the script exits non-zero without printing the final line:
    changed ones recomputed.  Then a 1% cycle's child (``python -m
    tsspark_tpu_torch.refit``, run beside cycle 1's checks) killed at the
    delta publish and resumed here with no new fit, landing the child's
-   bits.
-20. frontend — the user front end on phase fit's batch, config 3's
+   bits.  Its plane and registry (version 3 active) go on to phase sched.
+20. sched — the always-on refit loop and the alert stream on phase
+   refit's plane and registry (config 3 without regressors, planes at
+   horizon 7, the ADVI posterior): (a) six deltas of 5% churn (1,525 rows
+   each, ``plane.land_synthetic_delta``) landed 1 s apart by a thread,
+   through ``sched.RefitScheduler(pipeline=True, speculate=True)`` in
+   this process on an explicit one-device mesh of cuda:0, its flips
+   through a ``PredictionEngine`` on the card (prefetch, the 256 hot
+   series materialized, activate), freshness probed by served requests;
+   launch counts set to 0 just before, read just after; each refit
+   stage's walls, the loop's busy union, freshness p50 / p95,
+   speculation, ``fit_path``.  Required: the final version covers every
+   delta, zero wrong-version answers, nothing pending, on every hop the
+   unchanged rows' snapshot, forecast and quantile bytes the base's, K1,
+   K3 (gradient, value, draw stack), K4 and K7 launched.  (b) The same
+   deltas on a copy taken first, ``RefitScheduler(pipeline=False)`` run
+   to each stamp (a) published at: the same plans and versions, the
+   final snapshot, forecast and quantile planes and the posterior
+   bitwise (a)'s; on the last cycle's wave (8,192 rows) K3 (both modes)
+   and K4 by GAP_RULE (a dropped cell must fail), K1 on its forecast
+   plane chunk against the plain version, its changed rows' posterior
+   bitwise ``fit_advi`` run directly.  (c) Beside (b): ``python -m
+   tsspark_tpu_torch.sched`` on the card (the one-card default, the file
+   protocol) over (a)'s world after one more delta, killed at an armed
+   ``sched_flip`` exit, a successor resuming its pinned plan with zero
+   fit dispatches and one cycle, the child's bits; then an
+   ``AlertStream`` at horizon 1 over (a)'s plane and engine (interval
+   mode off the quantile plane, every delta), a second stream's bytes, a
+   scorer killed at each ``alert_publish`` point healed to the same
+   bytes, the sink's keys each once, and ``python -m
+   tsspark_tpu_torch.alerts --poll-once`` on the card writing the same
+   records.
+21. frontend — the user front end on phase fit's batch, config 3's
    model as a user builds it for a long frame (the holiday a ``Holiday``
    from a holidays frame, after the price and promo columns): (a)
    ``Forecaster.fit`` of a long frame of the first 8,192 series (one
@@ -278,7 +311,7 @@ the script exits non-zero without printing the final line:
    process, each child loading the built kernel library (no rebuild).
    Launch counts (K1, K2, K3 per mode, K4, K6) set to 0 before each leg,
    read after; walls (pivot, fit, predict, scatter to long), peak memory.
-21. serve_scale — serving at scale on phase serve's registry (30,490
+22. serve_scale — serving at scale on phase serve's registry (30,490
    series x 1,941 days): (a) the in-process loadgen (``python -m
    tsspark_tpu_torch.serve --loadgen``'s ``_loadgen``), 10,000 requests of
    the JAX package's mix (Zipf over series, 1-8 series a request,
@@ -314,7 +347,7 @@ the script exits non-zero without printing the final line:
    (d) ``python -m tsspark_tpu_torch.serve --registry`` as a child
    process beside (c): three requests bitwise the engine's, stats,
    activate, rollback.
-22. kernels — each kernel at its main path's shapes, on the main path's
+23. kernels — each kernel at its main path's shapes, on the main path's
    inputs (K3 and K4 at 8192x1746 on config 3's first chunk; K3's
    logistic branch at 8192x1080; K3's trial-stack layout on config 4's
    21 x 8192 line-search stack and on one of flat growth over config 3's
@@ -331,7 +364,8 @@ the script exits non-zero without printing the final line:
    and K4 their launches and checks on phases stream_fleet_m5, eval12,
    planes and dataplane; K3 and K4 their launches in phase resilient's
    worker processes and on phase resident's resume, K1, K3 and K7 theirs
-   in phase refit's process; K1-K4 and K6 their launches on phase frontend, and
+   in phase refit's process, K1, K3, K4 and K7 theirs on phase sched's
+   stream (``launches_sched``) with its wave's and chunk's checks; K1-K4 and K6 their launches on phase frontend, and
    K3 and K4 their checks on its CV buckets; K1 and K2 their launches on
    phase serve_scale's loadgen and replicas, their checks and times at
    the pool's shapes.
@@ -1338,23 +1372,29 @@ def phase_fan(rng, device) -> dict:
     return out
 
 
-def serve_registry(args, root: str) -> dict:
+def serve_registry(args, root: str, batch3) -> dict:
     """The serving path's registry at the M5 shape, published as version 1
     into ``root`` at the top of the run (host work beside the kernels'
-    build): ``m5_like(30490, 1941)`` prepared under the default
-    ``ProphetConfig``, parameters drawn from ``--seed``.  Phase serve
-    serves it, phase serve_scale serves it again; ``root`` lives until
-    serve_scale ends."""
+    build): ``m5_like(30490, 1941, with_regressors=False)`` prepared under
+    the default ``ProphetConfig``, parameters drawn from ``--seed``.  That
+    batch is ``batch3`` (``m5_like(30490, 1941)``) without its regressors:
+    the generator draws the regressors' values either way, so its series
+    are the same bits (``tests/test_torch_room.py``); they are copied, not
+    drawn again.  Phase serve serves it, phase serve_scale serves it
+    again; ``root`` lives until serve_scale ends."""
     from tsspark_tpu_torch.carry import fitstate_from_numpy
     from tsspark_tpu_torch.config import ProphetConfig
-    from tsspark_tpu_torch.data.datasets import m5_like
-    from tsspark_tpu_torch.models.prophet.design import prepare_fit_data
+    from tsspark_tpu_torch.data.datasets import SeriesBatch
+    from tsspark_tpu_torch.models.prophet.design import (
+        prepare_fit_data_blocks)
     from tsspark_tpu_torch.serve import ParamRegistry
 
     cfg = ProphetConfig()
     t0 = time.perf_counter()
-    batch = m5_like(FULL_SERIES, FULL_DAYS, seed=2, with_regressors=False)
-    _, meta = prepare_fit_data(batch.ds, batch.y, cfg)
+    batch = SeriesBatch(ds=batch3.ds.copy(), y=batch3.y.copy(),
+                        mask=batch3.mask.copy(),
+                        series_ids=batch3.series_ids.copy())
+    _, meta = prepare_fit_data_blocks(batch.ds, batch.y, cfg)
     prep_s = time.perf_counter() - t0
     rng = np.random.default_rng(args.seed)
     n = FULL_SERIES
@@ -4332,6 +4372,7 @@ def phase_uncertainty(serve, device, parity, root=None) -> dict:
     from tsspark_tpu_torch.models.prophet.design import (
         fitdata_to_device,
         prepare_fit_data,
+        prepare_fit_data_blocks,
     )
     from tsspark_tpu_torch.ops import hmc
     from tsspark_tpu_torch.serve import (
@@ -4374,8 +4415,8 @@ def phase_uncertainty(serve, device, parity, root=None) -> dict:
         state = stage("map_fit", bk.fit, ds_fit, y_fit, mask=m_fit)
         reg = ParamRegistry(root, cfg)
         v = stage("publish", reg.publish, state, ids, step=np.ones(n))
-        data_np, _ = stage("advi_prep", prepare_fit_data, ds_fit, y_fit,
-                           cfg, mask=m_fit)
+        data_np, _ = stage("advi_prep", prepare_fit_data_blocks, ds_fit,
+                           y_fit, cfg, mask=m_fit)
         theta0 = np.nan_to_num(state.theta.cpu().numpy().astype(np.float32))
         # The CPU ADVI parity fit (64 series, held below) runs on a
         # parity worker beside the card's ADVI and the plane's publish.
@@ -6475,7 +6516,9 @@ def phase_refit(device, hand) -> dict:
     once the spill of cycle 1's reference is rebuilt, beside cycle 1's
     checks) killed at the delta publish (rc RF_KILL_RC, the active
     version untouched), resumed here with no new fit, landing the
-    child's bits."""
+    child's bits.  The plane dataset and the registry (version 3 active)
+    are handed on to phase sched (``res["handoff"]``: its ``scratch``
+    is the caller's to remove); a failed phase removes them."""
     import dataclasses
     import shutil
     import warnings
@@ -6488,7 +6531,8 @@ def phase_refit(device, hand) -> dict:
     from tsspark_tpu_torch.data import plane
     from tsspark_tpu_torch.data.datasets import SeriesBatch
     from tsspark_tpu_torch.eval import configs
-    from tsspark_tpu_torch.models.prophet.design import prepare_fit_data
+    from tsspark_tpu_torch.models.prophet.design import (
+        prepare_fit_data, prepare_fit_data_blocks)
     from tsspark_tpu_torch.resilience import faults
     from tsspark_tpu_torch.serve import ForecastCache, ParamRegistry
     from tsspark_tpu_torch.serve import fplane, snapplane
@@ -6525,8 +6569,8 @@ def phase_refit(device, hand) -> dict:
         bk = get_backend("cuda", cfg, SolverConfig(), device=device)
         fp1 = clock("fplane_v1", fplane.maybe_publish, reg, v1, bk,
                     horizons=RF_HORIZONS)
-        data1, _ = clock("advi_v1_prep", prepare_fit_data, ds, d["y"], cfg,
-                         mask=d["mask"])
+        data1, _ = clock("advi_v1_prep", prepare_fit_data_blocks, ds,
+                         d["y"], cfg, mask=d["mask"])
         advi_cfg = AdviConfig()
         _zero_kernel_counts()
         post = clock("advi_v1", advi_mod.fit_advi, v1_state.theta, data1,
@@ -6701,6 +6745,9 @@ def phase_refit(device, hand) -> dict:
                      horizons=RF_HORIZONS, **dev_kw)
         v3 = cyc2.get("version")
         got3, _ = reg.load(v3, fallback=False).take(rows2)
+        handoff = {"scratch": scratch, "dset": dset, "registry": reg.root,
+                   "cfg": cfg, "ids": ids, "advi_cfg": advi_cfg,
+                   "version": v3}
         res["cycle2"] = {
             "rows": int(len(rows2)), "child_rc": kid.returncode,
             "active_after_kill": active_after_kill,
@@ -6768,8 +6815,10 @@ def phase_refit(device, hand) -> dict:
                 and all(c2["same_bits_as_child"].values())
                 and all(c2["unchanged_same"].values()),
                 f"the resumed cycle: {c2}")
+        res["handoff"] = handoff
     finally:
-        shutil.rmtree(scratch, ignore_errors=True)
+        if "handoff" not in res:
+            shutil.rmtree(scratch, ignore_errors=True)
     return res
 
 
@@ -6799,6 +6848,592 @@ def add_resident_refit(kernels, rd, rf) -> None:
             k["launches_refit"] = rf["cycle1_launches_in_process"]["forward"]
         elif name == "advi":
             k["launches_refit"] = rf["cycle1_launches_in_process"]["advi"]
+
+
+SC_DELTAS = 6             # the stream's deltas (DEFAULT_FRESHNESS_DELTAS)
+SC_CHURN = 0.05           # each delta's churn (DEFAULT_FRESHNESS_CHURN)
+SC_GAP_S = 1.0            # between two landings
+SC_FLIP_RC = 29           # the daemon child's exit at sched_flip
+SC_ALERT_H = 1            # the alert stream's horizon
+SC_QUIET_K = 1e9          # the data-liveness multiple: quiet (CPU-tested)
+SC_RUN_S = 600.0          # every loop's bound
+SC_SEED = 23              # off_optimum's seed for the wave's K3/K4 check
+
+SC_CHILD_TIMEOUT_S = 600.0
+
+
+class _StageWalls:
+    """Per-call walls of the refit stages the scheduler drives (detect =
+    ``draft_plan``, ``ensure_spill``, ``fit_changed``, ``publish_plan``),
+    recorded by wrapping the ``refit`` module's functions while a loop
+    runs (the scheduler calls them through the module)."""
+
+    NAMES = {"draft_plan": "detect", "ensure_spill": "spill",
+             "fit_changed": "fit", "publish_plan": "publish"}
+
+    def __init__(self):
+        self.calls = []
+        self._lock = threading.Lock()
+        self._saved = {}
+
+    def __enter__(self):
+        from tsspark_tpu_torch import refit
+
+        for fn, stage in self.NAMES.items():
+            real = getattr(refit, fn)
+            self._saved[fn] = real
+
+            def timed(*a, _real=real, _stage=stage, **k):
+                t0 = time.time()
+                try:
+                    return _real(*a, **k)
+                finally:
+                    with self._lock:
+                        self.calls.append(
+                            {"stage": _stage, "t0": t0, "s": time.time() - t0,
+                             "thread": threading.current_thread().name})
+            setattr(refit, fn, timed)
+        return self
+
+    def __exit__(self, *exc):
+        from tsspark_tpu_torch import refit
+
+        for fn, real in self._saved.items():
+            setattr(refit, fn, real)
+        return False
+
+
+def _version_bytes(vdir, prefixes) -> dict:
+    out = {}
+    for name in sorted(os.listdir(vdir)):
+        if name.startswith(prefixes) and name.endswith(".npy"):
+            with open(os.path.join(vdir, name), "rb") as fh:
+                out[name] = fh.read()
+    return out
+
+
+def _sched_versions(reg, after: int) -> list:
+    """The versions published after ``after``: (version, base, stamp,
+    changed rows), ascending."""
+    out = []
+    for v in sorted(reg.versions()):
+        if v <= after:
+            continue
+        info = reg.delta_info(v) or {}
+        out.append({"version": int(v), "base": info.get("base_version"),
+                    "stamp": int(reg.version_stamp(v)),
+                    "changed": np.asarray(info.get("changed_rows", []),
+                                          np.int64)})
+    return out
+
+
+def sc_alerts(dset, eng, root, cli_env, cpu: bool = False) -> dict:
+    """Phase sched's leg (c) alerts: an ``AlertStream`` at SC_ALERT_H over
+    the stream's plane and engine scoring every landed delta (interval
+    mode); a second stream in a fresh directory; a scorer killed at each
+    ``alert_publish`` point and healed; the sink's keys; and the CLI
+    (``python -m tsspark_tpu_torch.alerts --poll-once``, started first, on
+    the card) scoring the same deltas into a directory of its own."""
+    from tsspark_tpu_torch.alerts import JsonlSink
+    from tsspark_tpu_torch.alerts import stream as stream_mod
+    from tsspark_tpu_torch.alerts.stream import AlertStream
+    from tsspark_tpu_torch.data import plane
+    from tsspark_tpu_torch.resilience import faults
+
+    n_seq = plane.delta_seq(dset)
+    here = os.path.dirname(os.path.abspath(__file__))
+    cli_dir = os.path.join(root, "alerts_cli")
+    cli_log = os.path.join(root, "alerts_cli.log")
+    t_cli = time.perf_counter()
+    with open(cli_log, "w") as fh:
+        cli = subprocess.Popen(
+            [sys.executable, "-m", "tsspark_tpu_torch.alerts", "--data",
+             dset, "--registry", eng.registry.root, "--alerts-dir", cli_dir,
+             "--sink", "jsonl:" + os.path.join(root, "alerts_cli.jsonl"),
+             "--horizon", str(SC_ALERT_H), "--overdue-k", str(SC_QUIET_K),
+             "--poll-once", *(["--device", "cpu"] if cpu else [])],
+            cwd=here, env=cli_env, stdout=fh,
+            stderr=subprocess.STDOUT)
+    try:
+        def stream(name, sink=None):
+            d = os.path.join(root, name)
+            return AlertStream(
+                d, dset, eng, sink or JsonlSink(d + "_sink.jsonl"),
+                horizon=SC_ALERT_H, overdue_k=SC_QUIET_K)
+
+        def records(name):
+            d = os.path.join(root, name)
+            out = {}
+            for q in range(1, n_seq + 1):
+                with open(os.path.join(d, f"alertrec_{q:06d}.json"),
+                          "rb") as fh:
+                    out[q] = fh.read()
+            return out
+
+        t0 = time.perf_counter()
+        first = stream("log")
+        polled = first.poll_once()
+        score_s = time.perf_counter() - t0
+        recs = [first.record_ok(q) for q in range(1, n_seq + 1)]
+        want = records("log")
+        stream("again").poll_once()
+        kills = {}
+        for k in range(3):
+            plan = faults.FaultPlan(
+                state_dir=os.path.join(root, f"faults{k}"))
+            plan.fail(stream_mod.ALERT_PUBLISH, after=k, mode="raise",
+                      tag=f"alerts-kill-{k}")
+            os.environ[faults.ENV_VAR] = plan.to_env()
+            try:
+                stream(f"kill{k}").poll_once()
+                raised = False
+            except faults.FaultInjected:
+                raised = True
+            finally:
+                os.environ.pop(faults.ENV_VAR, None)
+            healed = stream(f"kill{k}")
+            healed.poll_once()
+            kills[k] = {"raised": raised,
+                        "scored_seq": healed.scored_seq(),
+                        "delivered_seq": healed.delivered_seq(),
+                        "same_bytes": records(f"kill{k}") == want}
+        sink_keys = [a["key"] for a in
+                     JsonlSink(os.path.join(root, "log_sink.jsonl")).alerts()]
+        fired = [a["key"] for r in recs for a in r["alerts"]]
+        cli.wait(timeout=SC_CHILD_TIMEOUT_S)
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+            cli.wait()
+    with open(cli_log) as fh:
+        cli_out = fh.read()
+    cli_same = (cli.returncode == 0
+                and records("alerts_cli") == want)
+    out = {
+        "deltas": n_seq, "polled": polled, "score_s": score_s,
+        "modes": sorted({r["mode"] for r in recs}),
+        "versions": sorted({r["version"] for r in recs}),
+        "scored_rows": int(sum(r["n_scored"] for r in recs)),
+        "fired": len(fired),
+        "second_stream_same_bytes": records("again") == want,
+        "kills": kills,
+        "sink_each_key_once": (len(sink_keys) == len(set(sink_keys))
+                               and set(sink_keys) == set(fired)),
+        "cli": {"rc": cli.returncode, "same_bytes": cli_same,
+                "wall_s": time.perf_counter() - t_cli,
+                "tail": cli_out[-400:]},
+    }
+    require(out["modes"] == ["interval"] and polled["scored"] == n_seq
+            and polled["watermark"] == n_seq and not polled["stalled"],
+            f"every delta scored in interval mode and delivered: {out}")
+    require(out["second_stream_same_bytes"],
+            "a second stream gives the same canonical bytes")
+    require(all(v["raised"] and v["same_bytes"]
+                and v["scored_seq"] == v["delivered_seq"] == n_seq
+                for v in kills.values()),
+            f"a scorer killed at each alert_publish point heals to the "
+            f"same bytes: {kills}")
+    require(out["sink_each_key_once"] and out["fired"] > 0,
+            "the sink holds each fired key exactly once")
+    require(cli_same, f"the alerts CLI's log: {out['cli']}")
+    return out
+
+
+def sc_wave(data_dir, cfg, n: int):
+    """A cycle's one resident wave as ``resident.run_resident`` packs it:
+    the spill's ``n`` rows padded to RS_CHUNK with inert rows (no
+    regressors: phase refit's model)."""
+    from tsspark_tpu_torch import orchestrate
+    from tsspark_tpu_torch.models.prophet.design import (
+        pack_fit_data, prepare_fit_data)
+
+    ds, d = orchestrate._load_data(data_dir)
+    y_c = orchestrate._pad_chunk_rows(d["y"], 0, n, RS_CHUNK)
+    data, meta = prepare_fit_data(
+        ds, y_c, cfg,
+        mask=orchestrate._chunk_mask(y_c, d["mask"], 0, n, RS_CHUNK))
+    return pack_fit_data(data, meta, ds, reg_u8_cols=(),
+                         collapse_cap=True)[0]
+
+
+def phase_sched(device, hand) -> dict:
+    """The always-on refit loop and the alert stream on phase refit's
+    plane (30,490 series, days [0, 1746) and its two deltas) and registry
+    (version 3 active: snapshot, forecast and ADVI-mode quantile planes
+    at RF_HORIZONS, the ADVI posterior), config 3 without regressors.
+
+    (a) A copy of both is taken; a lander thread lands SC_DELTAS deltas
+    of SC_CHURN churn (``plane.land_synthetic_delta``) SC_GAP_S apart
+    through ``RefitScheduler(pipeline=True, speculate=True)`` in this
+    process on an explicit one-device mesh of cuda:0 (the loop's fit
+    resident), flips through a ``PredictionEngine`` on the card
+    (prefetch, materialize the RF_HOT hot series, activate), freshness
+    probed by served requests.  Launch counts set to 0 just before, read
+    just after.  Required: the final version covers every delta, zero
+    wrong-version answers, nothing pending; on every hop the unchanged
+    rows' snapshot, forecast and quantile bytes are the base's.
+    (b) The same deltas landed on the copy, ``RefitScheduler(
+    pipeline=False)`` run to each stamp (a) published at: the same
+    versions, and the final snapshot, forecast plane, quantile plane and
+    posterior bitwise (a)'s (the check on two threads launching on one
+    card); on the last cycle's wave K3 (both modes) and K4 against their
+    plain versions by GAP_RULE (a dropped cell must fail), K1 on its
+    forecast-plane chunk against its plain version, and its changed
+    rows' posterior bitwise ``fit_advi`` run directly.
+    (c) Beside (b): ``python -m tsspark_tpu_torch.sched`` on the card over
+    (a)'s world after one more delta, killed at an armed ``sched_flip``
+    exit (its rc, the active version untouched, its ``fit_path``: the
+    one-card default), resumed by a successor with zero fit dispatches
+    and one cycle, landing the child's bits; then the alert stream
+    (``sc_alerts``)."""
+    import shutil
+
+    import torch
+
+    from tsspark_tpu_torch import orchestrate, refit, sched
+    from tsspark_tpu_torch.config import SolverConfig
+    from tsspark_tpu_torch.data import plane
+    from tsspark_tpu_torch.eval import configs
+    from tsspark_tpu_torch.kernels import forward as fk
+    from tsspark_tpu_torch.models.prophet.design import (
+        packed_to_device, prepare_fit_data, unpack_fit_data)
+    from tsspark_tpu_torch.models.prophet.predict import (
+        prepare_predict_data)
+    from tsspark_tpu_torch.parallel.mesh import make_mesh
+    from tsspark_tpu_torch.resilience import faults
+    from tsspark_tpu_torch.serve import ForecastCache, ParamRegistry
+    from tsspark_tpu_torch.serve import fplane, snapplane
+    from tsspark_tpu_torch.serve.engine import PredictionEngine
+    from tsspark_tpu_torch.uncertainty import advi as advi_mod
+    from tsspark_tpu_torch.uncertainty import qplane
+
+    t_phase = time.perf_counter()
+    cfg, ids, v0 = hand["cfg"], hand["ids"], int(hand["version"])
+    solver = configs.SOLVER3
+    n = len(ids)
+    root = tempfile.mkdtemp(prefix="sched_", dir=hand["scratch"])
+    mesh_dev = (torch.device("cuda", 0) if device.type == "cuda"
+                else torch.device("cpu"))
+    mesh = make_mesh(1, 1, devices=[mesh_dev])
+    dev_kw = {} if device.type == "cuda" else {"device": "cpu"}
+    res = {"phase": "sched", "series": n, "base_version": v0,
+           "deltas": SC_DELTAS, "churn": SC_CHURN, "gap_s": SC_GAP_S}
+    walls = res["walls_s"] = {}
+    # (b)'s world: copies taken before (a) lands anything.
+    t0 = time.perf_counter()
+    dset, reg = hand["dset"], ParamRegistry(hand["registry"], cfg)
+    dset_b = os.path.join(root, "plane_b", os.path.basename(dset))
+    shutil.copytree(dset, dset_b)
+    shutil.copytree(reg.root, os.path.join(root, "registry_b"))
+    reg_b = ParamRegistry(os.path.join(root, "registry_b"), cfg)
+    walls["copy"] = time.perf_counter() - t0
+    stamp0 = plane.delta_seq(dset)
+
+    # (a) the stream.
+    eng = PredictionEngine(reg, cache=ForecastCache(4 * RF_HOT),
+                           device=device)
+    hot = [str(s) for s in ids[:RF_HOT]]
+    eng.materialize(hot, RF_HORIZONS)
+
+    def flip_fn(v):
+        eng.prefetch(v)
+        eng.materialize(hot, RF_HORIZONS, version=v)
+        reg.activate(v)
+
+    def probe(v):
+        return eng.forecast([hot[0]], RF_HORIZONS[0]).version
+
+    common = dict(chunk=RS_CHUNK, solver_config=solver,
+                  horizons=RF_HORIZONS, mesh=mesh, **dev_kw)
+    loop = sched.RefitScheduler(
+        dset, reg, os.path.join(root, "sched_a"), pipeline=True,
+        speculate=True, flip_fn=flip_fn, freshness_probe=probe, **common)
+    landed = []
+
+    def lander():
+        for _ in range(SC_DELTAS):
+            landed.append(plane.land_synthetic_delta(dset, SC_CHURN))
+            time.sleep(SC_GAP_S)
+
+    lt = threading.Thread(target=lander, name="sched-lander", daemon=True)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    _zero_kernel_counts()
+    t0 = time.perf_counter()
+    with _StageWalls() as sw:
+        lt.start()
+        summary = loop.run(until_stamp=stamp0 + SC_DELTAS,
+                           duration_s=SC_RUN_S)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    walls["stream"] = time.perf_counter() - t0
+    res["launches_sched"] = _kernel_counts()
+    lt.join(timeout=60)
+    hops = _sched_versions(reg, v0)
+    v_final = summary["head_version"]
+    hop_checks = {}
+    for h in hops:
+        keep = np.setdiff1d(np.arange(n), h["changed"])
+        cols = {p: _cols_rows_equal(reg.version_dir(h["base"]),
+                                    reg.version_dir(h["version"]), p, keep)
+                for p in (snapplane.COL_PREFIX, fplane.FCOL_PREFIX,
+                          qplane.QCOL_PREFIX)}
+        hop_checks[h["version"]] = {
+            p: bool(c) and all(v["rows_same"] for v in c.values())
+            for p, c in cols.items()}
+    stage_s = {}
+    for c in sw.calls:
+        stage_s.setdefault(c["stage"], []).append(round(c["s"], 4))
+    res["a"] = {
+        "summary": {k: summary[k] for k in (
+            "cycles", "failures", "head_version", "head_stamp",
+            "pending_deltas", "wall_s", "busy_s", "cycle_overhead_frac",
+            "freshness", "spec", "wrong_version", "probe_failures",
+            "fit_path", "ok")},
+        "landed_rows": [int(r["n_changed"]) for r in landed],
+        "versions": [{k: (int(len(v)) if k == "changed" else v)
+                      for k, v in h.items()} for h in hops],
+        "stage_walls_s": stage_s,
+        "stage_sum_s": float(sum(c["s"] for c in sw.calls)),
+        "publisher_thread_s": float(sum(
+            c["s"] for c in sw.calls if c["thread"] == "sched-publish")),
+        "unchanged_rows_same": hop_checks,
+    }
+    emit({"phase": "sched", "leg": "a", **res["a"],
+          "launches_sched": res["launches_sched"]})
+    require(summary["ok"] and summary["pending_deltas"] == 0
+            and summary["wrong_version"] == 0
+            and summary["head_stamp"] == stamp0 + SC_DELTAS
+            and reg.version_stamp(v_final) == stamp0 + SC_DELTAS
+            and reg.active_version() == v_final
+            and summary["freshness"]["n"] == SC_DELTAS,
+            f"the stream: every delta covered, none pending, no wrong "
+            f"version: {res['a']['summary']}")
+    require(summary["fit_path"] == "resident",
+            f"the loop's fit ran resident: {summary['fit_path']}")
+    require(hops and all(all(c.values()) for c in hop_checks.values()),
+            f"unchanged rows keep their base bytes on every hop: "
+            f"{hop_checks}")
+    lc = res["launches_sched"]
+    require(all(lc[k] > 0 for k in ("forward", "loss_grad", "loss_value",
+                                     "loss_stack", "fan", "advi")),
+            f"the loop launched K1, K3 (gradient, value, draw stack), K4 "
+            f"and K7: {lc}")
+
+    # (c)'s daemon child, beside (b): one more delta on (a)'s plane.
+    plane.land_synthetic_delta(dset, SC_CHURN)
+    stamp_c = plane.delta_seq(dset)
+    scratch_c = os.path.join(root, "sched_c")
+    fplan = faults.FaultPlan(state_dir=os.path.join(root, "faults_c"))
+    fplan.fail("sched_flip", attempts=1, after=0, mode="exit",
+               rc=SC_FLIP_RC, tag="loop-storm")
+    env = dict(os.environ)
+    env.pop(faults.ENV_VAR, None)
+    cli_env = dict(env)
+    env[faults.ENV_VAR] = fplan.to_env()
+    here = os.path.dirname(os.path.abspath(__file__))
+    kid_log = os.path.join(root, "sched_child.log")
+    t_kid = time.perf_counter()
+    with open(kid_log, "w") as kid_fh:
+        kid = subprocess.Popen(
+            [sys.executable, "-m", "tsspark_tpu_torch.sched", "--data", dset,
+             "--registry", reg.root, "--scratch", scratch_c, "--chunk",
+             str(RS_CHUNK), "--max-iters", str(solver.max_iters),
+             "--until-stamp", str(stamp_c), "--duration",
+             str(SC_CHILD_TIMEOUT_S), *(["--device", "cpu"] if dev_kw
+                                       else [])],
+            cwd=here, env=env, stdout=kid_fh, stderr=subprocess.STDOUT)
+    try:
+        # (b) the serialized replay on the copy.
+        t0 = time.perf_counter()
+        loop_b = sched.RefitScheduler(
+            dset_b, reg_b, os.path.join(root, "sched_b"), pipeline=False,
+            **common)
+        seq = stamp0
+        sums_b = []
+        for h in hops:
+            while seq < h["stamp"]:
+                plane.land_synthetic_delta(dset_b, SC_CHURN)
+                seq += 1
+            sums_b.append(loop_b.run(until_stamp=h["stamp"],
+                                     duration_s=SC_RUN_S))
+        walls["replay"] = time.perf_counter() - t0
+        hops_b = _sched_versions(reg_b, v0)
+        same_plans = [
+            (a["version"], a["base"], a["stamp"]) == (b["version"], b["base"],
+                                                      b["stamp"])
+            and np.array_equal(a["changed"], b["changed"])
+            for a, b in zip(hops, hops_b)] + [len(hops) == len(hops_b)]
+        vdir_a, vdir_b = reg.version_dir(v_final), reg_b.version_dir(v_final)
+        prefixes = (snapplane.COL_PREFIX, fplane.FCOL_PREFIX,
+                    qplane.QCOL_PREFIX)
+        bytes_a = _version_bytes(vdir_a, prefixes)
+        bytes_b = _version_bytes(vdir_b, prefixes)
+        post_a, _ = advi_mod.load_posterior(vdir_a)
+        post_b, head_b = advi_mod.load_posterior(vdir_b)
+        replay = {
+            "cycles": [s["cycles"] for s in sums_b],
+            "ok": all(s["ok"] for s in sums_b),
+            "same_plans": all(same_plans),
+            "same_columns": bool(bytes_a) and bytes_a == bytes_b,
+            "differing_columns": sorted(k for k in bytes_a
+                                        if bytes_a[k] != bytes_b.get(k)),
+            "same_posterior": all(np.array_equal(
+                np.asarray(getattr(post_a, f)),
+                np.asarray(getattr(post_b, f)))
+                for f in ("mu", "rho", "elbo")),
+        }
+        # The last cycle's wave, its forecast-plane chunk and posterior.
+        last = hops_b[-1]
+        rows = last["changed"]
+        plan = {"base_version": last["base"],
+                "base_stamp": int(reg_b.version_stamp(last["base"])),
+                "plan_stamp": last["stamp"], "n_changed": int(len(rows)),
+                "changed_rows": rows.tolist(), "complete": False}
+        ddir = refit.ensure_spill(dset_b, plan, os.path.join(root, "spill"))
+        packed = sc_wave(ddir, cfg, len(rows))
+        data = unpack_fit_data(packed_to_device(packed, device), ())
+        snap = reg_b.load(v_final, fallback=False)
+        st_rows, _ = snap.take(rows)
+        th = st_rows.theta.to(device, torch.float32)
+        b_w = data.t.shape[0]
+        th = torch.cat([th, th[:1].expand(b_w - len(rows), -1)])
+        theta_h, d_h = off_optimum(th, SC_SEED)
+        wave = hold_kernels(theta_h, d_h, data, cfg, "a refit cycle's wave")
+        del data, packed
+        part = rows[:fplane._PUBLISH_CHUNK]
+        st_p, step_p = snap.take(part)
+        grid = fplane.future_grid(st_p, step_p, 8)
+        pdata = prepare_predict_data(grid, st_p.meta, cfg, device)
+        scale = torch.as_tensor(st_p.meta.y_scale, dtype=torch.float32,
+                                device=device)
+        floor = torch.as_tensor(st_p.meta.floor, dtype=torch.float32,
+                                device=device)
+        th_p = st_p.theta.to(device, torch.float32)
+        got = fk.forward(th_p, pdata, cfg, scale, floor)
+        want = fk.forward_plain(th_p, pdata, cfg, scale, floor)
+        k1 = {"shape": list(pdata.t.shape),
+              "max_rel_err": _forward_err(got, want, scale),
+              "max_abs_err": max(float((g - w).abs().max())
+                                 for g, w in zip(got, want))}
+        load = lambda f: np.load(os.path.join(ddir, f))  # noqa: E731
+        data_s, _ = prepare_fit_data(load("ds.npy"), load("y.npy"), cfg,
+                                     mask=load("mask.npy"))
+        direct = advi_mod.fit_advi(
+            np.asarray(st_rows.theta, np.float32), data_s,
+            torch.Generator(device=device).manual_seed(
+                refit.posterior_seed(int(head_b["seed"]), v_final)),
+            cfg, hand["advi_cfg"], device=device)
+        del data_s
+        replay["posterior_direct_fit"] = {f: bool(np.array_equal(
+            np.asarray(getattr(post_b, f))[rows],
+            getattr(direct, f).detach().cpu().numpy()))
+            for f in ("mu", "rho", "elbo")}
+        replay["wave"] = wave
+        replay["forward"] = k1
+        walls["replay_checks"] = time.perf_counter() - t0 - walls["replay"]
+        res["b"] = replay
+        emit({"phase": "sched", "leg": "b", **replay})
+        require(replay["ok"] and replay["same_plans"],
+                f"the replay's plans are the stream's: {replay}")
+        require(replay["same_columns"] and replay["same_posterior"],
+                f"the serialized replay is bitwise the pipelined stream: "
+                f"{replay['differing_columns']}")
+        require(all(replay["posterior_direct_fit"].values()),
+                f"the last cycle's posterior is fit_advi's: "
+                f"{replay['posterior_direct_fit']}")
+        require(k1["max_rel_err"] <= 2e-5,
+                f"K1 on the forecast plane's delta chunk: {k1}")
+
+        # (c) the daemon child, its successor, the alerts.
+        t_wait = time.perf_counter()
+        kid.wait(timeout=SC_CHILD_TIMEOUT_S)
+    finally:
+        if kid.poll() is None:
+            kid.kill()
+            kid.wait()
+    walls["child"] = time.perf_counter() - t_kid
+    walls["child_wait"] = time.perf_counter() - t_wait
+    with open(kid_log) as fh:
+        kid_tail = fh.read()[-1500:]
+    active_after_kill = reg.active_version()
+    plan_c = refit.read_refit_plan(scratch_c)
+    _cd, _dd, out_c = refit.cycle_paths(scratch_c, plan_c)
+    landed_c = orchestrate.load_fit_state(out_c, plan_c["n_changed"])
+    resumes = []
+    real_run_refit = refit.run_refit
+
+    def recording(**kw):
+        out = real_run_refit(**kw)
+        resumes.append(out)
+        return out
+
+    refit.run_refit = recording
+    try:
+        t0 = time.perf_counter()
+        succ = sched.RefitScheduler(
+            dset, reg, scratch_c, chunk=RS_CHUNK,
+            solver_config=SolverConfig(max_iters=solver.max_iters),
+            flip_fn=flip_fn, **dev_kw).run(until_stamp=stamp_c,
+                                           duration_s=SC_RUN_S)
+        walls["resume"] = time.perf_counter() - t0
+    finally:
+        refit.run_refit = real_run_refit
+    v_c = succ["head_version"]
+    got_c, _ = reg.load(v_c, fallback=False).take(
+        np.asarray(plan_c["changed_rows"], np.int64))
+    res["c"] = {
+        "child_rc": kid.returncode, "active_after_kill": active_after_kill,
+        "plan_incomplete_after_kill": not plan_c.get("complete"),
+        "successor": {k: succ[k] for k in ("cycles", "resumed_cycles",
+                                           "head_version", "head_stamp",
+                                           "fit_path", "ok")},
+        "resume_fit_dispatches": [r.get("fit_dispatches") for r in resumes],
+        "resume_fit_path": [r.get("fit_path") for r in resumes],
+        "child_fell_back": "no usable device mesh" in kid_tail,
+        "same_bits_as_child": rs_same(got_c, landed_c),
+    }
+    t0 = time.perf_counter()
+    res["c"]["alerts"] = sc_alerts(dset, eng, root, cli_env,
+                                   cpu=bool(dev_kw))
+    walls["alerts"] = time.perf_counter() - t0
+    eng.stop()
+    c = res["c"]
+    require(c["child_rc"] == SC_FLIP_RC and active_after_kill == v_final
+            and c["plan_incomplete_after_kill"],
+            f"the daemon child killed at sched_flip: rc {kid.returncode} "
+            f"{kid_tail}")
+    require(succ["ok"] and succ["cycles"] == 1 and succ["resumed_cycles"] == 1
+            and c["resume_fit_dispatches"] == [0]
+            and reg.active_version() == v_c and v_c != v_final
+            and reg.version_stamp(v_c) == stamp_c
+            and all(c["same_bits_as_child"].values()),
+            f"the successor resumed the pinned plan: {c}")
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit({k: v for k, v in res.items() if k not in ("a", "b")})
+    return res
+
+
+def add_sched(kernels, sc) -> None:
+    """K1, K3, K4 and K7's entries gain their launches on phase sched's
+    stream (counts set to 0 just before it, read just after), and K3/K4
+    and K1 the replay's checks on the last cycle's wave and forecast-plane
+    chunk."""
+    lc, b = sc["launches_sched"], sc["b"]
+    for k in kernels:
+        name = k["name"]
+        if name == "loss":
+            k["launches_sched"] = lc["loss_grad"] + lc["loss_value"]
+            k["launches_sched_stack"] = lc["loss_stack"]
+            k["sched_wave_check"] = b["wave"]["gap"]
+        elif name == "fan":
+            k["launches_sched"] = lc["fan"]
+            k["sched_wave_check"] = b["wave"]["gap"]["fan"]
+        elif name == "forward":
+            k["launches_sched"] = lc["forward"]
+            k["sched_chunk_check"] = b["forward"]
+        elif name == "advi":
+            k["launches_sched"] = lc["advi"]
 
 
 def add_new_paths(kernels, fleet_m5, eval12, planes) -> None:
@@ -8260,6 +8895,84 @@ def add_serve_scale(kernels, ss) -> None:
         k["at_pool_shape"] = held["timing"][name]
 
 
+#: Host threads generating the run's data beside the kernels' build.
+SETUP_WORKERS = 4
+
+
+def setup_data(args, serve_root: str, workers: int = SETUP_WORKERS) -> dict:
+    """Every phase's generated data and phase serve's registry, made at the
+    top of the run beside the kernels' build: ``batch3``
+    (``m5_like(30490, 1941)``) then ``serve_registry`` from it; eval config
+    4's batch and configs 1-2's; config 5's frames (the cell's and the
+    fleet's, cut to ``fleet_rows()``); the M5 fleet frame (cut the same
+    way).  The four run on ``workers`` threads (each generator is seeded
+    and reads nothing another writes, so the products are the bits of one
+    after another: ``tests/test_torch_room.py``; numpy releases the
+    interpreter lock for its array work); ``workers`` 0 runs them one
+    after another on this thread.  Returns the products, each one's
+    seconds (``gen_s``) and the walls of ``serve_registry`` and of the
+    whole set-up (``setup_s``)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tsspark_tpu_torch.data.datasets import m5_like, wiki_logistic_like
+    from tsspark_tpu_torch.eval import configs
+
+    gen_s, setup_s = {}, {}
+
+    def fleet3():
+        t0 = time.perf_counter()
+        batch3 = m5_like(FULL_SERIES, FULL_DAYS, seed=2)
+        gen_s["3"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        serve = serve_registry(args, serve_root, batch3)
+        setup_s["serve_registry"] = time.perf_counter() - t0
+        return {"batch3": batch3, "serve": serve}
+
+    def small():
+        t0 = time.perf_counter()
+        batch4 = wiki_logistic_like(C4_SERIES, C4_DAYS)
+        gen_s["4"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        batches12 = eval12_batches()
+        gen_s["12"] = time.perf_counter() - t0
+        return {"batch4": batch4, "batches12": batches12}
+
+    def frames5():
+        t0 = time.perf_counter()
+        n5, days5 = configs.config5_size(1.0)
+        stream5_df = configs.config5_frame(n5, days5)
+        fleet_df = configs.config5_frame(FLEET_SERIES, days5)
+        fleet_df = fleet_df[fleet_df.series_id.isin(
+            {f"s{i}" for i in fleet_rows()})]
+        fleet_sub = fleet_df[fleet_df.series_id.isin(
+            {f"s{i}" for i in fleet_subset()})]
+        gen_s["5"] = time.perf_counter() - t0
+        return {"stream5_df": stream5_df, "fleet_df": fleet_df,
+                "fleet_sub": fleet_sub}
+
+    def frame_m5():
+        t0 = time.perf_counter()
+        m5_df, m5_ids = m5_fleet_frame()
+        m5_sub = m5_df[m5_df.series_id.isin(set(m5_ids[fleet_subset()]))]
+        m5_ids = m5_ids[fleet_rows()]
+        m5_df = m5_df[m5_df.series_id.isin(set(m5_ids))]
+        gen_s["m5"] = time.perf_counter() - t0
+        return {"m5_df": m5_df, "m5_ids": m5_ids, "m5_sub": m5_sub}
+
+    jobs = (fleet3, frames5, frame_m5, small)
+    t0 = time.perf_counter()
+    out = {}
+    if workers:
+        with ThreadPoolExecutor(workers, thread_name_prefix="setup") as ex:
+            for part in [ex.submit(job) for job in jobs]:
+                out.update(part.result())
+    else:
+        for job in jobs:
+            out.update(job())
+    setup_s["data"] = time.perf_counter() - t0
+    return dict(out, gen_s=gen_s, setup_s=setup_s)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8290,11 +9003,17 @@ def main(argv=None) -> int:
     build_thread.start()
     rng = np.random.default_rng(args.seed)
     phases_s = {}
-    # Phase serve's registry, host work beside the kernels' build.
     serve_root = tempfile.mkdtemp(prefix="serve_")
-    t0 = time.perf_counter()
-    serve_made = serve_registry(args, serve_root)
-    phases_s["serve_registry"] = time.perf_counter() - t0
+    made = setup_data(args, serve_root)
+    phases_s.update(made["setup_s"])
+    serve_made, batch3, batch4 = made["serve"], made["batch3"], made["batch4"]
+    stream5_df, fleet_df, fleet_sub = (made["stream5_df"], made["fleet_df"],
+                                       made["fleet_sub"])
+    m5_df, m5_ids, m5_sub = made["m5_df"], made["m5_ids"], made["m5_sub"]
+    batches12 = made["batches12"]
+    gen3_s, gen4_s, gen5_s, gen_m5_s, gen12_s = (
+        made["gen_s"][k] for k in ("3", "4", "5", "m5", "12"))
+    del made
 
     def timed(name, fn, *a):
         t0 = time.perf_counter()
@@ -8302,34 +9021,8 @@ def main(argv=None) -> int:
         phases_s[name] = time.perf_counter() - t0
         return out
 
-    from tsspark_tpu_torch.data.datasets import m5_like, wiki_logistic_like
-
-    t0 = time.perf_counter()
-    batch3 = m5_like(FULL_SERIES, FULL_DAYS, seed=2)
-    gen3_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    batch4 = wiki_logistic_like(C4_SERIES, C4_DAYS)
-    gen4_s = time.perf_counter() - t0
     from tsspark_tpu_torch.eval import configs
 
-    t0 = time.perf_counter()
-    n5, days5 = configs.config5_size(1.0)
-    stream5_df = configs.config5_frame(n5, days5)
-    fleet_df = configs.config5_frame(FLEET_SERIES, days5)
-    fleet_df = fleet_df[fleet_df.series_id.isin(
-        {f"s{i}" for i in fleet_rows()})]
-    fleet_sub = fleet_df[fleet_df.series_id.isin(
-        {f"s{i}" for i in fleet_subset()})]
-    gen5_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    m5_df, m5_ids = m5_fleet_frame()
-    m5_sub = m5_df[m5_df.series_id.isin(set(m5_ids[fleet_subset()]))]
-    m5_ids = m5_ids[fleet_rows()]
-    m5_df = m5_df[m5_df.series_id.isin(set(m5_ids))]
-    gen_m5_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    batches12 = eval12_batches()
-    gen12_s = time.perf_counter() - t0
     build_thread.join()
     if "error" in built:
         raise built["error"]
@@ -8341,7 +9034,6 @@ def main(argv=None) -> int:
                         if "registers" in ln or "spill" in ln]
                     for k, v in build.ptxas_log.items()}})
     phases_s["device"] = time.perf_counter() - t_start
-    phases_s["data"] = gen3_s + gen4_s + gen5_s + gen_m5_s + gen12_s
     parity = ParityFits(batch3, batch4, stream5_df, fleet_sub, m5_sub,
                         batches12)
     fe_cpu = parity.submit(frontend_cpu_job, fe_long_frame(
@@ -8383,6 +9075,12 @@ def main(argv=None) -> int:
         rf = timed("refit", phase_refit, device, rs_hand)
         shutil.rmtree(rs_hand.pop("scratch"), ignore_errors=True)
         del rs_hand
+        rf_hand = rf.pop("handoff")
+        try:
+            sc = timed("sched", phase_sched, device, rf_hand)
+        finally:
+            shutil.rmtree(rf_hand["scratch"], ignore_errors=True)
+        del rf_hand
         fe = timed("frontend", phase_frontend, device, batch3, fe_cpu)
         scale = timed("serve_scale", phase_serve_scale, device, serve)
         kernels = timed("kernels", phase_kernels, serve, fwd, bnd, fit,
@@ -8393,6 +9091,7 @@ def main(argv=None) -> int:
         add_dataplane(kernels["kernels"], dp)
         add_resilient(kernels["kernels"], rs)
         add_resident_refit(kernels["kernels"], rd, rf)
+        add_sched(kernels["kernels"], sc)
         add_frontend(kernels["kernels"], fe)
         add_serve_scale(kernels["kernels"], scale)
         finished = True

@@ -1,29 +1,36 @@
 #!/usr/bin/env python3
-"""Where ``chip_smoke.py`` can find room, measured on one card in one call.
+"""Where ``chip_smoke.py`` can find room, measured on one card in one call:
+a parent checkout against this one, in turns, on one host.
 
-    python3 scripts/torch_fit_room.py PARENT [--out DIR]
+    python3 scripts/torch_fit_room.py PARENT [--steps LIST] [--out DIR]
 
 PARENT is another checkout of this repository (for example the parent
-commit, ``git archive``d into a git-ignored directory).  In turn:
+commit, ``git archive``d into a git-ignored directory).  The kernel
+library is built once (``kernels/build.py``'s flags) and every child
+loads it.  Then, in turn for PARENT, this checkout, this checkout, PARENT,
+a child process a tree runs the steps named in ``--steps``:
 
-1. **build**: every ``csrc/*.cu`` of this checkout compiled by ``nvcc``
-   as ``kernels/build.py`` compiles them (one process a source, all
-   started together) but without ``--split-compile=0``, each process's
-   wall recorded; then again with it (the compiler's optimizer on every
-   core).
-2. **rescue A/B**: eval config 3 (``m5_like(30490, 1941, seed=2)``, days
-   [0, 1746), ``CudaBackend`` with the rescue pass, as ``chip_smoke.py``'s
-   phase fit) fitted by PARENT, this checkout, this checkout, PARENT, each
-   in a child process on the one kernel library built in step 1 (the
-   sources are the same; a checkout whose flags name the library
-   otherwise loads a copy under its own name): the fit's wall, its stages, its status counts
-   and a digest of its state (the bits must agree).
-3. **ADVI repeatability**: ``fit_advi`` at ``AdviConfig()`` on every 10th
-   row of the batch (3,049, config 3 without regressors) from the fit's
-   theta, twice with one seed: the same bits or not.
-4. **time split**: ``chip_smoke.rd_time_split`` (``fit_sharded_packed``
-   on a 1 x 2 mesh of cuda:0) on the first 8,192 rows, under phase 1's
-   program (12 iterations, no metric) and under config 3's full solver.
+* **setup**: ``chip_smoke.py``'s set-up before the first card phase (phase
+  serve's registry and every phase's generated data): the tree's
+  ``chip_smoke.setup_data`` where it has one, else the sequence the
+  parent's ``main`` runs (``serve_registry`` with its own ``m5_like``,
+  then each generator one after another).  Its wall, each part's, and a
+  digest of the products (arrays, frames with their index, the
+  registry's column files): the bits must agree across the trees.  Run
+  alone here; in ``chip_smoke.py`` the kernels' build runs beside it.
+* **prep**: the whole config-3 batch (30,490 x 1,746) through the tree's
+  ``design.prepare_fit_data_blocks`` where it has one (row blocks on
+  threads, as ``fit_mcmc`` and the full-fleet preps take it), else
+  ``prepare_fit_data``: its wall and a digest (the bits must agree).
+* **fit**: eval config 3 (``m5_like(30490, 1941, seed=2)``, days
+  [0, 1746), ``CudaBackend`` with the rescue pass, as phase fit) through
+  ``CudaBackend.fit``, then the same batch through ``fit_twophase``
+  (phase 1 at 12 iterations, as phase dataplane's fleet fit): each fit's
+  wall, stages and state digest (the bits must agree).
+* **extra**: ``fit_advi`` repeatability on every 10th row and
+  ``chip_smoke.rd_time_split`` (this checkout only).
+* **build**: every ``csrc/*.cu`` compiled without, then with,
+  ``--split-compile=0``, each ``nvcc`` process's wall.
 
 Each step prints a JSON line (also appended to ``--out``/room.jsonl when
 ``--out`` names a directory), then ``nvidia-smi``'s name and power limit.
@@ -43,12 +50,12 @@ import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# One config-3 fit in a child process, on the checkout in argv[1] (first
-# on sys.path), the kernel library in argv[2], the batch in argv[3]; with
-# argv[4] == "extra" it also runs steps 3 and 4.
+# The steps in argv[4] (comma-separated) on the checkout in argv[1] (first
+# on sys.path), the kernel library in argv[2], the batch in argv[3].
 CHILD = r"""
-import dataclasses, hashlib, json, os, sys, time
-tree, lib_dir, batch_path, extra = sys.argv[1:5]
+import argparse, dataclasses, hashlib, json, os, sys, tempfile, time
+tree, lib_dir, batch_path, steps = sys.argv[1:5]
+steps = steps.split(",")
 sys.path.insert(0, tree)
 sys.modules["jax"] = None
 import numpy as np
@@ -62,27 +69,119 @@ if not os.path.exists(os.path.join(lib_dir, build.lib_name())):
 build.library()
 from tsspark_tpu_torch.backends.registry import get_backend
 from tsspark_tpu_torch.eval import configs
+
+
+def digest(*arrays):
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(np.asarray(a)).tobytes())
+    return h.hexdigest()
+
+
+def frame_digest(df):
+    import pandas as pd
+    return digest(pd.util.hash_pandas_object(df, index=True).to_numpy())
+
+
+if "setup" in steps:
+    import chip_smoke as cs
+    from tsspark_tpu_torch.data.datasets import m5_like, wiki_logistic_like
+    args = argparse.Namespace(seed=0)
+    root = tempfile.mkdtemp(prefix="serve_")
+    t0 = time.perf_counter()
+    if hasattr(cs, "setup_data"):
+        made = cs.setup_data(args, root)
+        parts = dict(made["setup_s"], **{"gen_" + k: v
+                                         for k, v in made["gen_s"].items()})
+    else:
+        parts, made = {}, {}
+        t1 = time.perf_counter()
+        made["serve"] = cs.serve_registry(args, root)
+        parts["serve_registry"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        made["batch3"] = m5_like(cs.FULL_SERIES, cs.FULL_DAYS, seed=2)
+        made["batch4"] = wiki_logistic_like(cs.C4_SERIES, cs.C4_DAYS)
+        n5, days5 = configs.config5_size(1.0)
+        made["stream5_df"] = configs.config5_frame(n5, days5)
+        f = configs.config5_frame(cs.FLEET_SERIES, days5)
+        f = f[f.series_id.isin({f"s{i}" for i in cs.fleet_rows()})]
+        made["fleet_df"] = f
+        made["fleet_sub"] = f[f.series_id.isin(
+            {f"s{i}" for i in cs.fleet_subset()})]
+        m5_df, m5_ids = cs.m5_fleet_frame()
+        made["m5_sub"] = m5_df[m5_df.series_id.isin(
+            set(m5_ids[cs.fleet_subset()]))]
+        made["m5_ids"] = m5_ids[cs.fleet_rows()]
+        made["m5_df"] = m5_df[m5_df.series_id.isin(set(made["m5_ids"]))]
+        made["batches12"] = cs.eval12_batches()
+        parts["data"] = time.perf_counter() - t1
+    wall = time.perf_counter() - t0
+    b3, b4, sb = made["batch3"], made["batch4"], made["serve"]["batch"]
+    reg_files = sorted(glob.glob(os.path.join(root, "**", "*.npy"),
+                                 recursive=True))
+    dig = {"batch3": digest(b3.ds, b3.y, b3.mask, b3.regressors,
+                            b3.series_ids),
+           "batch4": digest(b4.ds, b4.y, b4.mask, b4.cap),
+           "serve_batch": digest(sb.ds, sb.y, sb.mask, sb.series_ids),
+           "registry": digest(*[np.load(f) for f in reg_files]),
+           "m5_ids": digest(made["m5_ids"]),
+           "batches12": digest(*[a for b in made["batches12"].values()
+                                  for a in (b.ds, b.y, b.mask)])}
+    for k in ("stream5_df", "fleet_df", "fleet_sub", "m5_df", "m5_sub"):
+        dig[k] = frame_digest(made[k])
+    print(json.dumps({"step": "setup", "tree": tree, "wall_s": wall,
+                      "parts_s": parts, "digest": digest(*[
+                          np.frombuffer(v.encode(), np.uint8)
+                          for _, v in sorted(dig.items())]),
+                      "digests": dig}), flush=True)
+    del made, b3, b4, sb
+    shutil.rmtree(root, ignore_errors=True)
+if not {"prep", "fit", "extra"} & set(steps):
+    sys.exit(0)
 z = np.load(batch_path)
 ds, y, mask, reg = z["ds"], z["y"], z["mask"], z["reg"]
 cfg, solver = configs.CONFIG3, configs.SOLVER3
 split = configs.split_point(len(ds))
+if "prep" in steps:
+    from tsspark_tpu_torch.models.prophet import design
+    fn = getattr(design, "prepare_fit_data_blocks", design.prepare_fit_data)
+    t0 = time.perf_counter()
+    data, meta = fn(ds[:split], np.nan_to_num(y[:, :split]), cfg,
+                    mask=mask[:, :split], regressors=reg[:, :split])
+    print(json.dumps({"step": "prep", "tree": tree, "fn": fn.__name__,
+                      "wall_s": time.perf_counter() - t0,
+                      "digest": digest(*data, *meta)}), flush=True)
+    del data, meta
+if not {"fit", "extra"} & set(steps):
+    sys.exit(0)
 bk = get_backend("cuda", cfg, solver)
 torch.cuda.synchronize()
 t0 = time.perf_counter()
 st = bk.fit(ds[:split], np.nan_to_num(y[:, :split]), mask=mask[:, :split],
             regressors=reg[:, :split])
 wall = time.perf_counter() - t0
-h = hashlib.sha256()
-for a in (st.theta.numpy(), st.loss, st.status, st.n_iters):
-    h.update(np.ascontiguousarray(np.asarray(a)).tobytes())
 status = np.asarray(st.status)
 out = {"step": "rescue_ab", "tree": tree, "fit_s": wall,
        "stages_s": dict(bk.stages.seconds),
        "status_counts": {int(k): int(v) for k, v in
                          zip(*np.unique(status, return_counts=True))},
-       "digest": h.hexdigest()}
+       "digest": digest(st.theta.numpy(), st.loss, st.status, st.n_iters)}
 print(json.dumps(out), flush=True)
-if extra != "extra":
+bk2 = get_backend("cuda", cfg, solver)
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+st2 = bk2.fit_twophase(ds[:split], np.nan_to_num(y[:, :split]),
+                       mask=mask[:, :split], regressors=reg[:, :split],
+                       phase1_iters=12)
+print(json.dumps({"step": "twophase", "tree": tree,
+                  "fit_s": time.perf_counter() - t0,
+                  "stages_s": dict(bk2.stages.seconds),
+                  "twophase": {k: v for k, v in bk2.twophase.items()
+                               if k != "order"},
+                  "digest": digest(st2.theta.numpy(), st2.loss, st2.status,
+                                   st2.n_iters)}), flush=True)
+del st2, bk2
+if "extra" not in steps:
     sys.exit(0)
 import chip_smoke as cs
 from tsspark_tpu_torch import orchestrate
@@ -163,8 +262,11 @@ def build_times(extra_flags, tag) -> tuple:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("parent")
+    ap.add_argument("--steps", default="setup,prep,fit",
+                    help="comma-separated: setup, prep, fit, extra, build")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
+    steps = args.steps.split(",")
     log = None
     if args.out:
         os.makedirs(args.out, exist_ok=True)
@@ -183,44 +285,44 @@ def main() -> int:
     from tsspark_tpu_torch.data.datasets import m5_like
     from tsspark_tpu_torch.kernels import build
 
-    objs, rec = build_times([], "plain")
-    emit(rec)
-    # The plain build's objects linked as build.py links them: the
-    # library every child loads.
+    # The library every child loads, built once as kernels/build.py builds.
     lib_dir = tempfile.mkdtemp(prefix="lib_")
-    t0 = time.perf_counter()
-    subprocess.run([build._nvcc(), "-shared",
-                    "-gencode=arch=compute_90a,code=sm_90a",
-                    *sorted(glob.glob(os.path.join(objs, "*.o"))), "-o",
-                    os.path.join(lib_dir, build.lib_name())], check=True)
     build.use_dir(lib_dir)
+    t0 = time.perf_counter()
     build.library()
-    emit({"step": "library", "link_s": time.perf_counter() - t0,
-          "built_again": build.builds > 0})
-    emit(build_times(["--split-compile=0"], "split")[1])
-    b = m5_like(30490, 1941, seed=2)
+    emit({"step": "library", "build_s": time.perf_counter() - t0})
+    if "build" in steps:
+        emit(build_times([], "plain")[1])
+        emit(build_times(["--split-compile=0"], "split")[1])
     batch_path = os.path.join(tempfile.mkdtemp(prefix="batch_"), "b.npz")
-    np.savez(batch_path, ds=b.ds, y=b.y, mask=b.mask, reg=b.regressors)
-    del b
+    if {"prep", "fit", "extra"} & set(steps):
+        b = m5_like(30490, 1941, seed=2)
+        np.savez(batch_path, ds=b.ds, y=b.y, mask=b.mask, reg=b.regressors)
+        del b
     parent = os.path.abspath(args.parent)
-    digests = []
+    digests = {}
     for i, tree in enumerate((parent, HERE, HERE, parent)):
-        extra = "extra" if i == 1 else "-"
+        todo = [st for st in steps if st in ("setup", "prep", "fit")]
+        if "extra" in steps and i == 1:
+            todo.append("extra")
+        if not todo:
+            break
         p = subprocess.run([sys.executable, "-c", CHILD, tree, lib_dir,
-                            batch_path, extra], cwd=tree,
-                           capture_output=True, text=True, timeout=900)
+                            batch_path, ",".join(todo)], cwd=tree,
+                           capture_output=True, text=True, timeout=1200)
         for line in p.stdout.splitlines():
             if line.startswith("{"):
                 d = json.loads(line)
                 d["which"] = "parent" if tree == parent else "change"
-                if d["step"] == "rescue_ab":
-                    digests.append(d["digest"])
+                if "digest" in d:
+                    digests.setdefault(d["step"], []).append(d["digest"])
                 emit(d)
         if p.returncode:
             emit({"step": "child_failed", "tree": tree, "rc": p.returncode,
                   "stderr": p.stderr[-3000:]})
-    emit({"step": "rescue_ab_bits", "same": len(set(digests)) == 1,
-          "n": len(digests)})
+    emit({"step": "bits", "same": {k: len(set(v)) == 1
+                                   for k, v in digests.items()},
+          "n": {k: len(v) for k, v in digests.items()}})
     for f in glob.glob(os.path.join(os.path.dirname(batch_path), "*")):
         os.remove(f)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -121,7 +121,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "tsspark_tpu_torch.resident",
                 "tsspark_tpu_torch.refit",
                 "tsspark_tpu_torch.utils.platform",
-                "tsspark_tpu_torch.utils.profiling"):
+                "tsspark_tpu_torch.utils.profiling",
+                "tsspark_tpu_torch.sched",
+                "tsspark_tpu_torch.alerts",
+                "tsspark_tpu_torch.alerts.score",
+                "tsspark_tpu_torch.alerts.sink",
+                "tsspark_tpu_torch.alerts.stream",
+                "tsspark_tpu_torch.alerts.__main__"):
         assert mod in out["modules"]
 
 

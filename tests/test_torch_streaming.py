@@ -662,7 +662,7 @@ def test_micro_batch_widths_take_the_backend_ladder(monkeypatch, b, t_len,
     seen = []
 
     def record(self, ds, y_, mask, cap, floor, regressors, init, conditions,
-               c, u8=None, starts=()):
+               c, u8=None, starts=(), host=None):
         seen.append((y_.shape[0], c))
         return None
 

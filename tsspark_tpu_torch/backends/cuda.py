@@ -45,12 +45,20 @@ The counterpart of the JAX package's ``TpuBackend``:
   real row, whose outputs are discarded), each chunk seeded with its own
   ``SeedSequence((seed, chunk))`` draw.
 
+A meshless batch of more than one chunk prepares its chunks on up to
+``PREP_WORKERS`` host threads (``prepare_fit_data`` and ``pack_fit_data``
+are numpy, which releases the interpreter lock for its array work) while
+the card solves the chunk before: the same functions on the same rows, so
+the same bits as preparing each chunk just before its solve.
+
 Results come back on the host: numpy arrays, and the fitted ``theta`` as
 a CPU tensor.  ``stages`` is the model's stage clock: the fit's prep,
 pack, to_device, init, solve, to_host and (this backend's) rescue; the
 forecast's prep, forecast and to_host; ``fit_twophase`` adds ``phase1``
 and ``phase2`` around its two phases' fits (which count their own stages
-into the same clock).
+into the same clock).  Under the threaded prep, ``prep`` and ``pack`` sum
+the worker threads' seconds and ``prep_wait`` is the time the solve loop
+waited for a prepared chunk.
 
 ``perf=PerfRecorder()`` times every chunk dispatch of every fit this
 backend runs (the rescue pass's and both two-phase phases' included)
@@ -63,6 +71,8 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import warnings
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional
 
 import numpy as np
@@ -101,6 +111,11 @@ _RESILIENT_GATE_WARNED = False
 # fit loses process isolation and crash resume.  Announced once, naming
 # the failed eligibility check(s).
 _RESILIENT_FALLBACK_WARNED = False
+
+#: Host threads preparing a multi-chunk fit's chunks ahead of their solves
+#: (0, the tests' reference: each chunk on the calling thread just before
+#: its solve).
+PREP_WORKERS = 4
 
 
 def _resilient_ineligibility(init, conditions, packable, mesh=None):
@@ -603,27 +618,105 @@ class CudaBackend(ForecastBackend):
                 ds, y, mask, cap, floor, regressors, init, conditions, c,
                 u8, starts,
             )
-        states = []
-        for lo in range(0, b, c):
-            hi = min(lo + c, b)
+        def chunk(lo, hi):
             sl = lambda a: _rows(a, slice(lo, hi))  # noqa: E731
             slc = lambda d: None if d is None else {  # noqa: E731
                 k: np.asarray(v)[lo:hi] for k, v in d.items()
             }
-            states.append(
-                self._fit_padded(
-                    ds if ds.ndim == 1 else ds[lo:hi],
-                    y[lo:hi], sl(mask), sl(cap), sl(floor), sl(regressors),
-                    sl(init), slc(conditions), c, u8,
-                    tuple(sl(st) for st in starts),
-                )
-            )
+            return (ds if ds.ndim == 1 else ds[lo:hi], y[lo:hi], sl(mask),
+                    sl(cap), sl(floor), sl(regressors), sl(init),
+                    slc(conditions), c, u8, tuple(sl(st) for st in starts))
+
+        bounds = [(lo, min(lo + c, b)) for lo in range(0, b, c)]
+        if self.mesh is not None or PREP_WORKERS < 1:
+            states = [self._fit_padded(*chunk(lo, hi)) for lo, hi in bounds]
+        else:
+            states = self._fit_prefetched([chunk(lo, hi)
+                                           for lo, hi in bounds])
         if starts:
             return [_concat_states(list(per)) for per in zip(*states)]
         return _concat_states(states)
 
+    def _fit_prefetched(self, chunks) -> list:
+        """Fit ``chunks`` (``_fit_padded``'s arguments) in order, each
+        prepared on a worker thread (``_prep_padded``) while the chunks
+        before it solve; at most ``PREP_WORKERS`` preparations in flight."""
+        workers = min(PREP_WORKERS, len(chunks))
+        todo = iter(chunks)
+        pending: deque = deque()
+        states = []
+        with ThreadPoolExecutor(workers, thread_name_prefix="fit-prep") \
+                as pool:
+            def submit():
+                args = next(todo, None)
+                if args is not None:
+                    pending.append(pool.submit(self._prep_padded, *args))
+
+            for _ in range(workers):
+                submit()
+            for args in chunks:
+                with self.stages.span("prep_wait"):
+                    host, clock = pending.popleft().result()
+                submit()
+                total = self.stages
+                for k, v in clock.seconds.items():
+                    total.seconds[k] = total.seconds.get(k, 0.0) + v
+                    total.calls[k] = total.calls.get(k, 0) + clock.calls[k]
+                states.append(self._fit_padded(*args, host=host))
+        return states
+
+    def _prep_padded(self, ds, y, mask, cap, floor, regressors, init,
+                     conditions, c, reg_u8_cols=None, starts=()):
+        """The host half of ``_fit_padded`` (numpy only): the padding and
+        ``ProphetModel.prepare_host``, timed on a clock of its own.
+        Returns (the prepared batch, the clock)."""
+        from tsspark_tpu_torch.utils.spans import StageClock
+
+        ds, y, mask, cap, floor, regressors, _, conditions, _ = self._pad(
+            ds, y, mask, cap, floor, regressors, None, conditions, c, ())
+        clock = StageClock()
+        host = self._model.prepare_host(
+            ds, y, mask=mask, cap=cap, floor=floor, regressors=regressors,
+            iter_segment=self.iter_segment, conditions=conditions,
+            reg_u8_cols=reg_u8_cols, clock=clock,
+        )
+        return host, clock
+
     def _fit_padded(self, ds, y, mask, cap, floor, regressors, init,
-                    conditions, c, reg_u8_cols=None, starts=()):
+                    conditions, c, reg_u8_cols=None, starts=(), host=None):
+        """One chunk padded to ``c`` rows through the model (``host``: the
+        padded chunk already prepared, ``_prep_padded``)."""
+        b = y.shape[0]
+        ds, y, mask, cap, floor, regressors, init, conditions, starts = \
+            self._pad(ds, y, mask, cap, floor, regressors, init,
+                      conditions, c, starts)
+        # model.fit returns on the host, so the timed dispatch covers the
+        # device work.
+        timed = (self.perf.dispatch(c, live=b, kind="chunk")
+                 if self.perf is not None else contextlib.nullcontext())
+        if self.mesh is not None:
+            with timed:
+                out = [self._fit_sharded_chunk(
+                    ds, y, mask, cap, floor, regressors, init_i, conditions,
+                    reg_u8_cols) for init_i in (init, *starts)]
+        else:
+            with timed:
+                out = self._model.fit(
+                    ds, y, mask=mask, cap=cap, floor=floor,
+                    regressors=regressors, init=init,
+                    iter_segment=self.iter_segment,
+                    on_segment=self.on_segment, conditions=conditions,
+                    reg_u8_cols=reg_u8_cols, compact=self.compact,
+                    starts=starts, host=host,
+                )
+            out = out if starts else [out]
+        out = [_take_rows(st, slice(0, b)) for st in out]
+        return out if starts else out[0]
+
+    @staticmethod
+    def _pad(ds, y, mask, cap, floor, regressors, init, conditions, c,
+             starts):
+        """A chunk of ``b < c`` rows padded to ``c`` with inert series."""
         b = y.shape[0]
         if b < c:
             if ds.ndim == 2:
@@ -651,28 +744,7 @@ class CudaBackend(ForecastBackend):
                 conditions = {
                     k: _pad_batch(v, c) for k, v in conditions.items()
                 }
-        # model.fit returns on the host, so the timed dispatch covers the
-        # device work.
-        timed = (self.perf.dispatch(c, live=b, kind="chunk")
-                 if self.perf is not None else contextlib.nullcontext())
-        if self.mesh is not None:
-            with timed:
-                out = [self._fit_sharded_chunk(
-                    ds, y, mask, cap, floor, regressors, init_i, conditions,
-                    reg_u8_cols) for init_i in (init, *starts)]
-        else:
-            with timed:
-                out = self._model.fit(
-                    ds, y, mask=mask, cap=cap, floor=floor,
-                    regressors=regressors, init=init,
-                    iter_segment=self.iter_segment,
-                    on_segment=self.on_segment, conditions=conditions,
-                    reg_u8_cols=reg_u8_cols, compact=self.compact,
-                    starts=starts,
-                )
-            out = out if starts else [out]
-        out = [_take_rows(st, slice(0, b)) for st in out]
-        return out if starts else out[0]
+        return ds, y, mask, cap, floor, regressors, init, conditions, starts
 
     def _fit_sharded_chunk(self, ds, y, mask, cap, floor, regressors,
                            init, conditions, reg_u8_cols=None) -> FitState:

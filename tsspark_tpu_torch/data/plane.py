@@ -42,6 +42,7 @@ package, so the ingest's child processes start lean.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import glob
 import hashlib
@@ -815,6 +816,25 @@ def _rows_covered(ranges: Sequence[Tuple[int, int]],
     return ok
 
 
+@contextlib.contextmanager
+def delta_lock(data_dir: str, shared: bool = False):
+    """The landers' advisory lock on ``.delta.lock`` (the JAX package's
+    file): a lander holds it exclusively from its seq allocation to its
+    visibility record.  A reader that must see the plane exactly as of
+    one ``delta_seq`` (a refit plan's detect and its spill: a lander
+    scatters its rows into the memmaps before its record) holds it
+    shared, which holds every lander off meanwhile."""
+    import fcntl
+
+    lock = open(os.path.join(data_dir, ".delta.lock"), "a")
+    try:
+        fcntl.flock(lock, fcntl.LOCK_SH if shared else fcntl.LOCK_EX)
+        yield
+    finally:
+        fcntl.flock(lock, fcntl.LOCK_UN)
+        lock.close()
+
+
 def land_delta(data_dir: str, rows, y_tail,
                mask_tail=None) -> Dict:
     """Land one row-advance delta: new trailing-window observations for
@@ -829,8 +849,6 @@ def land_delta(data_dir: str, rows, y_tail,
     same seq would have the last ``deltaok`` rename swallow the
     loser's record whole — its rows scattered into the memmaps but
     never claimable, the permanent-staleness failure mode)."""
-    import fcntl
-
     # Degradation-ladder backpressure: below the pause-ingest headroom
     # threshold a lander fails fast (BackpressureError) instead of
     # racing the reaper for the last bytes on the device.
@@ -857,9 +875,7 @@ def land_delta(data_dir: str, rows, y_tail,
         )
     if mask_tail is None:
         mask_tail = np.ones_like(y_tail)
-    lock = open(os.path.join(data_dir, ".delta.lock"), "a")
-    try:
-        fcntl.flock(lock, fcntl.LOCK_EX)
+    with delta_lock(data_dir):
         seq = delta_seq(data_dir) + 1
         patch = {
             "rows": rows, "window": np.asarray(w),
@@ -887,9 +903,6 @@ def land_delta(data_dir: str, rows, y_tail,
             _delta_ok_path(data_dir, seq),
             lambda fh: json.dump(record, fh), mode="w",
         )
-    finally:
-        fcntl.flock(lock, fcntl.LOCK_UN)
-        lock.close()
     from tsspark_tpu_torch.obs import context as obs
     if obs.active():
         obs.record("datagen.delta", time.time(), 0.0, seq=seq,

@@ -32,11 +32,18 @@ import numpy as np
 import torch
 
 from tsspark_tpu_torch.config import AdviConfig
-from tsspark_tpu_torch.kernels import build
+from tsspark_tpu_torch.kernels import COUNT_LOCK, build
 from tsspark_tpu_torch.kernels.forward import _require
 
 #: Kernel launches since the count was last set to 0.
 launches = 0
+
+
+def _count() -> None:
+    """One launch, counted under ``COUNT_LOCK`` (two threads may launch)."""
+    global launches
+    with COUNT_LOCK:
+        launches += 1
 
 
 class AdamScalars(NamedTuple):
@@ -146,7 +153,6 @@ def advi_step(g, f, eps, sd, mu, rho, m_mu, v_mu, m_rho, v_rho,
       sc: ``adam_scalars`` of the step.
     Returns the (B,) per-series negative ELBO before the update.
     """
-    global launches
     dev = mu.device
     if dev.type == "cpu":
         return advi_plain(g, f, eps, sd, mu, rho, m_mu, v_mu, m_rho,
@@ -171,5 +177,5 @@ def advi_step(g, f, eps, sd, mu, rho, m_mu, v_mu, m_rho, v_rho,
             k_draws, b, p, *sc, stream,
         )
     build.check(err, "advi")
-    launches += 1
+    _count()
     return loss

@@ -23,11 +23,19 @@ import numpy as np
 import torch
 
 from tsspark_tpu_torch.config import ProphetConfig
-from tsspark_tpu_torch.kernels import build
+from tsspark_tpu_torch.kernels import COUNT_LOCK, build
 from tsspark_tpu_torch.kernels.forward import GROWTH_CODES, _require
 
 #: Kernel launches since the count was last set to 0.
 launches = 0
+
+
+def _count() -> None:
+    """One launch, counted under ``COUNT_LOCK`` (two threads may launch)."""
+    global launches
+    with COUNT_LOCK:
+        launches += 1
+
 
 #: Sample counts up to this many run in one block a row, in shared
 #: memory (``kFusedMaxSamples`` in bands.cu); larger ones go through a
@@ -141,7 +149,6 @@ def bands(theta: torch.Tensor, data, det: torch.Tensor, add: torch.Tensor,
     Any ``num_samples`` >= 1.  On the card, more than
     ``FUSED_MAX_SAMPLES`` samples take a scratch of at most
     ``SCRATCH_BYTES`` (256 MiB) of device memory for the launch."""
-    global launches
     dev = theta.device
     b, t_len = data.t.shape
     shape = (num_samples, b, t_len)
@@ -213,7 +220,7 @@ def bands(theta: torch.Tensor, data, det: torch.Tensor, add: torch.Tensor,
             num_samples, GROWTH_CODES[config.growth], stream,
         )
     build.check(err, "bands")
-    launches += 1
+    _count()
     out = dict(zip(("yhat_lower", "yhat_upper", "trend_lower",
                     "trend_upper"), outs))
     if samples is not None:

@@ -25,7 +25,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from tsspark_tpu_torch.config import ProphetConfig
-from tsspark_tpu_torch.kernels import build
+from tsspark_tpu_torch.kernels import COUNT_LOCK, build
 from tsspark_tpu_torch.kernels.bands import (
     Draws,
     quantile_linear,
@@ -36,6 +36,14 @@ from tsspark_tpu_torch.kernels.forward import GROWTH_CODES, _require
 
 #: Kernel launches since the count was last set to 0.
 launches = 0
+
+
+def _count() -> None:
+    """One launch, counted under ``COUNT_LOCK`` (two threads may launch)."""
+    global launches
+    with COUNT_LOCK:
+        launches += 1
+
 
 #: The most draws the kernel takes: one block a row, a thread a draw.
 MAX_SAMPLES = 1024
@@ -130,7 +138,6 @@ def draws(samples: torch.Tensor, data, y_scale: torch.Tensor,
     its index in the batch), so a row can be drawn alike in another
     batch.  On the card at most ``MAX_SAMPLES`` draws (ValueError past
     it); the rows go in launches of ``CHUNK_ROWS``."""
-    global launches
     dev = samples.device
     n_s, b, p = samples.shape
     t_len = data.t.shape[1]
@@ -213,7 +220,7 @@ def draws(samples: torch.Tensor, data, y_scale: torch.Tensor,
                 GROWTH_CODES[config.growth], stream,
             )
         build.check(err, "draws")
-        launches += 1
+        _count()
         if return_samples:
             all_samples[:, r0:r1] = smp
     if return_samples:

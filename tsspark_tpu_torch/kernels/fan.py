@@ -14,12 +14,19 @@ from __future__ import annotations
 import torch
 
 from tsspark_tpu_torch.config import ProphetConfig
-from tsspark_tpu_torch.kernels import build
+from tsspark_tpu_torch.kernels import COUNT_LOCK, build
 from tsspark_tpu_torch.kernels.forward import _require, aligned16
 from tsspark_tpu_torch.kernels.loss import SIGMA_FLOOR, smem_bytes, smooth_abs
 
 #: Kernel launches since the count was last set to 0.
 launches = 0
+
+
+def _count() -> None:
+    """One launch, counted under ``COUNT_LOCK`` (two threads may launch)."""
+    global launches
+    with COUNT_LOCK:
+        launches += 1
 
 
 def ray_terms(theta: torch.Tensor, direction: torch.Tensor, data,
@@ -111,7 +118,6 @@ def fan_plain(theta: torch.Tensor, direction: torch.Tensor,
 def fan(theta: torch.Tensor, direction: torch.Tensor, ladder: torch.Tensor,
         data, config: ProphetConfig) -> torch.Tensor:
     """The ladder's losses (K, B); see ``fan_plain``."""
-    global launches
     dev = theta.device
     if dev.type == "cpu":
         return fan_plain(theta, direction, ladder, data, config)
@@ -158,5 +164,5 @@ def fan(theta: torch.Tensor, direction: torch.Tensor, ladder: torch.Tensor,
             config.changepoint_prior_scale, stream,
         )
     build.check(err, "fan")
-    launches += 1
+    _count()
     return out

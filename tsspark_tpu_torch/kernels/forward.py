@@ -14,10 +14,18 @@ from typing import Optional, Tuple
 import torch
 
 from tsspark_tpu_torch.config import ProphetConfig
-from tsspark_tpu_torch.kernels import build
+from tsspark_tpu_torch.kernels import COUNT_LOCK, build
 
 #: Kernel launches since the count was last set to 0.
 launches = 0
+
+
+def _count() -> None:
+    """One launch, counted under ``COUNT_LOCK`` (two threads may launch)."""
+    global launches
+    with COUNT_LOCK:
+        launches += 1
+
 
 GROWTH_CODES = {"linear": 0, "logistic": 1, "flat": 2}
 
@@ -68,7 +76,6 @@ def forward(theta: torch.Tensor, data, config: ProphetConfig,
             y_scale: Optional[torch.Tensor] = None,
             floor: Optional[torch.Tensor] = None) -> Outputs:
     """The forward model; see ``forward_plain`` for the outputs."""
-    global launches
     dev = theta.device
     if dev.type == "cpu":
         return forward_plain(theta, data, config, y_scale, floor)
@@ -120,5 +127,5 @@ def forward(theta: torch.Tensor, data, config: ProphetConfig,
             b, t_len, config.num_params, ncp, fs, r, growth, stream,
         )
     build.check(err, "forward")
-    launches += 1
+    _count()
     return outs

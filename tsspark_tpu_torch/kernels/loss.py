@@ -31,7 +31,7 @@ from typing import Optional, Tuple
 import torch
 
 from tsspark_tpu_torch.config import ProphetConfig
-from tsspark_tpu_torch.kernels import build
+from tsspark_tpu_torch.kernels import COUNT_LOCK, build
 from tsspark_tpu_torch.kernels.forward import (
     GROWTH_CODES,
     _require,
@@ -43,6 +43,16 @@ from tsspark_tpu_torch.kernels.forward import (
 launches = 0
 grad_launches = 0
 stack_launches = 0
+
+
+def _count(grad: bool, stack: bool) -> None:
+    """One launch, counted under ``COUNT_LOCK`` (two threads may launch)."""
+    global launches, grad_launches, stack_launches
+    with COUNT_LOCK:
+        launches += 1
+        grad_launches += bool(grad)
+        stack_launches += stack
+
 
 # The K3 / K4 kernels' shared-memory plan (csrc/loss.cu, csrc/fan.cu
 # ``Plan``): a block of ROWS row warps, one row each, and one producer
@@ -361,7 +371,6 @@ def loss(theta: torch.Tensor, data, config: ProphetConfig,
          grad: bool = True
          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The objective (and its gradient); see ``loss_plain``."""
-    global launches, grad_launches, stack_launches
     dev = theta.device
     if dev.type == "cpu":
         return loss_plain(theta, data, config, grad)
@@ -414,7 +423,5 @@ def loss(theta: torch.Tensor, data, config: ProphetConfig,
             config.changepoint_prior_scale, stream,
         )
     build.check(err, "loss")
-    launches += 1
-    grad_launches += bool(grad)
-    stack_launches += stack
+    _count(grad, stack)
     return f, g

@@ -593,6 +593,57 @@ def prepare_fit_data(
     return data, meta
 
 
+#: Rows a block of ``prepare_fit_data_blocks`` prepares on one thread,
+#: and its threads.
+PREP_BLOCK_ROWS = 4096
+PREP_THREADS = 4
+#: Per-series fields of FitData (the rest are shared by every row).
+_FIT_ROW_FIELDS = ("t", "y", "mask", "s", "cap", "X_reg")
+
+
+def prepare_fit_data_blocks(ds, y, config: ProphetConfig, mask=None,
+                            cap=None, floor=None, regressors=None,
+                            conditions=None, block: int = PREP_BLOCK_ROWS):
+    """``prepare_fit_data`` of a large batch as row blocks of ``block``
+    rows on ``PREP_THREADS`` threads, concatenated: the same bits, since
+    every statistic it takes is a series' own and the shared-grid seasonal
+    matrix is the same for every block (numpy releases the interpreter
+    lock for its array work).  A batch of one block or less, per-series
+    grids, conditional seasonalities and explicit changepoints (whose
+    out-of-span warning is once a batch) take one call."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    y = np.asarray(y)
+    b = y.shape[0]
+    kw = dict(mask=mask, cap=cap, floor=floor, regressors=regressors)
+    if (b <= block or np.asarray(ds).ndim != 1
+            or conditions is not None or config.changepoints is not None):
+        return prepare_fit_data(ds, y, config, conditions=conditions, **kw)
+
+    def rows(a, lo, hi):
+        if a is None:
+            return None
+        a = np.asarray(a)
+        return a[lo:hi] if a.ndim >= 1 and a.shape[0] == b else a
+
+    def one(lo):
+        hi = min(lo + block, b)
+        return prepare_fit_data(
+            ds, y[lo:hi], config,
+            **{k: rows(v, lo, hi) for k, v in kw.items()})
+
+    with ThreadPoolExecutor(min(PREP_THREADS, -(-b // block)),
+                            thread_name_prefix="prep-block") as pool:
+        parts = list(pool.map(one, range(0, b, block)))
+    data0, _meta0 = parts[0]
+    data = data0._replace(**{
+        f: np.concatenate([getattr(d, f) for d, _ in parts])
+        for f in _FIT_ROW_FIELDS})
+    meta = type(_meta0)(*[np.concatenate([getattr(m, f) for _, m in parts])
+                          for f in _meta0._fields])
+    return data, meta
+
+
 def quantile_changepoints(t: np.ndarray, mask: np.ndarray,
                           n_changepoints: int, changepoint_range: float
                           ) -> np.ndarray:

@@ -31,6 +31,7 @@ from tsspark_tpu_torch.models.prophet.design import (
     packable_batch,
     packed_to_device,
     prepare_fit_data,
+    prepare_fit_data_blocks,
     take_fit_data,
     unpack_fit_data,
 )
@@ -320,6 +321,17 @@ def fitstate_from_packed(theta, stats, meta: ScalingMeta) -> "FitState":
     )
 
 
+class HostBatch(NamedTuple):
+    """A batch prepared on the host for :meth:`ProphetModel.fit`: the
+    FitData and its scaling meta, and the packed payload with its
+    bit-packed regressor columns (both None off the packed transit)."""
+
+    data: object
+    meta: object
+    packed: object
+    reg_u8_cols: Optional[Tuple[int, ...]]
+
+
 class McmcState(NamedTuple):
     """Full-posterior fit: (S, B, P) draws + scaling metadata + diagnostics.
 
@@ -432,6 +444,7 @@ class ProphetModel:
         compact_floor: int = 32,
         compact_multiple: int = 1,
         starts: Sequence = (),
+        host: Optional["HostBatch"] = None,
     ) -> FitState:
         """Fit every series in the (B, T) batch.
 
@@ -459,22 +472,20 @@ class ProphetModel:
 
         ``self.stages`` times prep, pack, to_device, init, solve and
         to_host (each span waits for the device before it closes).
+
+        ``host``: this batch already prepared by :meth:`prepare_host` (on
+        any thread); the arrays above are then not read again.
         """
-        with self.stages.span("prep"):
-            data, meta = prepare_fit_data(
-                ds, y, self.config, mask=mask, cap=cap, floor=floor,
-                regressors=regressors, conditions=conditions,
+        if host is None:
+            host = self.prepare_host(
+                ds, y, mask=mask, cap=cap, floor=floor,
+                regressors=regressors, iter_segment=iter_segment,
+                conditions=conditions, reg_u8_cols=reg_u8_cols,
+                clock=self.stages,
             )
-        packable = (
-            not (iter_segment and iter_segment < self.solver_config.max_iters)
-            and packable_batch(ds, data.mask)
-        )
-        if packable:
-            with self.stages.span("pack"):
-                packed, u8 = pack_fit_data(
-                    data, meta, ds, reg_u8_cols=reg_u8_cols,
-                    collapse_cap=self.config.growth != "logistic",
-                )
+        data, meta = host.data, host.meta
+        if host.packed is not None:
+            packed, u8 = host.packed, host.reg_u8_cols
             with self.stages.span("to_device"):
                 packed = packed_to_device(packed, self.device)
                 _sync(self.device)
@@ -499,6 +510,33 @@ class ProphetModel:
             compact_floor=compact_floor, compact_multiple=compact_multiple,
         ) for init_i in (init, *starts)]
         return states if starts else states[0]
+
+    def prepare_host(self, ds, y, mask=None, cap=None, floor=None,
+                     regressors=None, iter_segment: Optional[int] = None,
+                     conditions=None,
+                     reg_u8_cols: Optional[Tuple[int, ...]] = None, *,
+                     clock: StageClock) -> "HostBatch":
+        """The host half of :meth:`fit`: ``prepare_fit_data`` and, where
+        the batch rides the packed transit, ``pack_fit_data`` (numpy only,
+        so it may run on a worker thread beside another chunk's solve).
+        ``clock`` times "prep" and "pack" (give a thread its own)."""
+        with clock.span("prep"):
+            data, meta = prepare_fit_data(
+                ds, y, self.config, mask=mask, cap=cap, floor=floor,
+                regressors=regressors, conditions=conditions,
+            )
+        packable = (
+            not (iter_segment and iter_segment < self.solver_config.max_iters)
+            and packable_batch(ds, data.mask)
+        )
+        if not packable:
+            return HostBatch(data, meta, None, None)
+        with clock.span("pack"):
+            packed, u8 = pack_fit_data(
+                data, meta, ds, reg_u8_cols=reg_u8_cols,
+                collapse_cap=self.config.growth != "logistic",
+            )
+        return HostBatch(data, meta, packed, u8)
 
     def _theta_init(self, init) -> torch.Tensor:
         return torch.as_tensor(init).to(self.device, torch.float32)
@@ -583,7 +621,7 @@ class ProphetModel:
         host) to the fit's stages.
         """
         with self.stages.span("prep"):
-            data, meta = prepare_fit_data(
+            data, meta = prepare_fit_data_blocks(
                 ds, y, self.config, mask=mask, cap=cap, floor=floor,
                 regressors=regressors, conditions=conditions,
             )

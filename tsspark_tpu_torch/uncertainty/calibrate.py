@@ -167,7 +167,8 @@ def run_calibration_smoke(scratch: str, *, n_series: int = 24,
     )
     from tsspark_tpu_torch.data import plane
     from tsspark_tpu_torch.device import resolve_device
-    from tsspark_tpu_torch.models.prophet.design import prepare_fit_data
+    from tsspark_tpu_torch.models.prophet.design import (
+        prepare_fit_data_blocks)
     from tsspark_tpu_torch.serve.registry import ParamRegistry
     from tsspark_tpu_torch.uncertainty import advi as advi_mod
     from tsspark_tpu_torch.uncertainty import gold as gold_mod
@@ -209,7 +210,8 @@ def run_calibration_smoke(scratch: str, *, n_series: int = 24,
                          step=np.ones(int(n_series)))
 
     # ADVI advance over the SAME truncated design the MAP solve saw.
-    data, _meta = prepare_fit_data(ds_fit, y_fit, config, mask=mask_fit)
+    data, _meta = prepare_fit_data_blocks(ds_fit, y_fit, config,
+                                          mask=mask_fit)
     advi_cfg = AdviConfig()
     t0 = time.perf_counter()
     post = advi_mod.fit_advi(
