@@ -283,7 +283,36 @@ the script exits non-zero without printing the final line:
    bytes, the sink's keys each once, and ``python -m
    tsspark_tpu_torch.alerts --poll-once`` on the card writing the same
    records.
-21. frontend — the user front end on phase fit's batch, config 3's
+21. benches — the JAX package's bench family as the port runs it, in a
+   child process (``python3 chip_smoke.py --_benches ROOT``,
+   ``BenchesChild``) started before phase dataplane and joined after
+   phase sched, beside those host-bound phases; its working directory,
+   data and scratch roots and ``$TMPDIR`` its own.  On a one-device mesh
+   of cuda:0: (a) ``bench_scale.run_rung("30k")`` on a fresh data root
+   (30,490 x 128 ``demo_weekly`` ingested, the resident fit in 2,048-row
+   waves, the snapshot plane and npz published, a ``ReplicaPool`` of 4
+   replica processes answering 320 requests with the mid-run flip to
+   v2, the npz pool's RSS comparison, the sentinel row under
+   ``scale_30k`` with the card's device class), then K3 (both modes) and
+   K4 by GAP_RULE on the rung's first 2,048 x 128 wave off the optimum
+   (a dropped cell must fail) and K1 at the pool's dispatch shapes; (b)
+   ``refit.run_delta_bench`` (churns 0.01, 0.1, 0.3), then
+   ``sched.run_freshness_bench`` (serialized, pipelined) and
+   ``alerts.bench.run_alerts_bench`` on the one cold base they share
+   (``reuse_cold``): ``sweep_ok``, each delta's ``n_changed`` the landed
+   rows, zero wrong-version answers, every alert delivered, each
+   report's keys the JAX package's (copied here, not imported); (c)
+   ``serve.planebench.run_serveplane_bench`` at 48 series and 2,000
+   requests (plane hit rate 1.0, a cold and a bank-armed replica each
+   answering); (d) ``calibrate.run_uncertainty_bench`` at 24 series (its
+   ``calibration`` row on the card's device class); (e) the run ledger
+   over the phase's scratch, in process and through ``python -m
+   tsspark_tpu_torch.obs ledger`` (the same ledger, no orphan span).
+   (c) and (d) run at the reference's bench sizes: serving, the planes
+   and the calibration recipe run at the fleet's width in other phases.
+   Launch counts set to 0 before each leg and read after it (the
+   replicas' at each pool's stop): ``launches_benches``.
+22. frontend — the user front end on phase fit's batch, config 3's
    model as a user builds it for a long frame (the holiday a ``Holiday``
    from a holidays frame, after the price and promo columns): (a)
    ``Forecaster.fit`` of a long frame of the first 8,192 series (one
@@ -311,7 +340,7 @@ the script exits non-zero without printing the final line:
    process, each child loading the built kernel library (no rebuild).
    Launch counts (K1, K2, K3 per mode, K4, K6) set to 0 before each leg,
    read after; walls (pivot, fit, predict, scatter to long), peak memory.
-22. serve_scale — serving at scale on phase serve's registry (30,490
+23. serve_scale — serving at scale on phase serve's registry (30,490
    series x 1,941 days): (a) the in-process loadgen (``python -m
    tsspark_tpu_torch.serve --loadgen``'s ``_loadgen``), 10,000 requests of
    the JAX package's mix (Zipf over series, 1-8 series a request,
@@ -347,7 +376,7 @@ the script exits non-zero without printing the final line:
    (d) ``python -m tsspark_tpu_torch.serve --registry`` as a child
    process beside (c): three requests bitwise the engine's, stats,
    activate, rollback.
-23. kernels — each kernel at its main path's shapes, on the main path's
+24. kernels — each kernel at its main path's shapes, on the main path's
    inputs (K3 and K4 at 8192x1746 on config 3's first chunk; K3's
    logistic branch at 8192x1080; K3's trial-stack layout on config 4's
    21 x 8192 line-search stack and on one of flat growth over config 3's
@@ -365,7 +394,9 @@ the script exits non-zero without printing the final line:
    planes and dataplane; K3 and K4 their launches in phase resilient's
    worker processes and on phase resident's resume, K1, K3 and K7 theirs
    in phase refit's process, K1, K3, K4 and K7 theirs on phase sched's
-   stream (``launches_sched``) with its wave's and chunk's checks; K1-K4 and K6 their launches on phase frontend, and
+   stream (``launches_sched``) with its wave's and chunk's checks; K1,
+   K3, K4 and K7 theirs on phase benches (``launches_benches``) with the
+   rung's wave and pool-shape checks; K1-K4 and K6 their launches on phase frontend, and
    K3 and K4 their checks on its CV buckets; K1 and K2 their launches on
    phase serve_scale's loadgen and replicas, their checks and times at
    the pool's shapes.
@@ -3067,6 +3098,8 @@ def phase_stream_fleet_m5(device, frame, ids, gen_s, parity) -> dict:
 # posterior, so more than Z_FRAC of z past Z_LIMIT (a standard normal puts
 # 6e-5 there) or a median past Z_MEDIAN (its median is 0.674) is a fault.
 MCMC_SUBSET = 64
+RHAT_BLOCKS = 8       # 128-row blocks of the batch the card's R-hat is held on
+RHAT_TOL = 1e-9       # |card - numpy| / max(|numpy|, 1), float64
 Z_LIMIT, Z_FRAC, Z_MEDIAN = 4.0, 0.01, 1.0
 DRAWS_TOL = 1e-5
 
@@ -3368,6 +3401,17 @@ def phase_mcmc(fit, device) -> dict:
     require(state.rhat.shape == state.ess.shape == (n_ser, cfg.num_params)
             and np.isfinite(state.rhat).all() and np.isfinite(state.ess).all(),
             "split-R-hat and ESS finite, one a (series, parameter)")
+    # The card's split-R-hat and ESS against the host's numpy version on
+    # the rows of RHAT_ROWS blocks spread over the batch: float64 tolerance.
+    rhat_rows = np.concatenate([np.arange(lo, min(lo + 128, n_ser))
+                                for lo in np.linspace(0, n_ser - 1,
+                                                      RHAT_BLOCKS,
+                                                      dtype=np.int64)])
+    host = hmc.split_rhat_ess(state.samples[:, rhat_rows].cpu().numpy())
+    rhat_err = [float(np.max(np.abs(c[rhat_rows] - h) / np.maximum(
+        np.abs(h), 1.0))) for c, h in zip((state.rhat, state.ess), host)]
+    require(max(rhat_err) <= RHAT_TOL,
+            f"split-R-hat / ESS on the card against numpy: {rhat_err}")
     for k in dk.OUTPUTS:
         require(tuple(fc[k].shape) == (n_ser, n_days), f"forecast {k} shape")
         require(bool(torch.isfinite(fc[k]).all()), f"forecast {k} finite")
@@ -3401,6 +3445,10 @@ def phase_mcmc(fit, device) -> dict:
         "step_size_median": float(np.median(state.step_size)),
         "rhat_max": float(state.rhat.max()),
         "rhat_over_1.1_frac": float((state.rhat > 1.1).mean()),
+        "rhat_ess_vs_numpy": {"rows": int(len(rhat_rows)),
+                              "rhat_rel_err": rhat_err[0],
+                              "ess_rel_err": rhat_err[1],
+                              "tolerance": RHAT_TOL},
         "ess_min": float(state.ess.min()),
         "ess_median": float(np.median(state.ess)),
         "smape_train": float(sc["smape_train"].mean()),
@@ -8896,6 +8944,563 @@ def add_serve_scale(kernels, ss) -> None:
 
 
 #: Host threads generating the run's data beside the kernels' build.
+BN_RUNG = "30k"           # (a) and (b): the ladder's 30,490 x 128 rung
+BN_WAVE = 2048            # the rung's resident wave (its chunk)
+BN_SEED = 29              # off_optimum's seed for the wave's K3/K4 check
+BN_PLANE_SERIES = 48      # (c): ``bench.py --serveplane``'s defaults
+BN_PLANE_REQUESTS = 2000
+BN_UNC_SERIES = 24        # (d): ``bench.py --uncertainty``'s default
+BN_POOL_WIDTHS = (8, 16, 32, 64)   # the rung's pool dispatches (1-8 series
+BN_POOL_BUCKETS = (8, 16)          # a request, horizons 7 / 14)
+BN_TIMEOUT_S = 900.0
+
+#: The JAX package's report keys of each stream bench (key paths; its
+#: ``run_delta_bench`` / ``run_freshness_bench`` / ``run_alerts_bench``
+#: reports at the smoke rung, without the in-memory ``path``).
+BN_DELTA_KEYS = (
+    "extra", "extra.cache_carried", "extra.cold_fit_s", "extra.cold_publish_s",
+    "extra.cold_reused", "extra.cold_wall_s", "extra.complete",
+    "extra.config_fingerprint", "extra.delta_churn", "extra.delta_seq",
+    "extra.delta_series_per_s", "extra.delta_wall_frac", "extra.detect_s",
+    "extra.device", "extra.fit_dispatches", "extra.fit_path", "extra.fit_s",
+    "extra.flip_hit_rate", "extra.flip_requests", "extra.flip_s",
+    "extra.git_rev", "extra.hot_changed", "extra.land_s", "extra.n_changed",
+    "extra.numerics_rev", "extra.publish_s", "extra.series_done",
+    "extra.series_total", "extra.trace_id", "extra.version",
+    "extra.warm_start", "metric", "unit", "unix", "value", "vs_baseline")
+BN_FRESHNESS_KEYS = (
+    "churn", "cold_fit_s", "cold_publish_s", "cold_reused", "cold_wall_s",
+    "complete", "config_fingerprint", "cycle_overhead_frac", "cycles",
+    "deltas", "device", "freshness_max_s", "freshness_mean_s", "freshness_n",
+    "freshness_p50_s", "freshness_p95_s", "freshness_vs_cold_frac",
+    "git_rev", "interval_s", "kind", "mode", "numerics_rev",
+    "probe_failures", "rung", "series", "spec_hit_rate", "spec_predicted",
+    "stream_wall_s", "timesteps", "trace_id", "unix", "wall_s",
+    "wrong_version")
+BN_ALERTS_KEYS = (
+    "alerts_max_s", "alerts_mean_s", "alerts_n", "alerts_p50_s",
+    "alerts_p95_s", "breaker_opens", "churn", "cold_fit_s", "cold_publish_s",
+    "cold_reused", "cold_wall_s", "complete", "config_fingerprint",
+    "deduped", "degraded", "delivered", "delivered_frac", "deltas", "device",
+    "fired", "git_rev", "interval_s", "kind", "mode", "numerics_rev",
+    "queued", "rung", "series", "suppressed", "timesteps", "trace_id",
+    "unix", "wall_s")
+
+
+#: Keys a bench adds in memory beside its written report: the report's
+#: path and the sentinel's verdict (the JAX package's do the same).
+BN_OWN_KEYS = {"path", "sentinel_ok"}
+
+
+def _key_paths(d, pre="") -> set:
+    out = set()
+    for k, v in d.items():
+        out.add(pre + k)
+        if isinstance(v, dict):
+            out |= _key_paths(v, pre + k + ".")
+    return out
+
+
+def _device_class(device) -> str:
+    """The run history's device class of a run on ``device``."""
+    return "gpu" if device.type == "cuda" else "cpu"
+
+
+def _capture_replica_stops(sink: list):
+    """Wrap ``ReplicaPool.stop`` so every pool a bench starts (inside the
+    bench's own functions) first hands each replica's K1 / K2 launch
+    counters to ``sink``; returns the original to restore."""
+    from tsspark_tpu_torch.serve import pool as pool_mod
+
+    orig = pool_mod.ReplicaPool.stop
+
+    def stop(self):
+        for slot in range(self.n_replicas):
+            try:
+                sink.append(_replica_counters(self, slot))
+            except Exception as e:  # required empty by the caller
+                sink.append({"error": repr(e), "slot": slot})
+        orig(self)
+
+    pool_mod.ReplicaPool.stop = stop
+    return orig
+
+
+def _replica_sum(rows) -> dict:
+    bad = [r for r in rows if "error" in r]
+    require(not bad, f"a replica's counters at its pool's stop: {bad}")
+    return {"replicas": len(rows),
+            "forward": sum(r["forward"] for r in rows),
+            "bands": sum(r["bands"] for r in rows)}
+
+
+def bn_wave(dset_dir, cfg, n, device):
+    """The rung's first resident wave (rows [0, n)) as the resident fit
+    packs it, on the card."""
+    from tsspark_tpu_torch.data import plane
+    from tsspark_tpu_torch.models.prophet.design import (
+        pack_fit_data, packed_to_device, prepare_fit_data, unpack_fit_data)
+
+    batch = plane.open_batch(dset_dir)
+    ds = np.asarray(batch.ds, np.float64)
+    y = np.asarray(batch.y[:n], np.float32)
+    mask = None if batch.mask is None else np.asarray(batch.mask[:n])
+    data, meta = prepare_fit_data(ds, y, cfg, mask=mask)
+    packed, u8 = pack_fit_data(data, meta, ds, reg_u8_cols=(),
+                               collapse_cap=True)
+    return unpack_fit_data(packed_to_device(packed, device), u8)
+
+
+def bn_forward(snap, cfg, device) -> dict:
+    """K1 against its plain version at the rung's pool dispatch shapes
+    (widths 8-64 at horizon buckets 8 and 16) on the served version's
+    rows, and each row the same bits in a reversed batch."""
+    import torch
+
+    from tsspark_tpu_torch.kernels import forward as fk
+    from tsspark_tpu_torch.models.prophet.predict import prepare_predict_data
+    from tsspark_tpu_torch.serve.fplane import future_grid
+
+    tol, rows, out = 2e-5, np.arange(max(BN_POOL_WIDTHS)), {}
+    for w in BN_POOL_WIDTHS:
+        for hb in BN_POOL_BUCKETS:
+            state, step = snap.take(rows[:w])
+            data = prepare_predict_data(future_grid(state, step, hb),
+                                        state.meta, cfg, device)
+            theta = state.theta.to(device)
+            scale = torch.as_tensor(state.meta.y_scale, dtype=torch.float32,
+                                    device=device)
+            floor = torch.as_tensor(state.meta.floor, dtype=torch.float32,
+                                    device=device)
+            got = fk.forward(theta, data, cfg, scale, floor)
+            want = fk.forward_plain(theta, data, cfg, scale, floor)
+            err = _forward_err(got, want, scale)
+            require(err <= tol, f"K1 at the rung's {w}x{hb}: {err}")
+            rev = torch.arange(w - 1, -1, -1, device=device)
+            flip = fk.forward(theta[rev].contiguous(), _rows(data, rev), cfg,
+                              scale[rev].contiguous(), floor[rev].contiguous())
+            require(all(torch.equal(g, x[rev]) for g, x in zip(flip, got)),
+                    f"K1 at the rung's {w}x{hb}: a reversed batch differs")
+            out[f"{w}x{hb}"] = err
+    return {"rel_err": out,
+            "tolerance": f"|k-p|/(y_scale+|p|) <= {tol}",
+            "max_abs_err": max(out.values())}
+
+
+def bn_scale(root, device, mesh) -> dict:
+    """(a) ``bench_scale.run_rung(BN_RUNG)`` on a fresh data root: ingest,
+    the resident fit on ``mesh``, the publish, a ReplicaPool of the
+    rung's replicas with the mid-run flip, the npz pool's RSS comparison,
+    the sentinel row; then K3 / K4 on the rung's first wave by GAP_RULE
+    off the optimum (a dropped cell must fail) and K1 at the pool's
+    dispatch shapes."""
+    import torch
+
+    from tsspark_tpu_torch import bench_scale, orchestrate
+    from tsspark_tpu_torch.data import plane
+    from tsspark_tpu_torch.obs import history
+    from tsspark_tpu_torch.serve.registry import ParamRegistry
+
+    rung = bench_scale.RUNGS[BN_RUNG]
+    replicas = []
+    _zero_kernel_counts()
+    orig = _capture_replica_stops(replicas)
+    t0 = time.perf_counter()
+    try:
+        rep = bench_scale.run_rung(
+            BN_RUNG, data_root=os.path.join(root, "a_data"),
+            scratch_root=os.path.join(root, "a"), sentinel=True,
+            device=device, mesh=mesh)
+    finally:
+        from tsspark_tpu_torch.serve import pool as pool_mod
+
+        pool_mod.ReplicaPool.stop = orig
+    wall = time.perf_counter() - t0
+    counts = _kernel_counts()
+    fit, serve = rep.get("fit") or {}, rep.get("serve") or {}
+    require(bool(rep.get("complete")), f"the {BN_RUNG} rung: {rep}")
+    require(rep["ingest"]["warm"] is False, "the rung's ingest was fresh")
+    require(fit["fit_path"] == "resident"
+            and fit["series_done"] == rung.series,
+            f"the rung's fit: {fit}")
+    require(serve["outcomes"]["failed"] == 0
+            and serve["wrong_version"] == 0
+            and serve["flip"]["version"] == 2
+            and serve["replicas"] == rung.pool_replicas,
+            f"the rung's pool: {serve['outcomes']}, "
+            f"{serve['wrong_version']}, {serve['flip']}")
+    # ``rss_reduction_x`` needs each replica's anonymous resident bytes
+    # (``RssAnon``, or ``Anonymous`` summed over smaps where the status
+    # file lacks it: ``utils.procmem``) and the snapshot mappings' Pss.
+    rss = serve["rss_compare"]
+    require(rss.get("rss_reduction_x") is not None,
+            f"the rung's RSS comparison: {rss}")
+    rows = [r for r in history.read_history(history.HISTORY_FILE)
+            if r["kind"] == "scale"]
+    require(len(rows) == 1 and rows[0]["workload"] == f"scale_{BN_RUNG}"
+            and rows[0]["device_class"] == _device_class(device),
+            f"the rung's sentinel row: {rows}")
+    require(counts["loss_grad"] > 0 and counts["loss_value"] > 0
+            and counts["fan"] > 0, f"K3 / K4 on the rung's fit: {counts}")
+    in_replicas = _replica_sum(replicas)
+    require(in_replicas["replicas"] == 2 * rung.pool_replicas
+            and in_replicas["forward"] > 0,
+            f"K1 in the rung's replicas: {in_replicas}")
+    # The checks' own launches come after the counts were read.
+    cfg = bench_scale._config()
+    dset = plane.dataset_dir(plane.DatasetSpec(
+        "demo_weekly", rung.series, rung.timesteps, seed=2),
+        os.path.join(root, "a_data"))
+    scratch = os.path.join(
+        root, "a", f"tsscale_{rung.name}_{rung.series}x{rung.timesteps}"
+        f"_{plane.dataset_fingerprint()}")
+    state = orchestrate.load_fit_state(os.path.join(scratch, "out"),
+                                       rung.series)
+    data = bn_wave(dset, cfg, BN_WAVE, device)
+    theta = torch.as_tensor(np.asarray(state.theta[:BN_WAVE], np.float32),
+                            device=device)
+    theta_h, d_h = off_optimum(theta, BN_SEED)
+    wave = hold_kernels(theta_h, d_h, data, cfg, "the rung's wave")
+    snap = ParamRegistry.open(os.path.join(scratch, "registry")).load(
+        1, fallback=False)
+    k1 = bn_forward(snap, cfg, device)
+    return {"wall_s": wall, "report": rep, "launches": counts,
+            "replica_launches": in_replicas, "wave": wave, "forward": k1}
+
+
+def bn_streams(root, device, mesh) -> dict:
+    """(b) One cold base (``reuse_cold``), then three streams: the delta
+    bench's churns, the freshness bench (serialized, pipelined), the
+    alert bench; each report against the JAX package's keys."""
+    from tsspark_tpu_torch import bench_scale, refit, sched
+    from tsspark_tpu_torch.alerts import bench as alerts_bench
+    from tsspark_tpu_torch.data import plane
+
+    cold = os.path.join(root, "b_cold")
+    kw = dict(scratch_root=os.path.join(root, "b"), reuse_cold=cold,
+              device=device, mesh=mesh, sentinel=True)
+    out = {}
+    legs = (("delta", lambda: refit.run_delta_bench(
+                 BN_RUNG, churns=refit.DEFAULT_CHURNS, **kw)),
+            ("freshness", lambda: sched.run_freshness_bench(BN_RUNG, **kw)),
+            ("alerts", lambda: alerts_bench.run_alerts_bench(BN_RUNG, **kw)))
+    for name, run in legs:
+        _zero_kernel_counts()
+        t0 = time.perf_counter()
+        reports = run()
+        out[name] = {"wall_s": time.perf_counter() - t0,
+                     "launches": _kernel_counts(), "reports": reports}
+        require(refit.sweep_ok(reports), f"{name} bench: {reports}")
+    rung = bench_scale.RUNGS[BN_RUNG]
+    dset = plane.dataset_dir(plane.DatasetSpec(
+        "demo_weekly", rung.series, rung.timesteps, seed=2),
+        os.path.join(cold, "plane"))
+    for rep in out["delta"]["reports"]:
+        x = rep["extra"]
+        landed = len(plane.delta_rows(dset, x["delta_seq"]))
+        require(x["complete"] and x["n_changed"] == landed
+                and x["fit_path"] == "resident",
+                f"delta churn {x['delta_churn']}: n_changed "
+                f"{x['n_changed']}, landed {landed}, {x['fit_path']}")
+        require(_key_paths(rep) - BN_OWN_KEYS == set(BN_DELTA_KEYS),
+                f"delta report keys: {sorted(_key_paths(rep))}")
+    require([r["mode"] for r in out["freshness"]["reports"]]
+            == ["serialized", "pipelined"], "the freshness modes")
+    for rep in out["freshness"]["reports"]:
+        require(rep["complete"] and rep["wrong_version"] == 0
+                and rep["probe_failures"] == 0
+                and rep["freshness_n"] >= rep["deltas"],
+                f"freshness {rep['mode']}: {rep}")
+        require(_key_paths(rep) - BN_OWN_KEYS == set(BN_FRESHNESS_KEYS),
+                f"freshness report keys: {sorted(_key_paths(rep))}")
+    rep = out["alerts"]["reports"][0]
+    require(rep["complete"] and rep["delivered_frac"] == 1.0,
+            f"alerts bench: {rep}")
+    require(_key_paths(rep) - BN_OWN_KEYS == set(BN_ALERTS_KEYS),
+            f"alerts report keys: {sorted(_key_paths(rep))}")
+    for name in out:
+        c = out[name]["launches"]
+        require(c["loss_grad"] > 0 and c["fan"] > 0 and c["forward"] > 0,
+                f"the {name} bench's K3 / K4 / K1 launches: {c}")
+    return out
+
+
+def bn_plane(root, device) -> dict:
+    """(c) ``planebench.run_serveplane_bench`` at its reference defaults:
+    the plane engine's hit rate 1.0, the cold and the bank-armed replicas
+    each answering their first request."""
+    import types
+
+    from tsspark_tpu_torch.serve import planebench
+
+    replicas = []
+    _zero_kernel_counts()
+    orig = _capture_replica_stops(replicas)
+    t0 = time.perf_counter()
+    try:
+        rc = planebench.run_serveplane_bench(types.SimpleNamespace(
+            series=BN_PLANE_SERIES, requests=BN_PLANE_REQUESTS, seed=0,
+            dir=os.path.join(root, "c"), report=os.path.join(root, "c.json"),
+            data_root=os.path.join(root, "c_data"), device=device))
+    finally:
+        from tsspark_tpu_torch.serve import pool as pool_mod
+
+        pool_mod.ReplicaPool.stop = orig
+    wall = time.perf_counter() - t0
+    with open(os.path.join(root, "c.json")) as fh:
+        rep = json.load(fh)
+    p = rep["plane"]
+    require(rc == 0, f"the plane bench's exit code {rc}")
+    require(p["plane_hit_rate"] == 1.0, f"plane hit rate: {p}")
+    require(p["ttfr"]["cold"]["ok"] and p["ttfr"]["aot_warm"]["ok"],
+            f"the cold and bank-armed replicas: {p['ttfr']}")
+    in_replicas = _replica_sum(replicas)
+    counts = _kernel_counts()
+    require(counts["forward"] > 0 and in_replicas["forward"] > 0,
+            f"K1 in the plane bench: {counts}, {in_replicas}")
+    return {"wall_s": wall, "report": rep, "launches": counts,
+            "replica_launches": in_replicas}
+
+
+def bn_calibration(root, device) -> dict:
+    """(d) ``calibrate.run_uncertainty_bench`` at its reference default:
+    the report and its ``calibration`` history row on the card's device
+    class."""
+    import types
+
+    from tsspark_tpu_torch.obs import history
+    from tsspark_tpu_torch.uncertainty import calibrate
+
+    _zero_kernel_counts()
+    t0 = time.perf_counter()
+    rc = calibrate.run_uncertainty_bench(types.SimpleNamespace(
+        series=BN_UNC_SERIES, seed=0, dir=os.path.join(root, "d"),
+        report=os.path.join(root, "d.json"),
+        data_root=os.path.join(root, "d_data"), device=device))
+    wall = time.perf_counter() - t0
+    counts = _kernel_counts()
+    with open(os.path.join(root, "d.json")) as fh:
+        rep = json.load(fh)
+    require(rc == 0 and rep["kind"] == "calibration-eval",
+            f"the calibration bench: rc {rc}")
+    rows = [r for r in history.read_history(history.HISTORY_FILE)
+            if r["kind"] == "calibration"]
+    require(len(rows) == 1
+            and rows[0]["device_class"] == _device_class(device),
+            f"the calibration row: {rows}")
+    require(counts["loss_grad"] > 0 and counts["loss_stack"] > 0
+            and counts["advi"] > 0,
+            f"K3 (its draw stack) and K7 in the calibration bench: {counts}")
+    return {"wall_s": wall, "report": rep, "launches": counts}
+
+
+def bn_ledger(root) -> dict:
+    """(e) The run ledger over the phase's scratch, in this process and as
+    ``python -m tsspark_tpu_torch.obs ledger`` in a child: the same
+    ledger (stamps aside), no orphan span."""
+    from tsspark_tpu_torch import orchestrate
+    from tsspark_tpu_torch.obs import ledger
+
+    led = ledger.build_ledger(root)
+    out = os.path.join(root, "RUNLEDGER_cli.json")
+    proc = subprocess.run(
+        [sys.executable, "-m", "tsspark_tpu_torch.obs", "ledger", root,
+         "-o", out], env=orchestrate._child_env(), capture_output=True,
+        text=True, timeout=300)
+    require(proc.returncode == 0, f"the obs ledger CLI: {proc.stderr[-2000:]}")
+    with open(out) as fh:
+        cli = json.load(fh)
+    same = ({k: v for k, v in cli.items() if k != "unix"}
+            == json.loads(json.dumps({k: v for k, v in led.items()
+                                      if k != "unix"})))
+    require(same, "the obs ledger CLI's ledger differs from build_ledger's")
+    require(led["orphan_spans"] == [], f"orphan spans: {led['orphan_spans']}")
+    return {"trace_id": led["trace_id"], "spans": len(led["spans"]),
+            "events": len(led["events"]), "processes": len(led["processes"]),
+            "orphan_spans": 0, "red": led["red"],
+            "milestones": led["milestones"], "cli_same": True}
+
+
+def phase_benches(device, root) -> dict:
+    """The bench family (see ``--_benches``): (a) the scale rung, (b) the
+    stream benches on one cold base, (c) the plane bench, (d) the
+    calibration bench, (e) the run ledger; launch counts set to 0 before
+    each leg and read after it (the replicas' read at each pool's stop).
+    Runs with ``root`` as its working directory: every report and the run
+    history land there."""
+    import torch
+
+    from tsspark_tpu_torch.parallel.mesh import make_mesh
+
+    mesh_dev = (torch.device("cuda", 0) if device.type == "cuda"
+                else device)
+    mesh = make_mesh(1, 1, devices=[mesh_dev])
+    t0 = time.perf_counter()
+    a = bn_scale(root, device, mesh)
+    b = bn_streams(root, device, mesh)
+    c = bn_plane(root, device)
+    d = bn_calibration(root, device)
+    e = bn_ledger(root)
+    rep, serve = a["report"], a["report"]["serve"]
+    mem = serve["mem"]
+    plane = c["report"]["plane"]
+    cal = d["report"]["calibration"]
+    res = {
+        "phase": "benches",
+        "note": ("(c) and (d) at the reference's bench sizes: serving, the "
+                 "planes and the calibration recipe already run at the "
+                 "fleet's 30,490 series in phases serve_scale, planes and "
+                 "uncertainty"),
+        "wall_s": time.perf_counter() - t0,
+        "legs_s": {"scale": a["wall_s"],
+                   **{k: v["wall_s"] for k, v in b.items()},
+                   "plane": c["wall_s"], "calibration": d["wall_s"]},
+        "scale": {"rung": BN_RUNG, "fit_s": rep["fit"]["fit_s"],
+                  "series_per_s": rep["fit"]["series_per_s"],
+                  "publish_s": rep["publish"]["publish_s"],
+                  "snapshot_mb": rep["publish"]["snapshot_mb"],
+                  "ttfr_s": serve["time_to_first_request_s"],
+                  "agg_requests_per_s": serve["agg_requests_per_s"],
+                  "flip_p99_ms": serve["flip"]["p99_ms"],
+                  "rss_mb_per_replica": mem["rss_mb_per_replica"],
+                  "pss_mb_per_replica": mem["pss_mb_per_replica"],
+                  "rss_reduction_x": serve["rss_compare"].get(
+                      "rss_reduction_x"),
+                  "rss_anon_mb_per_replica": mem["rss_anon_mb_per_replica"],
+                  "snap_pss_total_mb": mem["snap_pss_total_mb"],
+                  "outcomes": serve["outcomes"],
+                  "wrong_version": serve["wrong_version"],
+                  "wave_check": a["wave"], "forward_check": a["forward"]},
+        "delta": [{"churn": r["extra"]["delta_churn"],
+                   "n_changed": r["extra"]["n_changed"],
+                   "delta_series_per_s": r["extra"]["delta_series_per_s"],
+                   "delta_wall_s": r["value"],
+                   "cold_reused": r["extra"]["cold_reused"]}
+                  for r in b["delta"]["reports"]],
+        "freshness": {r["mode"]: {"p50_s": r["freshness_p50_s"],
+                                  "p95_s": r["freshness_p95_s"],
+                                  "cycles": r["cycles"],
+                                  "wrong_version": r["wrong_version"]}
+                      for r in b["freshness"]["reports"]},
+        "alerts": {k: b["alerts"]["reports"][0][k] for k in (
+            "alerts_p50_s", "alerts_p95_s", "fired", "delivered_frac",
+            "mode")},
+        "plane": {"plane_rps": plane["hot_read"]["plane_rps"],
+                  "dispatch_rps": plane["hot_read"]["dispatch_rps"],
+                  "read_p99_ms": plane["read_latency_ms"]["p99"],
+                  "ttfr": {k: plane["ttfr"][k] for k in (
+                      "cold_arm", "cold_s", "aot_warm_s")}},
+        "calibration": {"mode": cal["mode"],
+                        "coverage_abs_gap": cal["coverage_abs_gap"],
+                        "qread_p99_ms": cal["qread_p99_ms"]},
+        "ledger": e,
+        "launches_benches": {
+            "scale": a["launches"], "scale_replicas": a["replica_launches"],
+            **{k: v["launches"] for k, v in b.items()},
+            "plane": c["launches"], "plane_replicas": c["replica_launches"],
+            "calibration": d["launches"]},
+    }
+    return res
+
+
+def add_benches(kernels, bn) -> None:
+    """K1, K2, K3, K4 and K7's entries gain their launches on phase
+    benches (in its process and in its replicas), and K3 / K4 and K1 the
+    rung's wave and pool-shape checks."""
+    lb = bn["launches_benches"]
+    own = [v for k, v in lb.items() if not k.endswith("_replicas")]
+    reps = [v for k, v in lb.items() if k.endswith("_replicas")]
+
+    def total(key):
+        return sum(v.get(key, 0) for v in own)
+
+    for k in kernels:
+        name = k["name"]
+        if name == "loss":
+            k["launches_benches"] = total("loss_grad") + total("loss_value")
+            k["launches_benches_stack"] = total("loss_stack")
+            k["benches_wave_check"] = bn["scale"]["wave_check"]["gap"]
+        elif name == "fan":
+            k["launches_benches"] = total("fan")
+            k["benches_wave_check"] = bn["scale"]["wave_check"]["gap"]["fan"]
+        elif name == "forward":
+            k["launches_benches"] = total("forward") + sum(
+                r["forward"] for r in reps)
+            k["benches_pool_check"] = bn["scale"]["forward_check"]["rel_err"]
+        elif name == "bands":
+            k["launches_benches"] = total("bands") + sum(
+                r["bands"] for r in reps)
+        elif name == "advi":
+            k["launches_benches"] = total("advi")
+
+
+def benches_child(root: str) -> int:
+    """``python3 chip_smoke.py --_benches ROOT``: phase benches in a
+    process of its own, working directory ``ROOT``; its result goes to
+    ``ROOT/result.json``.  The main process starts it beside the host-bound
+    phases (``BenchesChild``)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --_benches: no CUDA device is available",
+              file=sys.stderr)
+        return 2
+    from tsspark_tpu_torch.device import resolve_device
+
+    os.chdir(root)
+    res = phase_benches(resolve_device(None), root)
+    with open(os.path.join(root, "result.json"), "w") as fh:
+        json.dump(res, fh, default=str)
+    return 0
+
+
+class BenchesChild:
+    """Phase benches in a child process (``benches_child``), started
+    beside the host-bound phases and joined before phase frontend: the
+    benches wait mostly on process starts (their replicas), as those
+    phases do.  ``join`` returns the phase's result, or raises with the
+    child's last output if it failed."""
+
+    def __init__(self):
+        self.root = tempfile.mkdtemp(prefix="benches_")
+        env = dict(os.environ, TMPDIR=os.path.join(self.root, "tmp"))
+        os.makedirs(env["TMPDIR"])
+        self.log = open(os.path.join(self.root, "child.log"), "w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--_benches",
+             self.root], cwd=self.root, env=env, stdout=self.log,
+            stderr=subprocess.STDOUT)
+
+    def join(self) -> dict:
+        t_wait = time.perf_counter()
+        try:
+            rc = self.proc.wait(timeout=BN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            rc = None
+        wait_s = time.perf_counter() - t_wait
+        self.log.flush()
+        if rc != 0:
+            with open(self.log.name) as fh:
+                tail = fh.read()[-6000:]
+            raise RuntimeError(f"check failed: phase benches (rc {rc}):\n"
+                               f"{tail}")
+        with open(os.path.join(self.root, "result.json")) as fh:
+            res = json.load(fh)
+        res["child_s"] = time.perf_counter() - self.t0
+        res["join_wait_s"] = wait_s
+        return res
+
+    def close(self) -> None:
+        import shutil
+
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.log.close()
+        shutil.rmtree(self.root, ignore_errors=True)
+
+
 SETUP_WORKERS = 4
 
 
@@ -8976,7 +9581,11 @@ def setup_data(args, serve_root: str, workers: int = SETUP_WORKERS) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--_benches", default=None, metavar="ROOT",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args._benches:
+        return benches_child(args._benches)
 
     import torch
 
@@ -9041,6 +9650,7 @@ def main(argv=None) -> int:
         fe_holiday(batch3))
     dp_ingest = DataplaneIngest(parity)
     unc_root = tempfile.mkdtemp(prefix="uncertainty_")
+    benches = None
     finished = False
     import shutil
 
@@ -9067,6 +9677,10 @@ def main(argv=None) -> int:
         del m5_df
         eval12 = timed("eval12", phase_eval12, device, batches12, gen12_s,
                        parity)
+        # Phase benches runs in a child beside the host-bound phases
+        # dataplane, resilient, resident, refit and sched
+        # (``BenchesChild``).
+        benches = BenchesChild()
         dp = timed("dataplane", phase_dataplane, device, dp_ingest)
         rs = timed("resilient", phase_resilient, device, dp_ingest,
                    dp.pop("handoff"))
@@ -9081,6 +9695,8 @@ def main(argv=None) -> int:
         finally:
             shutil.rmtree(rf_hand["scratch"], ignore_errors=True)
         del rf_hand
+        bn = timed("benches", benches.join)
+        emit(bn)
         fe = timed("frontend", phase_frontend, device, batch3, fe_cpu)
         scale = timed("serve_scale", phase_serve_scale, device, serve)
         kernels = timed("kernels", phase_kernels, serve, fwd, bnd, fit,
@@ -9092,6 +9708,7 @@ def main(argv=None) -> int:
         add_resilient(kernels["kernels"], rs)
         add_resident_refit(kernels["kernels"], rd, rf)
         add_sched(kernels["kernels"], sc)
+        add_benches(kernels["kernels"], bn)
         add_frontend(kernels["kernels"], fe)
         add_serve_scale(kernels["kernels"], scale)
         finished = True
@@ -9099,6 +9716,8 @@ def main(argv=None) -> int:
         import shutil
 
         dp_ingest.close()
+        if benches is not None:
+            benches.close()
         shutil.rmtree(unc_root, ignore_errors=True)
         shutil.rmtree(serve_root, ignore_errors=True)
         parity.close(finished)

@@ -31,6 +31,11 @@ a child process a tree runs the steps named in ``--steps``:
   ``chip_smoke.rd_time_split`` (this checkout only).
 * **build**: every ``csrc/*.cu`` compiled without, then with,
   ``--split-compile=0``, each ``nvcc`` process's wall.
+* **rhat**: ``hmc.split_rhat_ess`` on (300, 30,490, 53) float32 draws on
+  the card (AR(1) chains from a seeded generator, ``fit_mcmc``'s shape):
+  its wall, and every tree's R-hat and ESS against the first PARENT
+  run's at float64 tolerance (the card's float64 arithmetic is not the
+  host's bits).
 
 Each step prints a JSON line (also appended to ``--out``/room.jsonl when
 ``--out`` names a directory), then ``nvidia-smi``'s name and power limit.
@@ -136,6 +141,25 @@ if "setup" in steps:
                       "digests": dig}), flush=True)
     del made, b3, b4, sb
     shutil.rmtree(root, ignore_errors=True)
+if "rhat" in steps:
+    from tsspark_tpu_torch.ops import hmc
+    g = torch.Generator(device="cuda").manual_seed(3)
+    e = torch.randn((300, 30490, 53), generator=g, device="cuda")
+    phi = 0.95 * torch.rand((30490, 53), generator=g, device="cuda")
+    x = torch.empty_like(e)
+    x[0] = e[0]
+    for t in range(1, 300):
+        x[t] = phi * x[t - 1] + e[t]
+    del e
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rhat, ess = hmc.split_rhat_ess(x)
+    wall = time.perf_counter() - t0
+    path = os.path.join(lib_dir, f"rhat_{os.getpid()}.npz")
+    np.savez(path, rhat=rhat, ess=ess)
+    print(json.dumps({"step": "rhat", "tree": tree, "wall_s": wall,
+                      "out": path}), flush=True)
+    del x
 if not {"prep", "fit", "extra"} & set(steps):
     sys.exit(0)
 z = np.load(batch_path)
@@ -263,7 +287,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("parent")
     ap.add_argument("--steps", default="setup,prep,fit",
-                    help="comma-separated: setup, prep, fit, extra, build")
+                    help="comma-separated: setup, rhat, prep, fit, extra, "
+                         "build")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     steps = args.steps.split(",")
@@ -300,9 +325,9 @@ def main() -> int:
         np.savez(batch_path, ds=b.ds, y=b.y, mask=b.mask, reg=b.regressors)
         del b
     parent = os.path.abspath(args.parent)
-    digests = {}
+    digests, rhat_out = {}, {}
     for i, tree in enumerate((parent, HERE, HERE, parent)):
-        todo = [st for st in steps if st in ("setup", "prep", "fit")]
+        todo = [st for st in steps if st in ("setup", "rhat", "prep", "fit")]
         if "extra" in steps and i == 1:
             todo.append("extra")
         if not todo:
@@ -316,6 +341,8 @@ def main() -> int:
                 d["which"] = "parent" if tree == parent else "change"
                 if "digest" in d:
                     digests.setdefault(d["step"], []).append(d["digest"])
+                if d["step"] == "rhat":
+                    rhat_out.setdefault(d["which"], []).append(d["out"])
                 emit(d)
         if p.returncode:
             emit({"step": "child_failed", "tree": tree, "rc": p.returncode,
@@ -323,6 +350,18 @@ def main() -> int:
     emit({"step": "bits", "same": {k: len(set(v)) == 1
                                    for k, v in digests.items()},
           "n": {k: len(v) for k, v in digests.items()}})
+    if rhat_out.get("parent") and rhat_out.get("change"):
+        # The card's float64 R-hat / ESS against the host's: a tolerance,
+        # not bits (the FFT's and the sums' order are the device's).
+        ref = np.load(rhat_out["parent"][0])
+        err = {}
+        for path in rhat_out["parent"][1:] + rhat_out["change"]:
+            z = np.load(path)
+            for k in ("rhat", "ess"):
+                e = float(np.max(np.abs(z[k] - ref[k])
+                                 / np.maximum(np.abs(ref[k]), 1.0)))
+                err[k] = max(err.get(k, 0.0), e)
+        emit({"step": "rhat_vs_parent", "max_rel_err": err})
     for f in glob.glob(os.path.join(os.path.dirname(batch_path), "*")):
         os.remove(f)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

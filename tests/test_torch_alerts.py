@@ -11,6 +11,7 @@ scorer and the log against the JAX package's.
 """
 
 import collections
+import json
 import os
 import random
 import shutil
@@ -367,7 +368,10 @@ def test_arrival_model_overdue_rows():
 def test_cli_polls_once_on_the_cpu_and_refuses_the_bench(world, tmp_path):
     """``python -m tsspark_tpu_torch.alerts --device cpu --poll-once``
     scores and delivers the landed deltas into the log an in-process
-    stream then reads as its own; ``--bench`` exits 2."""
+    stream then reads as its own; ``--bench smoke --device cpu`` runs the
+    land→alert bench on the CPU and exits 0 with its report in the
+    working directory (the test keeps the name it had when the bench was
+    not yet ported and exited 2)."""
     dset, reg, engine = world
     _land(dset)
     _land(dset, rows=(1, 3))
@@ -389,11 +393,22 @@ def test_cli_polls_once_on_the_cpu_and_refuses_the_bench(world, tmp_path):
             _rec_path(tmp_path / "inproc", q))
     keys = [a["key"] for a in JsonlSink(sink_path).alerts()]
     assert len(keys) == len(set(keys)) > 0
+    bench_env = dict(env, TMPDIR=str(tmp_path / "bench_tmp"),
+                     TSSPARK_SENTINEL="0")
+    os.makedirs(bench_env["TMPDIR"])
+    bench_cwd = tmp_path / "bench_cwd"
+    bench_cwd.mkdir()
     bench = subprocess.run(
         [sys.executable, "-m", "tsspark_tpu_torch.alerts", "--bench",
-         "smoke", "--device", "cpu"], cwd=str(tmp_path / "cli_log"),
-        env=env, capture_output=True, text=True, timeout=120)
-    assert bench.returncode == 2 and "not ported yet" in bench.stderr
+         "smoke", "--device", "cpu"], cwd=str(bench_cwd),
+        env=bench_env, capture_output=True, text=True, timeout=300)
+    assert bench.returncode == 0, bench.stderr[-2000:]
+    report, = os.listdir(bench_cwd)
+    assert report.startswith("BENCH_alerts_smoke_")
+    with open(bench_cwd / report) as fh:
+        rep = json.load(fh)
+    assert rep["complete"] and rep["delivered_frac"] == 1.0
+    assert rep["device"] == "cpu"
 
 
 # ---------------------------------------------------------------------------

@@ -250,6 +250,30 @@ def test_split_rhat_ess_blocked_is_unblocked_and_jax(block, threads):
         thmc.split_rhat_ess(x[:3])
 
 
+@pytest.mark.parametrize("s", [60, 301])
+def test_split_rhat_ess_card_arithmetic_is_numpys_at_float64(s):
+    """The card's path (``_split_rhat_ess_block_torch``, here run on CPU
+    tensors) against the host's numpy block and the JAX package's
+    ``split_rhat_ess``: float64 tolerance (the FFT's and the sums'
+    order are the device's), every stopping decision of the ESS the
+    same; a constant marginal and a chain whose halves part."""
+    rng = np.random.default_rng(s)
+    b, p = 13, 6
+    phi = rng.uniform(0.0, 0.99, (b, p))
+    x = np.zeros((s, b, p))
+    e = rng.normal(0, 1, (s, b, p))
+    for t in range(1, s):
+        x[t] = phi * x[t - 1] + e[t]
+    x[:, 4, 2] = 3.0
+    x[: s // 2, 7] += 4.0
+    got = thmc._split_rhat_ess_block_torch(torch.from_numpy(x))
+    want = thmc._split_rhat_ess_block(x)
+    for g, w, j in zip(got, want, jhmc.split_rhat_ess(x)):
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-12, atol=1e-12)
+        np.testing.assert_allclose(g.numpy(), j, rtol=1e-12, atol=1e-12)
+    assert got[0][4, 2] == 1.0 and got[1][4, 2] == 2 * (s // 2)
+
+
 def test_hmc_recovers_gaussian_moments():
     """tests/test_hmc.py's target on the port's sampler and generator."""
     b, p = 4, 6

@@ -127,7 +127,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "tsspark_tpu_torch.alerts.score",
                 "tsspark_tpu_torch.alerts.sink",
                 "tsspark_tpu_torch.alerts.stream",
-                "tsspark_tpu_torch.alerts.__main__"):
+                "tsspark_tpu_torch.alerts.__main__",
+                "tsspark_tpu_torch.alerts.bench",
+                "tsspark_tpu_torch.bench_scale",
+                "tsspark_tpu_torch.serve.planebench",
+                "tsspark_tpu_torch.obs.ledger",
+                "tsspark_tpu_torch.obs.watch",
+                "tsspark_tpu_torch.obs.__main__",
+                "tsspark_tpu_torch.perf.__main__",
+                "tsspark_tpu_torch.utils.logging"):
         assert mod in out["modules"]
 
 
@@ -141,6 +149,27 @@ print(json.dumps(sorted(m for m, mod in sys.modules.items()
                         if mod is not None and m.split(".")[0]
                         in ("torch", "jax", "numpy"))))
 """
+
+
+_OBS_TOOLS_LEAN = r"""
+import json, sys
+sys.modules["jax"] = None          # any `import jax` now raises
+sys.modules["torch"] = None        # any `import torch` now raises
+from tsspark_tpu_torch.obs import __main__, ledger, watch  # noqa: F401
+from tsspark_tpu_torch.perf import __main__ as perf_main  # noqa: F401
+from tsspark_tpu_torch.utils import logging  # noqa: F401
+print(json.dumps(sorted(m for m, mod in sys.modules.items()
+                        if mod is not None and m.split(".")[0]
+                        in ("torch", "jax"))))
+"""
+
+
+def test_obs_and_perf_tools_import_without_torch():
+    """The run ledger, the live watch and the ``obs`` / ``perf`` CLIs are
+    device-free, as the reference's (which never import JAX)."""
+    proc = _run(_OBS_TOOLS_LEAN)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
 
 
 def test_history_and_sentinel_import_without_torch():

@@ -278,6 +278,32 @@ def test_advi_publish_on_worker_processes_is_bitwise(tmp_path, fitted,
     assert qplane._publish_processes(qplane.PARALLEL_MIN_ROWS - 1) == 1
 
 
+def test_map_publish_on_worker_processes_is_bitwise(tmp_path, fitted,
+                                                    monkeypatch):
+    """The MAP-mode plane published with its rows' sampling spread over
+    spawned worker processes (parts of 2 rows here; the deterministic
+    components stay in this process) is the one-process publish byte for
+    byte: every column file and the sentinel's shard CRCs."""
+    backend, state, ids = fitted
+    snap = _registry(tmp_path, fitted).load()
+    monkeypatch.setattr(qplane, "_PART_ROWS", 2)
+    cols, shards = {}, {}
+    for procs in (1, 3):
+        vdir = tmp_path / f"procs{procs}"
+        vdir.mkdir()
+        spec = qplane.write_qplane(str(vdir), snap, CFG, backend,
+                                   processes=procs)
+        assert spec["mode"] == "map"
+        cols[procs] = {name: (vdir / name).read_bytes()
+                       for name in sorted(os.listdir(vdir))
+                       if name.startswith(qplane.QCOL_PREFIX)}
+        with open(vdir / qplane.QPLANE_OK) as fh:
+            shards[procs] = json.load(fh)["shards"]
+    assert len(cols[1]) == N_COLS
+    assert cols[3] == cols[1]
+    assert shards[3] == shards[1]
+
+
 def test_attach_rejects_corrupt_column(tmp_path, fitted):
     backend, state, ids = fitted
     reg = _registry(tmp_path, fitted)

@@ -567,16 +567,30 @@ def test_refit_resumes_after_delta_publish_kill(tmp_path):
         landed.theta.numpy())
 
 
-def test_delta_bench_refuses_without_side_effects(tmp_path):
+def test_delta_bench_cli_writes_its_reports(tmp_path):
+    """``python -m tsspark_tpu_torch.refit --delta-bench smoke --device
+    cpu``: the churn sweep on the CPU's host mesh, exit 0 (``sweep_ok``),
+    one ``BENCH_delta_*`` report a churn in the working directory, naming
+    the CPU; the scratch under the child's temporary directory."""
     env = orchestrate._child_env()
     env["PYTHONPATH"] = ROOT
+    env["TMPDIR"] = str(tmp_path / "tmp")
+    env["TSSPARK_SENTINEL"] = "0"
+    os.makedirs(env["TMPDIR"])
+    cwd = tmp_path / "cwd"
+    cwd.mkdir()
     proc = subprocess.run(
         [sys.executable, "-m", "tsspark_tpu_torch.refit", "--delta-bench",
-         "smoke", "--data", str(tmp_path), "--registry", str(tmp_path),
-         "--scratch", str(tmp_path), "--device", "cpu"],
-        cwd=str(tmp_path), env=env, capture_output=True, text=True,
-        timeout=120,
+         "smoke", "--churns", "0.1", "--device", "cpu"],
+        cwd=str(cwd), env=env, capture_output=True, text=True,
+        timeout=300,
     )
-    assert proc.returncode != 0
-    assert "not ported yet" in proc.stderr
-    assert os.listdir(tmp_path) == []
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    reports = sorted(os.listdir(cwd))
+    assert len(reports) == 1 and reports[0].startswith(
+        "BENCH_delta_smoke_c0100_")
+    with open(cwd / reports[0]) as fh:
+        rep = json.load(fh)
+    assert rep["extra"]["complete"] and rep["extra"]["device"] == "cpu"
+    assert rep["extra"]["fit_path"] == "resident"
+    assert refit.sweep_ok([rep])

@@ -7,14 +7,11 @@ Sizes are the reference tests': the ``demo_weekly`` plane dataset, 24
 series x 64 days in 8-row shards, 8-row waves, 20 solver iterations, on
 the virtual host mesh of 8 CPU entries.
 
-Tests of ``tests/test_sched.py`` without a counterpart here:
-``test_reuse_cold_amortizes_the_reference`` needs the freshness bench's
-``bench_scale`` rungs and ``refit.prepare_cold_registry``, which come with
-the port's benches.  ``test_freshness_spans_reach_obs_watch`` needs
-``obs/watch.py``; its counterpart reads the ``refit.freshness`` spans from
-the run's spans file.
+The counterpart of ``test_freshness_spans_reach_obs_watch`` is in
+``tests/test_torch_ledger.py``, beside the port's ``obs/watch.py``.
 """
 
+import json
 import os
 import shutil
 import subprocess
@@ -326,18 +323,33 @@ def test_publish_failure_is_retried_in_process(tmp_path):
     assert summary["pending_deltas"] == 0
 
 
-def test_freshness_bench_refuses_without_side_effects(tmp_path):
+def test_freshness_bench_cli_writes_its_reports(tmp_path):
+    """``python -m tsspark_tpu_torch.sched --freshness-bench smoke
+    --device cpu``: both loop modes on the CPU's host mesh, exit 0
+    (``refit.sweep_ok``), a ``BENCH_freshness_*`` report a mode in the
+    working directory with zero wrong-version answers."""
     env = orchestrate._child_env()
     env["PYTHONPATH"] = ROOT
+    env["TMPDIR"] = str(tmp_path / "tmp")
+    env["TSSPARK_SENTINEL"] = "0"
+    os.makedirs(env["TMPDIR"])
+    cwd = tmp_path / "cwd"
+    cwd.mkdir()
     proc = subprocess.run(
         [sys.executable, "-m", "tsspark_tpu_torch.sched",
          "--freshness-bench", "smoke", "--device", "cpu"],
-        cwd=str(tmp_path), env=env, capture_output=True, text=True,
-        timeout=120,
+        cwd=str(cwd), env=env, capture_output=True, text=True,
+        timeout=300,
     )
-    assert proc.returncode == 2
-    assert "not ported yet" in proc.stderr
-    assert os.listdir(tmp_path) == []
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    reports = sorted(os.listdir(cwd))
+    assert [r.split("_")[3] for r in reports] == ["pipelined",
+                                                 "serialized"]
+    for name in reports:
+        with open(cwd / name) as fh:
+            rep = json.load(fh)
+        assert rep["complete"] and rep["wrong_version"] == 0
+        assert rep["device"] == "cpu"
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,17 @@
 """CLI: ``python -m tsspark_tpu_torch.alerts`` — the killable alert scorer.
 
-Drive mode (``--data/--registry/--alerts-dir``): run the scorer as its
-own process over an existing plane dataset + registry, the unit a kill
-drill ends mid-publish and mid-delivery.  ``--poll-once`` runs exactly
-one cycle and exits; otherwise the loop polls until ``--duration``
-elapses or it is killed.  The engine serves on the card unless
-``--device cpu`` asks for the CPU.  ``--bench`` (the land-to-alert
-freshness bench) is not ported yet and exits 2.
+Two modes:
+
+* ``--bench RUNG`` — the land→alert freshness bench
+  (:mod:`tsspark_tpu_torch.alerts.bench`).
+* drive mode (``--data/--registry/--alerts-dir``) — run the scorer as
+  its own process over an existing plane dataset + registry, the unit a
+  kill drill ends mid-publish and mid-delivery.  ``--poll-once`` runs
+  exactly one cycle and exits; otherwise the loop polls until
+  ``--duration`` elapses or it is killed.
+
+Both run on the card unless ``--device cpu`` asks for the CPU (then the
+bench's fits take the virtual host mesh).
 """
 
 from __future__ import annotations
@@ -24,8 +29,11 @@ from tsspark_tpu_torch.obs import context as obs
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(prog="python -m tsspark_tpu_torch.alerts")
     ap.add_argument("--bench", default=None, metavar="RUNG",
-                    help="the land-to-alert freshness bench (not ported "
-                         "yet)")
+                    help="run the land→alert freshness bench at a "
+                         "scale rung instead of the scorer")
+    ap.add_argument("--reuse-cold", default=None, metavar="DIR")
+    ap.add_argument("--churn", type=float, default=None)
+    ap.add_argument("--deltas", type=int, default=None)
     ap.add_argument("--data", help="plane dataset dir")
     ap.add_argument("--registry", help="serve registry root")
     ap.add_argument("--alerts-dir", help="durable alert log dir")
@@ -43,15 +51,26 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--poll", type=float, default=0.1)
     ap.add_argument("--duration", type=float, default=None)
     ap.add_argument("--device", default=None,
-                    help="'cpu' to serve on the CPU (default: the card)")
+                    help="'cpu' to run on the CPU (default: the card)")
     args = ap.parse_args(argv)
-    if args.bench:
-        # The bench comes with the port's benches; it must never run
-        # something else in its place.
-        print("tsspark_tpu_torch.alerts: --bench (the land-to-alert "
-              "freshness bench) is not ported yet", file=sys.stderr)
-        return 2
+    if args.device == "cpu":
+        from tsspark_tpu_torch.parallel.mesh import force_virtual_host_mesh
+
+        force_virtual_host_mesh()
     obs.adopt_env()
+    if args.bench:
+        from tsspark_tpu_torch import refit
+        from tsspark_tpu_torch.alerts import bench
+
+        kw = {}
+        if args.churn is not None:
+            kw["churn"] = args.churn
+        if args.deltas is not None:
+            kw["n_deltas"] = args.deltas
+        reports = bench.run_alerts_bench(args.bench,
+                                         reuse_cold=args.reuse_cold,
+                                         device=args.device, **kw)
+        return 0 if refit.sweep_ok(reports) else 1
     if not (args.data and args.registry and args.alerts_dir):
         ap.error("--data, --registry and --alerts-dir are required "
                  "for the scorer")

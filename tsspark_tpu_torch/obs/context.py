@@ -83,6 +83,19 @@ def trace_id() -> Optional[str]:
     return _RUN.trace_id if _RUN is not None else None
 
 
+def current_span_id() -> Optional[str]:
+    return _SPAN.get()
+
+
+def current_ids() -> Optional[Dict[str, str]]:
+    """{"trace_id", "span_id"} when a span is active (the structured
+    logger stamps these onto every event), else None."""
+    sid = _SPAN.get()
+    if sid is None or not active():
+        return None
+    return {"trace_id": trace_id(), "span_id": sid}
+
+
 def start_run(spans_path: Optional[str] = None,
               trace_id: Optional[str] = None) -> Optional[Run]:
     """Bind a run for this process; returns the PREVIOUS binding so a

@@ -1,6 +1,6 @@
 """Incremental delta-refit cycle: refit cost scales with CHANGED series (the
-port's copy of the JAX package's ``refit.py``, its cycle; the churn-sweep
-bench comes with the port's benches).
+port's copy of the JAX package's ``refit.py``: the cycle, and the
+churn-sweep bench ``run_delta_bench`` with its reusable cold base).
 
 One ``run_refit`` cycle:
 
@@ -48,7 +48,7 @@ import os
 import shutil
 import sys
 import time
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -63,6 +63,11 @@ REFIT_PLAN_FILE = "refit_plan.json"
 #: Spill-set visibility marker inside a cycle dir, written LAST: each
 #: spill column is atomic on its own but the SET is not.
 SPILL_OK_FILE = "spillok.json"
+
+#: Reused cold-reference record (``run_delta_bench(reuse_cold=)`` /
+#: ``sched.run_freshness_bench``): the measured cold fit+publish walls
+#: plus the shape/fingerprint identity that makes reuse safe.
+COLD_META_FILE = "cold_meta.json"
 
 
 def warm_theta_gather(theta, idx):
@@ -583,16 +588,466 @@ def run_refit(
 
 
 # ---------------------------------------------------------------------------
+# reusable cold reference (bench --delta/--freshness --reuse-cold)
+# ---------------------------------------------------------------------------
+
+
+def load_cold_meta(base_dir: str, rung) -> Optional[Dict]:
+    """The recorded cold fit+publish reference under ``base_dir``, or
+    None when absent or not reusable for this rung (shape or data
+    fingerprint mismatch, or the cold out dir lost its coverage)."""
+    from tsspark_tpu_torch.data import plane
+
+    try:
+        with open(os.path.join(base_dir, COLD_META_FILE)) as fh:
+            meta = json.load(fh)
+    except (OSError, ValueError):
+        return None
+    if not isinstance(meta, dict):
+        return None
+    if (meta.get("series") != rung.series
+            or meta.get("timesteps") != rung.timesteps
+            or meta.get("fingerprint") != plane.dataset_fingerprint()):
+        return None
+    out_dir = os.path.join(base_dir, "cold_out")
+    done = sum(hi - lo for lo, hi
+               in orchestrate.completed_ranges(out_dir))
+    if done < rung.series:
+        return None
+    return dict(meta, out_dir=out_dir)
+
+
+def save_cold_meta(base_dir: str, meta: Dict) -> None:
+    atomic_write(
+        os.path.join(base_dir, COLD_META_FILE),
+        lambda fh: json.dump(meta, fh, indent=1), mode="w",
+    )
+
+
+def cold_base(rung, cfg, solver, run_dir: str, dset_dir: str,
+              reuse_cold: Optional[str] = None, device=None,
+              mesh=None) -> Dict:
+    """The sweep's cold reference: a complete resident fit of the rung
+    plus the measured fit wall.  With ``reuse_cold`` pointing at a
+    prior run's base dir, the recorded measurement (and the fitted
+    chunk files) are reused instead of re-fitting the whole rung on
+    every invocation — the amortization churn sweeps and the freshness
+    bench ride.  Returns ``{"out_dir", "fit_s", "publish_s" (None when
+    the caller must measure its own publish), "fit_path", "reused"}``.
+    ``device`` / ``mesh``: the resident fit's, as ``run_refit`` takes
+    them."""
+    from tsspark_tpu_torch import resident
+    from tsspark_tpu_torch.data import plane
+
+    if reuse_cold:
+        meta = load_cold_meta(reuse_cold, rung)
+        if meta is not None:
+            return {"out_dir": meta["out_dir"],
+                    "fit_s": float(meta["fit_s"]),
+                    "publish_s": float(meta["publish_s"]),
+                    "fit_path": meta.get("fit_path"),
+                    "data_stamp": int(meta.get("data_stamp") or 0),
+                    "reused": True}
+    base_dir = reuse_cold or run_dir
+    out_dir = os.path.join(base_dir, "cold_out")
+    # No (valid) meta means whatever lives in cold_out is NOT a
+    # reusable fit for THIS rung/dataset — a different shape, or a
+    # rotated data fingerprint.  Clear it: run_resident resumes from
+    # completed chunk files, so stale coverage would silently publish
+    # parameters fit against different data AND record a near-zero
+    # "cold" wall into the meta (poisoning every *_vs_cold metric).
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir, exist_ok=True)
+    orchestrate.save_run_config(out_dir, cfg, solver)
+    data_stamp = plane.delta_seq(dset_dir)
+    t0 = time.time()
+    cold_state = resident.run_resident(
+        data_dir=dset_dir, out_dir=out_dir, series=rung.series,
+        chunk=rung.chunk, phase1_iters=0, no_phase1_tune=True,
+        mesh=mesh, device=device,
+    )
+    fit_s = time.time() - t0
+    if not cold_state.get("complete"):
+        return {"out_dir": out_dir, "fit_s": fit_s, "publish_s": None,
+                "fit_path": cold_state.get("fit_path"),
+                "data_stamp": data_stamp,
+                "reused": False, "complete": False}
+    return {"out_dir": out_dir, "fit_s": fit_s, "publish_s": None,
+            "fit_path": cold_state.get("fit_path"),
+            "data_stamp": data_stamp, "reused": False,
+            "complete": True}
+
+
+# ---------------------------------------------------------------------------
+# bench --delta: the churn-fraction sweep
+# ---------------------------------------------------------------------------
+
+#: Churn fractions ``bench --delta`` sweeps by default.
+DEFAULT_CHURNS = (0.01, 0.1, 0.3)
+
+
+def parse_churns(spec: Optional[str]):
+    """Churn fractions from a ``--churns`` CLI string (None -> the
+    defaults): the parser of ``python -m tsspark_tpu_torch.refit
+    --delta-bench``, as of both the JAX package's entry points."""
+    if not spec:
+        return DEFAULT_CHURNS
+    return tuple(float(c) for c in spec.split(","))
+
+
+def sweep_ok(reports: Sequence[Dict]) -> bool:
+    """The sweep's pass/fail contract — every cycle complete AND
+    sentinel-green — reduced in ONE place so every bench CLI's exit
+    code (the delta, freshness and alert benches) means the same.  Success reports are bench-shaped
+    (``complete`` lives under ``extra``); failure records carry it at
+    the top level — accept both, and an EMPTY sweep is a failure."""
+    if not reports:
+        return False
+    return all(
+        bool(r.get("complete", (r.get("extra") or {}).get("complete")))
+        and r.get("sentinel_ok", True)
+        for r in reports
+    )
+
+
+#: A delta-bench run tree untouched this long is reaped on the next
+#: sweep: each invocation keys a fresh ``run_<unix>`` dir (the cold
+#: fit must be a real measurement, never a warm resume), so without an
+#: age gate repeated sweeps accumulate rung-sized chunk/registry trees
+#: forever.
+STALE_RUN_S = 6 * 3600.0
+
+
+def _sweep_stale_runs(scratch: str, keep: str,
+                      max_age_s: float = STALE_RUN_S) -> int:
+    removed = 0
+    try:
+        names = os.listdir(scratch)
+    except OSError:
+        return 0
+    for name in names:
+        d = os.path.join(scratch, name)
+        if (not name.startswith("run_") or not os.path.isdir(d)
+                or os.path.abspath(d) == os.path.abspath(keep)):
+            continue
+        try:
+            import glob as glob_mod
+
+            newest = max(
+                (os.path.getmtime(p) for p in
+                 glob_mod.glob(os.path.join(d, "**"), recursive=True)),
+                default=os.path.getmtime(d),
+            )
+        except OSError:
+            continue
+        if time.time() - newest > max_age_s:
+            shutil.rmtree(d, ignore_errors=True)
+            removed += 1
+    return removed
+
+
+def _delta_report(rung, churn: float, cold: Dict, res: Dict,
+                  serve_stats: Dict, cfg, device=None) -> Dict:
+    """One bench-family report per (rung, churn): the regression
+    sentinel keys its workload ``...+delta<churn>`` (obs.history), so
+    delta cycles are never baselined against cold fits."""
+    from tsspark_tpu_torch.bench_scale import device_name
+    from tsspark_tpu_torch.config import NUMERICS_REV
+    from tsspark_tpu_torch.obs.history import git_rev
+    from tsspark_tpu_torch.utils import checkpoint as ckpt
+
+    n_changed = res["n_changed"]
+    fit_s = res.get("fit_s") or 0.0
+    wall = res["wall_s"]
+    cold_wall = cold["fit_s"] + cold["publish_s"]
+    extra = {
+        "trace_id": obs.trace_id(),
+        "numerics_rev": NUMERICS_REV,
+        "git_rev": git_rev(),
+        "config_fingerprint": ckpt.config_fingerprint(cfg),
+        "device": device_name(device),
+        "complete": bool(res.get("complete")),
+        "fit_path": res.get("fit_path", "resident"),
+        "warm_start": res.get("warm_start"),
+        "delta_churn": churn,
+        "n_changed": n_changed,
+        "series_done": n_changed,
+        "series_total": rung.series,
+        "delta_series_per_s": (round(n_changed / fit_s, 2)
+                               if fit_s and n_changed else None),
+        "delta_wall_frac": (round(wall / cold_wall, 4)
+                            if cold_wall else None),
+        "cold_fit_s": round(cold["fit_s"], 3),
+        "cold_publish_s": round(cold["publish_s"], 3),
+        "cold_wall_s": round(cold_wall, 3),
+        "cold_reused": bool(cold.get("reused")),
+        "detect_s": res.get("detect_s"),
+        "fit_s": round(fit_s, 3),
+        "publish_s": res.get("publish_s"),
+        "flip_s": res.get("flip_s"),
+        "fit_dispatches": res.get("fit_dispatches"),
+        "version": res.get("version"),
+        **serve_stats,
+    }
+    return {
+        "metric": (f"delta_{rung.name}_{rung.series}x{rung.timesteps}"
+                   "_refit_wall"),
+        "value": round(wall, 3),
+        "unit": "s",
+        "vs_baseline": 0.0,
+        "unix": round(time.time(), 3),
+        "extra": extra,
+    }
+
+
+def prepare_cold_registry(rung, cfg, solver, run_dir: str,
+                          dset_dir: str, ids,
+                          reuse_cold: Optional[str] = None,
+                          device=None, mesh=None) -> tuple:
+    """(registry, cold, catchup) shared by ``bench --delta`` and
+    ``bench --freshness``: the cold reference via :func:`cold_base`
+    (measured fresh, or reused from ``reuse_cold``), published into a
+    fresh registry under ``run_dir``.  When the reused base predates
+    deltas already landed on the plane, one UNTIMED warm catch-up
+    cycle brings the registry current so the measured sweep starts
+    from a warm, current base — the reuse must amortize the cold fit,
+    never skew the measured cycles with a backlog."""
+    from tsspark_tpu_torch.config import SolverConfig
+    from tsspark_tpu_torch.data import plane
+    from tsspark_tpu_torch.serve.registry import ParamRegistry
+
+    cold = cold_base(rung, cfg, solver, run_dir, dset_dir,
+                     reuse_cold=reuse_cold, device=device, mesh=mesh)
+    if cold.get("complete") is False:
+        return None, cold, None
+    registry = ParamRegistry(os.path.join(run_dir, "registry"), cfg)
+    t0 = time.time()
+    orchestrate.publish_fit_state(
+        registry, cold["out_dir"], ids,
+        data_stamp=int(cold.get("data_stamp") or 0),
+    )
+    publish_s = time.time() - t0
+    if cold["publish_s"] is None:
+        cold["publish_s"] = publish_s
+        if reuse_cold:
+            save_cold_meta(reuse_cold, {
+                "rung": rung.name, "series": rung.series,
+                "timesteps": rung.timesteps,
+                "fingerprint": plane.dataset_fingerprint(),
+                "fit_s": round(cold["fit_s"], 3),
+                "publish_s": round(cold["publish_s"], 3),
+                "fit_path": cold.get("fit_path"),
+                "data_stamp": int(cold.get("data_stamp") or 0),
+                "unix": round(time.time(), 3),
+            })
+    catchup = None
+    if plane.delta_seq(dset_dir) > int(cold.get("data_stamp") or 0):
+        # Prior sweeps' deltas: refit them untimed so measured cycles
+        # see only their own churn.
+        catchup = run_refit(
+            data_dir=dset_dir, registry=registry,
+            scratch=os.path.join(run_dir, "catchup"),
+            chunk=rung.chunk,
+            solver_config=SolverConfig(max_iters=rung.max_iters),
+            warm_start=True, device=device, mesh=mesh,
+        )
+    return registry, cold, catchup
+
+
+def run_delta_bench(rung="smoke",
+                    churns: Sequence[float] = DEFAULT_CHURNS,
+                    data_root: Optional[str] = None,
+                    scratch_root: Optional[str] = None,
+                    sentinel: Optional[bool] = None,
+                    reuse_cold: Optional[str] = None,
+                    device=None, mesh=None) -> List[Dict]:
+    """``bench --delta``: cold-fit one scale-ladder rung, then sweep
+    ``churns`` — land a synthetic advance, run one warm delta-refit
+    cycle (detect -> fit -> delta publish -> engine-materialized flip),
+    and measure the flip-window cache carry-forward.  One bench-family
+    ``BENCH_delta_*`` artifact per churn, each judged by the regression
+    sentinel.
+
+    The rung's plane dataset lives under a PRIVATE data root (deltas
+    mutate landed rows in place; the shared cache's bytes must stay
+    bitwise-stable for every other bench).  The cold fit runs in a
+    fresh out dir each invocation so ``cold_wall`` is always a real
+    measured fit, never a warm resume — UNLESS ``reuse_cold`` names a
+    base dir, in which case the recorded cold measurement (and warm
+    base) is reused so repeated churn sweeps amortize the cold fit.
+
+    ``device``: where the fits, the publishes and the engine run (None:
+    the card); ``mesh``: each fit's (None: the default one; on one card
+    the chunk-file protocol's worker process, named in ``fit_path``).
+    Reports go to the working directory, as the reference's."""
+    import tempfile
+
+    from tsspark_tpu_torch import bench_scale
+    from tsspark_tpu_torch.config import SolverConfig
+    from tsspark_tpu_torch.data import plane
+    from tsspark_tpu_torch.serve.cache import ForecastCache
+    from tsspark_tpu_torch.serve.engine import PredictionEngine
+
+    if isinstance(rung, str):
+        rung = bench_scale.RUNGS[rung]
+    cfg = bench_scale._config()
+    solver = SolverConfig(max_iters=rung.max_iters)
+    scratch = os.path.join(
+        scratch_root or tempfile.gettempdir(),
+        f"tsdelta_{rung.name}_{rung.series}x{rung.timesteps}"
+        f"_{plane.dataset_fingerprint()}",
+    )
+    os.makedirs(scratch, exist_ok=True)
+    prev_run = obs.start_run(os.path.join(scratch, "spans.jsonl"))
+    reports: List[Dict] = []
+    try:
+        droot = data_root or (os.path.join(reuse_cold, "plane")
+                              if reuse_cold
+                              else os.path.join(scratch, "plane"))
+        spec = plane.DatasetSpec(
+            generator="demo_weekly", n_series=rung.series,
+            n_timesteps=rung.timesteps, seed=2,
+        )
+        dset_dir = plane.ensure(spec, root=droot)
+        ids = plane.series_ids(spec)
+
+        # ---- cold reference: resident fit + publish (or reuse) ------
+        run_dir = os.path.join(scratch, f"run_{int(time.time())}")
+        _sweep_stale_runs(scratch, keep=run_dir)
+        registry, cold, _catchup = prepare_cold_registry(
+            rung, cfg, solver, run_dir, dset_dir, ids,
+            reuse_cold=reuse_cold, device=device, mesh=mesh,
+        )
+        if registry is None:
+            print("[delta] cold fit incomplete; aborting the sweep",
+                  file=sys.stderr)
+            return [{"complete": False, "stage": "cold-fit"}]
+        print(json.dumps({"delta_bench": rung.name,
+                          "cold_fit_s": round(cold["fit_s"], 3),
+                          "cold_publish_s": round(cold["publish_s"], 3),
+                          "cold_reused": bool(cold.get("reused")),
+                          "fit_path": cold["fit_path"]}), flush=True)
+
+        # ---- serving side: in-process engine, warm hot set ----------
+        sample, _ = bench_scale._request_mix(rung, ids)
+        hot = [str(s) for s in sample[:rung.hot]]
+        engine = PredictionEngine(registry, cache=ForecastCache(),
+                                  device=device)
+        engine.materialize(hot, bench_scale.HORIZONS)
+
+        for churn in churns:
+            t0 = time.time()
+            delta_rec = plane.land_synthetic_delta(dset_dir, churn)
+            land_s = time.time() - t0
+            # Idempotent re-warm: the flip-window stats must start from
+            # a warm steady state, not a cold cache.
+            engine.materialize(hot, bench_scale.HORIZONS)
+            stats0 = engine.cache.stats()
+
+            def flip_fn(v):
+                # The engine analog of the pool's materialize/drain
+                # flip: prefetch (plane CRC sweep = page warming),
+                # materialize the hot set into the warm window, flip.
+                engine.prefetch(v)
+                engine.materialize(hot, bench_scale.HORIZONS, version=v)
+                registry.activate(v)
+
+            res = run_refit(
+                data_dir=dset_dir, registry=registry,
+                scratch=os.path.join(run_dir, "refit"),
+                chunk=rung.chunk, solver_config=solver,
+                warm_start=True, flip_fn=flip_fn,
+                horizons=bench_scale.HORIZONS, device=device, mesh=mesh,
+            )
+            if not res.get("complete"):
+                # Same graceful failure as the cold-fit path: record
+                # the incomplete cycle instead of crashing the sweep.
+                print(f"[delta] churn {churn}: refit cycle incomplete; "
+                      f"stopping the sweep", file=sys.stderr)
+                reports.append({"complete": False, "stage": "refit",
+                                "churn": churn, **res})
+                break
+            # Flip-window loadgen over the hot set: carried entries
+            # serve unchanged series without a dispatch — the hit-rate
+            # win partial invalidation buys.
+            changed_ids = set(
+                (registry.delta_info(res["version"]) or {})
+                .get("changed_ids") or ()
+            )
+            n_req = 0
+            for sid in hot:
+                engine.forecast([sid], bench_scale.HORIZONS[0])
+                n_req += 1
+            stats1 = engine.cache.stats()
+            d_hits = stats1["hits"] - stats0["hits"]
+            d_total = (stats1["hits"] + stats1["misses"]
+                       - stats0["hits"] - stats0["misses"])
+            serve_stats = {
+                "land_s": round(land_s, 3),
+                "delta_seq": delta_rec["seq"],
+                "cache_carried": stats1["carried"] - stats0["carried"],
+                "flip_requests": n_req,
+                "flip_hit_rate": (round(d_hits / d_total, 4)
+                                  if d_total else None),
+                "hot_changed": sum(1 for s in hot if s in changed_ids),
+            }
+            rep = _delta_report(rung, churn, cold, res, serve_stats,
+                                cfg, device=device)
+            path = (f"BENCH_delta_{rung.name}_c{int(churn * 1000):04d}"
+                    f"_{int(rep['unix'])}.json")
+            atomic_write(path,
+                         lambda fh: json.dump(rep, fh, indent=1),
+                         mode="w")
+            rep["path"] = path
+            print(json.dumps({
+                "rung": rung.name, "churn": churn,
+                "n_changed": res["n_changed"],
+                "delta_wall_s": res["wall_s"],
+                "delta_wall_frac": rep["extra"]["delta_wall_frac"],
+                "delta_series_per_s":
+                    rep["extra"]["delta_series_per_s"],
+                "cache_carried": serve_stats["cache_carried"],
+                "flip_hit_rate": serve_stats["flip_hit_rate"],
+                "report": path,
+            }), flush=True)
+            if sentinel is None:
+                sentinel_on = (os.environ.get("TSSPARK_SENTINEL", "1")
+                               != "0")
+            else:
+                sentinel_on = sentinel
+            if sentinel_on:
+                try:
+                    from tsspark_tpu_torch.obs import regress
+
+                    verdict = regress.sentinel_report(
+                        rep, source=path
+                    )
+                    if verdict is not None:
+                        print(f"[delta] {regress.summarize(verdict)}",
+                              file=sys.stderr)
+                        rep["sentinel_ok"] = verdict["ok"]
+                except Exception as e:  # never mask the report
+                    print(f"[delta] sentinel skipped: {e!r}",
+                          file=sys.stderr)
+            reports.append(rep)
+        return reports
+    finally:
+        obs.end_run(prev_run)
+
+
+# ---------------------------------------------------------------------------
 # CLI (python -m tsspark_tpu_torch.refit): one cycle as a killable process
 # ---------------------------------------------------------------------------
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
-    """Run one delta-refit cycle as its own process (the unit a chaos run
-    kills mid delta-publish).  Adopts the spawner's trace.  ``--device
-    cpu`` asks for the CPU and forces the virtual host mesh, as the
-    reference's CLI forces its virtual CPU mesh; with no ``--device`` the
-    cycle runs on the card."""
+    """Run one delta-refit cycle (or the churn-sweep bench) as its own
+    process (the unit a chaos run kills mid delta-publish).  Adopts the
+    spawner's trace.  ``--device cpu`` asks for the CPU and forces the
+    virtual host mesh, as the reference's CLI forces its virtual CPU
+    mesh; with no ``--device`` the cycle (or the bench) runs on the card,
+    on the default mesh (one card: the file-protocol fallback, named in
+    ``fit_path``)."""
     ap = argparse.ArgumentParser(prog="python -m tsspark_tpu_torch.refit")
     ap.add_argument("--data", help="plane dataset dir")
     ap.add_argument("--registry", help="serve registry root")
@@ -607,24 +1062,32 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="publish without flipping (a pool front owns "
                          "the flip)")
     ap.add_argument("--delta-bench", default=None, metavar="RUNG",
-                    help="the churn-fraction sweep (not ported yet)")
+                    help="run the churn-fraction sweep at a scale "
+                         "rung instead of one cycle")
+    ap.add_argument("--churns", default=None,
+                    help="comma-separated churn fractions for "
+                         "--delta-bench")
+    ap.add_argument("--reuse-cold", default=None, metavar="DIR",
+                    help="reuse (or record) the cold fit+publish "
+                         "reference under DIR so repeated sweeps "
+                         "amortize the cold fit")
     ap.add_argument("--device", default=None,
                     help="'cpu' to run on the CPU (default: the card)")
     args = ap.parse_args(argv)
-    if args.delta_bench:
-        # The sweep comes with the port's benches; it must never run
-        # something else in its place.
-        print("tsspark_tpu_torch.refit: --delta-bench (the churn-fraction "
-              "sweep) is not ported yet", file=sys.stderr)
-        return 2
-    if not (args.data and args.registry and args.scratch):
-        ap.error("--data, --registry and --scratch are required for a "
-                 "refit cycle")
     if args.device == "cpu":
         from tsspark_tpu_torch.parallel.mesh import force_virtual_host_mesh
 
         force_virtual_host_mesh()
     obs.adopt_env()
+    if args.delta_bench:
+        reports = run_delta_bench(args.delta_bench,
+                                  churns=parse_churns(args.churns),
+                                  reuse_cold=args.reuse_cold,
+                                  device=args.device)
+        return 0 if sweep_ok(reports) else 1
+    if not (args.data and args.registry and args.scratch):
+        ap.error("--data, --registry and --scratch are required for a "
+                 "refit cycle")
     from tsspark_tpu_torch.config import SolverConfig
     from tsspark_tpu_torch.serve.registry import ParamRegistry
 

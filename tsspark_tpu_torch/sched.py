@@ -1,7 +1,7 @@
 """Always-on refit scheduler: the ingest -> fit -> publish -> serve loop as
 a daemon with a data-to-forecast freshness measure (the port's copy of the
-JAX package's ``sched.py``; its freshness bench comes with the port's
-benches).
+JAX package's ``sched.py``, with its freshness bench
+``run_freshness_bench``).
 
 * **The loop**: ``RefitScheduler`` watches the data plane's ``delta_seq``
   and triggers cycles continuously under a debounce / backoff policy.
@@ -946,6 +946,290 @@ def read_sched_state(scratch: str) -> Optional[Dict]:
         return None
 
 
+# ---------------------------------------------------------------------------
+# the freshness bench: the sustained churn stream
+# ---------------------------------------------------------------------------
+
+#: Default churn fraction per landed delta (the 1–10% band production
+#: late-arriving data lives in).
+DEFAULT_FRESHNESS_CHURN = 0.05
+
+#: Deltas per measured stream.
+DEFAULT_FRESHNESS_DELTAS = 6
+
+#: Fraction of each delta drawn from a persistent hot pool (real
+#: late-arriving data is cadenced — the same stores report daily — and
+#: the hot bias is what gives the arrival model a learnable signal; the
+#: rest stays uniform so mispredictions exist to discard).
+HOT_BIAS = 0.7
+
+
+def _hot_biased_rows(rng, n: int, k: int,
+                     hot_pool: np.ndarray) -> np.ndarray:
+    k = max(1, min(int(k), n))
+    n_hot = min(int(round(HOT_BIAS * k)), len(hot_pool))
+    hot = rng.choice(hot_pool, size=n_hot, replace=False) \
+        if n_hot else np.empty(0, np.int64)
+    rest = np.setdiff1d(np.arange(n, dtype=np.int64), hot,
+                        assume_unique=False)
+    cold = rng.choice(rest, size=max(0, k - n_hot), replace=False)
+    return np.unique(np.concatenate([hot, cold]).astype(np.int64))
+
+
+def _write_freshness_report(rep: Dict) -> str:
+    path = (f"BENCH_freshness_{rep['rung']}_{rep['mode']}"
+            f"_{int(rep['unix'])}.json")
+    atomic_write(path, lambda fh: json.dump(rep, fh, indent=1),
+                 mode="w")
+    return path
+
+
+def _freshness_report(rung, mode: str, churn: float, n_deltas: int,
+                      interval_s: float, cold: Dict, summary: Dict,
+                      wrong_version: int, cfg, device=None) -> Dict:
+    from tsspark_tpu_torch.bench_scale import device_name
+    from tsspark_tpu_torch.config import NUMERICS_REV
+    from tsspark_tpu_torch.obs.history import git_rev
+    from tsspark_tpu_torch.utils import checkpoint as ckpt
+
+    fresh = summary["freshness"]
+    cold_wall = float(cold["fit_s"]) + float(cold["publish_s"])
+    p95 = fresh.get("p95_s")
+    spec = summary["spec"]
+    return {
+        "kind": "freshness-bench",
+        "unix": round(time.time(), 3),
+        "trace_id": obs.trace_id(),
+        "numerics_rev": NUMERICS_REV,
+        "git_rev": git_rev(),
+        "config_fingerprint": ckpt.config_fingerprint(cfg),
+        "device": device_name(device),
+        "rung": rung.name,
+        "series": rung.series,
+        "timesteps": rung.timesteps,
+        "mode": mode,
+        "churn": churn,
+        "deltas": n_deltas,
+        "interval_s": round(interval_s, 3),
+        "complete": bool(fresh["n"] >= n_deltas
+                         and summary["failures"] == 0),
+        "cold_fit_s": round(float(cold["fit_s"]), 3),
+        "cold_publish_s": round(float(cold["publish_s"]), 3),
+        "cold_wall_s": round(cold_wall, 3),
+        "cold_reused": bool(cold.get("reused")),
+        "freshness_n": fresh["n"],
+        "freshness_p50_s": fresh["p50_s"],
+        "freshness_p95_s": p95,
+        "freshness_mean_s": fresh["mean_s"],
+        "freshness_max_s": fresh["max_s"],
+        "freshness_vs_cold_frac": (round(p95 / cold_wall, 4)
+                                   if p95 is not None and cold_wall
+                                   else None),
+        "cycle_overhead_frac": summary["cycle_overhead_frac"],
+        "cycles": summary["cycles"],
+        "spec_hit_rate": spec["hit_rate"],
+        "spec_predicted": spec["predicted"],
+        "wrong_version": wrong_version,
+        "probe_failures": summary["probe_failures"],
+        "wall_s": summary["wall_s"],
+    }
+
+
+def run_freshness_bench(rung="smoke", *,
+                        churn: float = DEFAULT_FRESHNESS_CHURN,
+                        n_deltas: int = DEFAULT_FRESHNESS_DELTAS,
+                        interval_s: Optional[float] = None,
+                        modes: Sequence[str] = ("serialized",
+                                                "pipelined"),
+                        reuse_cold: Optional[str] = None,
+                        scratch_root: Optional[str] = None,
+                        sentinel: Optional[bool] = None,
+                        device=None, mesh=None) -> List[Dict]:
+    """The freshness bench: a sustained churn stream through the
+    always-on loop, measuring steady-state data-to-forecast freshness
+    (land of a row's ``deltaok_`` sentinel -> first request SERVED from
+    a version containing it, probed through a live in-process engine).
+
+    Runs the same stream twice — serialized back-to-back cycles, then
+    pipelined — so the report pair shows exactly what the overlap buys
+    on p95 freshness.  Both modes share one cold base (the warm-base
+    amortization ``--reuse-cold`` gives churn sweeps); the plane lives
+    under a private root because deltas mutate landed rows.  One
+    ``BENCH_freshness_*`` artifact per mode (in the working directory),
+    each judged by the regression sentinel under
+    ``[tool.tsspark.slo.freshness]``.  ``device`` / ``mesh`` go to every
+    fit, publish and the engine as ``RefitScheduler`` takes them (None:
+    the card, on the default mesh)."""
+    import tempfile
+
+    from tsspark_tpu_torch import bench_scale
+    from tsspark_tpu_torch.config import SolverConfig
+    from tsspark_tpu_torch.data import plane
+    from tsspark_tpu_torch.serve.cache import ForecastCache
+    from tsspark_tpu_torch.serve.engine import PredictionEngine
+
+    if isinstance(rung, str):
+        rung = bench_scale.RUNGS[rung]
+    cfg = bench_scale._config()
+    solver = SolverConfig(max_iters=rung.max_iters)
+    scratch = os.path.join(
+        scratch_root or tempfile.gettempdir(),
+        f"tsfresh_{rung.name}_{rung.series}x{rung.timesteps}"
+        f"_{plane.dataset_fingerprint()}",
+    )
+    os.makedirs(scratch, exist_ok=True)
+    # The freshness bench always amortizes its cold base (internally
+    # when no --reuse-cold dir was named): the measurement is the
+    # STREAM, the cold fit is only its denominator.
+    base_dir = reuse_cold or os.path.join(scratch, "coldbase")
+    os.makedirs(base_dir, exist_ok=True)
+    prev_run = obs.start_run(os.path.join(scratch, "spans.jsonl"))
+    reports: List[Dict] = []
+    try:
+        spec = plane.DatasetSpec(
+            generator="demo_weekly", n_series=rung.series,
+            n_timesteps=rung.timesteps, seed=2,
+        )
+        dset_dir = plane.ensure(spec, root=os.path.join(base_dir,
+                                                        "plane"))
+        ids = plane.series_ids(spec)
+        pool_rng = np.random.default_rng(7)
+        hot_pool = np.sort(pool_rng.choice(
+            rung.series,
+            size=max(2, int(round(2 * churn * rung.series))),
+            replace=False,
+        )).astype(np.int64)
+
+        p95_by_mode: Dict[str, Optional[float]] = {}
+        for mode in modes:
+            run_dir = os.path.join(scratch,
+                                   f"run_{int(time.time())}_{mode}")
+            # Same reaper as the delta bench: the scratch is
+            # deliberately persistent (coldbase amortization), so
+            # without an age-gated sweep every invocation strands two
+            # rung-sized registry trees forever.
+            refit._sweep_stale_runs(scratch, keep=run_dir)
+            registry, cold, _catchup = refit.prepare_cold_registry(
+                rung, cfg, solver, run_dir, dset_dir, ids,
+                reuse_cold=base_dir, device=device, mesh=mesh,
+            )
+            if registry is None:
+                print("[freshness] cold fit incomplete; aborting",
+                      file=sys.stderr)
+                reports.append({"complete": False,
+                                "stage": "cold-fit", "mode": mode})
+                break
+            cold_wall = float(cold["fit_s"]) + float(cold["publish_s"])
+            gap = interval_s if interval_s is not None else \
+                min(10.0, max(0.3, 0.15 * cold_wall))
+
+            sample, _ = bench_scale._request_mix(rung, ids)
+            hot = [str(s) for s in sample[:rung.hot]]
+            engine = PredictionEngine(registry, cache=ForecastCache(),
+                                      device=device)
+            engine.materialize(hot, bench_scale.HORIZONS)
+            probe_sid = str(ids[int(hot_pool[0])])
+
+            def flip_fn(v, _e=engine, _r=registry, _h=hot):
+                _e.prefetch(v)
+                _e.materialize(_h, bench_scale.HORIZONS, version=v)
+                _r.activate(v)
+
+            def probe(version, _e=engine, _sid=probe_sid):
+                # The scheduler judges the answer (freshness AND the
+                # backwards-version wrong_version signal).
+                res = _e.forecast([_sid], bench_scale.HORIZONS[0])
+                return res.version
+
+            sched = RefitScheduler(
+                dset_dir, registry,
+                os.path.join(run_dir, "sched"),
+                chunk=rung.chunk, solver_config=solver,
+                warm_start=True, flip_fn=flip_fn,
+                pipeline=(mode == "pipelined"), speculate=True,
+                poll_s=0.02, debounce_s=0.05, spec_refresh_s=0.2,
+                freshness_probe=probe, device=device, mesh=mesh,
+            )
+            seq0 = plane.delta_seq(dset_dir)
+            target = seq0 + int(n_deltas)
+
+            def _land_stream(_seq0=seq0, _gap=gap):
+                rng = np.random.default_rng([11, _seq0])
+                k = max(1, int(round(churn * rung.series)))
+                for i in range(int(n_deltas)):
+                    rows = _hot_biased_rows(rng, rung.series, k,
+                                            hot_pool)
+                    try:
+                        plane.land_synthetic_delta(dset_dir, churn,
+                                                   rows=rows)
+                    except Exception as e:
+                        print(f"[freshness] land failed: {e!r}",
+                              file=sys.stderr)
+                        return
+                    time.sleep(_gap)
+
+            lander = threading.Thread(target=_land_stream,
+                                      name="freshness-lander",
+                                      daemon=True)
+            t_mode0 = time.time()
+            lander.start()
+            summary = sched.run(
+                until_stamp=target,
+                duration_s=max(60.0, n_deltas * gap + 20 * cold_wall),
+            )
+            lander.join(timeout=10.0)
+            rep = _freshness_report(rung, mode, churn, int(n_deltas),
+                                    gap, cold, summary,
+                                    int(summary["wrong_version"]),
+                                    cfg, device=device)
+            rep["stream_wall_s"] = round(time.time() - t_mode0, 3)
+            path = _write_freshness_report(rep)
+            rep["path"] = path
+            p95_by_mode[mode] = rep["freshness_p95_s"]
+            print(json.dumps({
+                "rung": rung.name, "mode": mode, "churn": churn,
+                "deltas": n_deltas,
+                "freshness_p50_s": rep["freshness_p50_s"],
+                "freshness_p95_s": rep["freshness_p95_s"],
+                "freshness_vs_cold_frac":
+                    rep["freshness_vs_cold_frac"],
+                "cycle_overhead_frac": rep["cycle_overhead_frac"],
+                "spec_hit_rate": rep["spec_hit_rate"],
+                "wrong_version": rep["wrong_version"],
+                "report": path,
+            }), flush=True)
+            if sentinel is None:
+                sentinel_on = (os.environ.get("TSSPARK_SENTINEL", "1")
+                               != "0")
+            else:
+                sentinel_on = sentinel
+            if sentinel_on:
+                try:
+                    from tsspark_tpu_torch.obs import regress
+
+                    verdict = regress.sentinel_report(rep, source=path)
+                    if verdict is not None:
+                        print(
+                            f"[freshness] {regress.summarize(verdict)}",
+                            file=sys.stderr,
+                        )
+                        rep["sentinel_ok"] = verdict["ok"]
+                except Exception as e:  # never mask the report
+                    print(f"[freshness] sentinel skipped: {e!r}",
+                          file=sys.stderr)
+            reports.append(rep)
+        if len([m for m in p95_by_mode.values()
+                if m is not None]) == 2:
+            ser, pip = (p95_by_mode.get("serialized"),
+                        p95_by_mode.get("pipelined"))
+            print(json.dumps({
+                "freshness_pipeline_gain":
+                    (round(1.0 - pip / ser, 4) if ser else None),
+                "serialized_p95_s": ser, "pipelined_p95_s": pip,
+            }), flush=True)
+        return reports
+    finally:
+        obs.end_run(prev_run)
 
 
 # ---------------------------------------------------------------------------
@@ -954,8 +1238,8 @@ def read_sched_state(scratch: str) -> Optional[Dict]:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
-    """Run the always-on scheduler as its own process (the unit a chaos
-    run kills at every stage).  Adopts the spawner's trace; prints ONE
+    """Run the always-on scheduler (or the freshness bench) as its own
+    process (the unit a chaos run kills at every stage).  Adopts the spawner's trace; prints ONE
     JSON summary line at exit.  ``--device cpu`` asks for the CPU and
     forces the virtual host mesh, so each cycle's fit runs resident in
     this process, as the reference's daemon does on its virtual CPU mesh;
@@ -988,24 +1272,25 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="publish without flipping (a pool front owns "
                          "the flip)")
     ap.add_argument("--freshness-bench", default=None, metavar="RUNG",
-                    help="the freshness stream bench (not ported yet)")
+                    help="run the freshness stream bench at a scale "
+                         "rung instead of the daemon")
+    ap.add_argument("--reuse-cold", default=None, metavar="DIR")
     ap.add_argument("--device", default=None,
                     help="'cpu' to run on the CPU (default: the card)")
     args = ap.parse_args(argv)
-    if args.freshness_bench:
-        # The bench comes with the port's benches; it must never run
-        # something else in its place.
-        print("tsspark_tpu_torch.sched: --freshness-bench (the freshness "
-              "stream bench) is not ported yet", file=sys.stderr)
-        return 2
-    if not (args.data and args.registry and args.scratch):
-        ap.error("--data, --registry and --scratch are required for "
-                 "the daemon")
     if args.device == "cpu":
         from tsspark_tpu_torch.parallel.mesh import force_virtual_host_mesh
 
         force_virtual_host_mesh()
     obs.adopt_env()
+    if args.freshness_bench:
+        reports = run_freshness_bench(args.freshness_bench,
+                                      reuse_cold=args.reuse_cold,
+                                      device=args.device)
+        return 0 if refit.sweep_ok(reports) else 1
+    if not (args.data and args.registry and args.scratch):
+        ap.error("--data, --registry and --scratch are required for "
+                 "the daemon")
     from tsspark_tpu_torch.config import SolverConfig
     from tsspark_tpu_torch.serve.registry import ParamRegistry
 

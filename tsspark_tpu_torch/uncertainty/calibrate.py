@@ -15,9 +15,10 @@ workload (``demo_weekly``, read off the data plane under ``data_root``)
 with the last ``holdout`` days withheld,
 the MAP fit, the ADVI advance, the quantile plane's publish, the coverage
 eval, interval-read probes and a small HMC gold audit on the same
-truncated data.  It runs on the card unless ``device="cpu"``.  The
-reference's ``run_uncertainty_bench`` (its run history and regression
-sentinel) waits for the port's observability tooling.
+truncated data.  It runs on the card unless ``device="cpu"``.
+``run_uncertainty_bench`` wraps it as the reference's bench does: the
+``BENCH_uncertainty_*`` report, its ``calibration`` row in the run history
+and the regression sentinel.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ __all__ = [
     "coverage_eval",
     "evaluate_version",
     "run_calibration_smoke",
+    "run_uncertainty_bench",
 ]
 
 DEFAULT_HOLDOUT = 28
@@ -121,26 +123,6 @@ def evaluate_version(registry, version: int, ds_future: np.ndarray,
         "seed": view.seed,
         "coverage_abs_gap": max(gaps),
         "buckets": buckets,
-    }
-
-
-def _report_identity(registry, device) -> dict:
-    """The report's identity: the port's NUMERICS_REV, the torch device's
-    name and the config fingerprint."""
-    import torch
-
-    from tsspark_tpu_torch.config import NUMERICS_REV
-    from tsspark_tpu_torch.obs import context as obs
-    from tsspark_tpu_torch.utils import checkpoint as ckpt
-
-    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
-            else "cpu")
-    return {
-        "unix": round(time.time(), 3),
-        "trace_id": obs.trace_id(),
-        "numerics_rev": NUMERICS_REV,
-        "device": name,
-        "config_fingerprint": ckpt.config_fingerprint(registry.config),
     }
 
 
@@ -265,7 +247,10 @@ def run_calibration_smoke(scratch: str, *, n_series: int = 24,
             device=dev,
         )
 
-    return {
+    from tsspark_tpu_torch.obs import context as obs
+    from tsspark_tpu_torch.serve.__main__ import _report_identity
+
+    report = {
         **_report_identity(registry, dev),
         "kind": "calibration-eval",
         "n_series": int(n_series),
@@ -295,3 +280,49 @@ def run_calibration_smoke(scratch: str, *, n_series: int = 24,
             },
         },
     }
+    obs.event("calibration.smoke",
+              coverage_abs_gap=calib["coverage_abs_gap"],
+              mode=calib["mode"], qread_p99_ms=qread["p99"])
+    return report
+
+
+def run_uncertainty_bench(args) -> int:
+    """The calibration bench (an argparse-style namespace, as the JAX
+    package's ``bench.py --uncertainty`` passes: series / seed / dir /
+    report / data_root, and ``device``: None is the card).  Persists the
+    ``kind="calibration-eval"`` report as ``BENCH_uncertainty_*`` (in the
+    working directory unless ``args.report``), joins it to RUNHISTORY as
+    the ``calibration`` row family, and gates under
+    ``[tool.tsspark.slo.calibration]``.  Returns the exit code; the run's
+    trace binding is restored when it ends."""
+    import json
+
+    from tsspark_tpu_torch.io import atomic_write
+    from tsspark_tpu_torch.obs import context as obs
+    from tsspark_tpu_torch.serve.__main__ import _sentinel_gate
+
+    scratch = os.path.join(args.dir or ".", "uncertainty_scratch")
+    prev = obs.start_run(os.path.join(scratch, "spans.jsonl"))
+    try:
+        report = run_calibration_smoke(
+            scratch, n_series=int(args.series), seed=int(args.seed),
+            data_root=args.data_root, device=getattr(args, "device", None),
+        )
+        out = args.report or f"BENCH_uncertainty_{int(time.time())}.json"
+        atomic_write(out, lambda fh: json.dump(report, fh, indent=1),
+                     mode="w")
+        cal = report["calibration"]
+        gold = cal.get("gold") or {}
+        print(
+            f"uncertainty: mode {cal['mode']} | coverage gap "
+            f"{cal['coverage_abs_gap']} (nominal-vs-empirical, worst "
+            f"bucket) | advi {cal['advi_series_per_s']} series/s "
+            f"({cal['advi_fit_s']}s) | qplane publish {cal['publish_s']}s "
+            f"({cal['nbytes']} B) | qread p50={cal['qread_ms']['p50']} "
+            f"p99={cal['qread_p99_ms']} ms | gold qdiv_max "
+            f"{gold.get('qdiv_max')} rhat_max {gold.get('rhat_max')} | "
+            f"report -> {out}"
+        )
+        return _sentinel_gate(report, out)
+    finally:
+        obs.end_run(prev)

@@ -22,8 +22,9 @@ per-series host numpy sampler whose RNG is keyed on ``(seed, global_row)``
 alone (``np.random.SeedSequence``), so the publisher's chunked compute
 and the read path's few-row fallback run the same per-row function on the
 same inputs: plane-served bytes equal fallback-computed bytes bit for
-bit, and a full ADVI-mode publish may spread its rows over spawned worker
-processes (``write_qplane``'s ``processes``) without changing a byte.  The samplers are the reference's, line for line, so on the same
+bit, and a full publish (either mode) may spread its rows over spawned
+worker processes (``write_qplane``'s ``processes``) without changing a
+byte.  The samplers are the reference's, line for line, so on the same
 inputs they give the reference's bytes.
 
 Two sampling modes, recorded in the spec:
@@ -296,16 +297,32 @@ def _advi_rows(rows, mu, rho, s_cp, x_season, mult_mask, t, y_scale,
     return out
 
 
-#: A full publish at least this many rows wide samples its ADVI-mode rows
-#: on worker processes (the read path's few-row fallback stays in
+def _map_rows(rows, det_trend, det_add, det_mult, t, theta, y_scale,
+              floor, config, qs, draws, seed) -> np.ndarray:
+    """(len(rows), Q, T) MAP-mode quantiles of the global ``rows``, every
+    per-row input already sliced to them (the deterministic components
+    from ``backend.predict``).  Each row's draws are keyed on
+    ``(seed, rows[i])`` alone, so any split of the rows, in any process,
+    gives the same bytes."""
+    out = np.empty((len(rows), len(qs), t.shape[1]), np.float32)
+    for i, row in enumerate(rows):
+        out[i] = _row_quantiles_map(
+            det_trend[i], det_add[i], det_mult[i], t[i], theta[i],
+            y_scale[i], floor[i], config, qs, draws, seed, int(row),
+        )
+    return out
+
+
+#: A full publish at least this many rows wide samples its rows (either
+#: mode) on worker processes (the read path's few-row fallback stays in
 #: process), in parts of ``_PART_ROWS`` rows.
 PARALLEL_MIN_ROWS = 4096
 _PART_ROWS = 1024
 
 
 def _publish_processes(n_rows: int) -> int:
-    """Worker processes for an ADVI-mode publish of ``n_rows``: one per
-    core up to 8 past ``PARALLEL_MIN_ROWS``, else none."""
+    """Worker processes for a publish of ``n_rows``: one per core up to 8
+    past ``PARALLEL_MIN_ROWS``, else none."""
     if n_rows < PARALLEL_MIN_ROWS:
         return 1
     return max(1, min(8, os.cpu_count() or 1))
@@ -325,9 +342,9 @@ def compute_rows(snap, config, backend, idx, hb, *,
 
     ``posterior`` (an ``AdviPosterior`` over ALL snapshot rows) selects
     ADVI-mode sampling; None means MAP mode, whose deterministic
-    components come from ``backend.predict`` (K1 on the card).
-    ``executor`` (a process pool, ADVI mode only): the rows go to it in
-    contiguous parts, with the same bytes."""
+    components come from ``backend.predict`` (K1 on the card, in this
+    process).  ``executor`` (a process pool): the rows' sampling goes to
+    it in contiguous parts, with the same bytes."""
     if config.growth == "logistic":
         raise QuantilePlaneError(
             "absent", "logistic growth has no row-local quantile "
@@ -374,13 +391,19 @@ def compute_rows(snap, config, backend, idx, hb, *,
             out[lo:hi] = part if executor is None else part.result()
     else:
         det = _predict_rows(snap, backend, idx, hb, chunk=chunk)
-        theta = _host(sub.theta)
-        for i, row in enumerate(idx):
-            out[i] = _row_quantiles_map(
-                det["trend"][i], det["additive"][i],
-                det["multiplicative"][i], t[i], theta[i], y_scale[i],
-                floor[i], config, qs, draws, seed, int(row),
-            )
+        per_row = (np.asarray(det["trend"]), np.asarray(det["additive"]),
+                   np.asarray(det["multiplicative"]), t, _host(sub.theta),
+                   y_scale, floor)
+        step_rows = len(idx) if executor is None else _PART_ROWS
+        parts = []
+        for lo in range(0, len(idx), max(step_rows, 1)):
+            hi = min(lo + step_rows, len(idx))
+            args = (idx[lo:hi], *(a[lo:hi] for a in per_row), config, qs,
+                    draws, seed)
+            parts.append((lo, hi, executor.submit(_map_rows, *args)
+                          if executor is not None else _map_rows(*args)))
+        for lo, hi, part in parts:
+            out[lo:hi] = part if executor is None else part.result()
     return {permille(q): np.ascontiguousarray(out[:, j])
             for j, q in enumerate(qs)}
 
@@ -405,9 +428,9 @@ def write_qplane(vdir: str, snap, config, backend, *,
     columns (each atomic), CRC sentinel LAST.  The ``qplane_publish``
     fault point is armed once per column, so a test can kill a publisher
     between any two columns and prove the sentinel refuses the tear.
-    ADVI mode samples its rows on ``processes`` spawned worker processes
-    (default: ``_publish_processes`` of the row count), the same bytes as
-    one process.  Returns the spec."""
+    Either mode samples its rows on ``processes`` spawned worker
+    processes (default: ``_publish_processes`` of the row count), the
+    same bytes as one process.  Returns the spec."""
     n = int(snap.state.theta.shape[0])
     buckets = bucket_ladder(horizons)
     qs = tuple(float(q) for q in quantiles)
@@ -415,7 +438,7 @@ def write_qplane(vdir: str, snap, config, backend, *,
     if processes is None:
         processes = _publish_processes(n)
     executor = None
-    if posterior is not None and processes > 1:
+    if processes > 1:
         # Spawned, never forked: the publisher may hold a CUDA context.
         executor = concurrent.futures.ProcessPoolExecutor(
             processes, mp_context=multiprocessing.get_context("spawn"))

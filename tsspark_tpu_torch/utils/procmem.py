@@ -16,6 +16,12 @@ reads the kernel's sharing-aware counters instead:
   (``/proc/<pid>/smaps``) — the resident cost attributable to the
   snapshot plane's ``snapcol_`` mappings specifically.
 
+Where ``/proc/<pid>/status`` has no ``RssAnon`` / ``RssFile`` or there is
+no ``smaps_rollup`` (a sandboxed kernel's procfs may keep only ``VmRSS``
+and the per-mapping ``smaps``), ``proc_mem`` sums the same counters over
+``/proc/<pid>/smaps``: ``Anonymous`` for the anonymous resident bytes,
+``Rss`` less ``Anonymous`` for the file-backed ones, and ``Pss``.
+
 Device-free and dependency-free (reads procfs only); every reader
 degrades to ``None`` fields off-Linux.
 """
@@ -46,12 +52,38 @@ def proc_mem(pid: Optional[int] = None) -> Dict[str, Optional[float]]:
     status = _kb_fields(f"/proc/{pid}/status",
                         ("VmRSS", "RssAnon", "RssFile"))
     rollup = _kb_fields(f"/proc/{pid}/smaps_rollup", ("Pss",))
+    if "RssAnon" not in status or "Pss" not in rollup:
+        summed = _smaps_sums(pid)
+        if "Anonymous" in summed and "RssAnon" not in status:
+            status["RssAnon"] = summed["Anonymous"]
+            if "Rss" in summed:
+                status.setdefault(
+                    "RssFile", max(0.0, summed["Rss"] - summed["Anonymous"]))
+        if "Pss" in summed:
+            rollup.setdefault("Pss", summed["Pss"])
     return {
         "rss_mb": status.get("VmRSS"),
         "rss_anon_mb": status.get("RssAnon"),
         "rss_file_mb": status.get("RssFile"),
         "pss_mb": rollup.get("Pss"),
     }
+
+
+def _smaps_sums(pid: int) -> Dict[str, float]:
+    """{"Rss", "Pss", "Anonymous"} summed over every mapping of
+    ``/proc/<pid>/smaps``, in MB; a counter the file lacks is absent."""
+    wanted = ("Rss", "Pss", "Anonymous")
+    out: Dict[str, float] = {}
+    try:
+        with open(f"/proc/{pid}/smaps") as fh:
+            for line in fh:
+                key = line.split(":", 1)[0]
+                if key in wanted:
+                    out[key] = out.get(key, 0.0) + float(
+                        line.split()[1]) / 1024.0
+    except (OSError, ValueError, IndexError):
+        return {}
+    return out
 
 
 def mapped_file_mem(pid: Optional[int] = None,
